@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the
 H100): builds the port's CUDA kernels from ``csrc/``, holds each against its
 plain PyTorch version, serves the hierarchical HRNet-W48 segmenter at 620 px
-through the port's ``Predictor`` and its HTTP server, and checks what comes
-out.
+through the port's ``Predictor`` and its HTTP server, trains it for a few
+steps at batch 16, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -10,21 +10,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
 2. build: ``nvcc`` for every source in ``csrc/`` (all started together);
-3. kernels: every kernel against its plain version at the main path's
-   shapes, with the stated tolerance, and its time (CUDA events) beside its
-   bound, the plain version's time and a library call's time;
+3. kernels: the scale-bias-act kernel against its plain version at the
+   serving path's shapes, with the stated tolerance, and its time (CUDA
+   events) beside its bound, the plain version's time and a library call's;
 4. slice: the W48 hierarchical Predictor (random weights from a seed,
    non-trivial running statistics) in f32 on the card against the same
-   model on the CPU, then bf16 at batch 4 — the main path, whose kernel
-   launches are counted;
+   model on the CPU, then bf16 at batch 4 -- the serving main path, whose
+   kernel launches are counted;
 5. serve: ``make_server`` on an ephemeral port, ``/healthz`` and 4 POSTed
-   620x620 gray PNGs whose class maps must equal the Predictor's.
+   620x620 gray PNGs whose class maps must equal the Predictor's;
+6. train parity: the full-width W48 train step in f32 (TF32 off) on the
+   card against the same step on the CPU, 128 px, batch 2, two steps;
+7. train: the train main path -- W48, 620 px, batch 16, bf16 autocast, f32
+   parameters, AdamW at lr 0.018 -- one eval step, one warm-up step (the
+   running statistics checked against the closed form with D = 2) and 5
+   timed steps, each with its launches of the three BatchNorm kernels
+   counted, then one step under the profiler;
+8. train kernels: the batch-statistics, BN-backward and scale-bias-act
+   kernels against their plain versions at every shape of the train step,
+   timed beside their bounds, the plain versions and a library call.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 the ``{"ok": true, "device": ...}`` JSON line. Imports no jax.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -35,8 +46,10 @@ import urllib.request
 import numpy as np
 import torch
 
-# bound_ms: the H100 SXM's published HBM3 rate (NVIDIA data sheet)
+# bound_ms: the H100 SXM's published HBM3 rate and dense bf16 tensor-core
+# rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+DENSE_BF16_FLOPS = 989e12
 L2_BYTES = 50 * 2 ** 20
 IMG = 620
 SEED = 0
@@ -155,13 +168,13 @@ def batch_norm_args(x, scale, shift):
 
 
 def measure_scale_bias_act(shape, dtype, act, gen, device, library: bool,
-                           eager: bool = False) -> dict:
+                           eager: bool = False, exact: bool = False) -> dict:
     """The kernel against its plain version on one seeded input (1 bf16
-    ulp, or 1e-6 relative in f32), then its device time with the input
-    read from device memory (``ms``) and from L2 (``ms_l2``), the plain
-    version's and (``library``) one F.batch_norm's time on cold inputs, and
-    the bound: x read once and y written once (plus the two (C,) f32
-    vectors) at the HBM rate."""
+    ulp, or 1e-6 relative in f32; bit for bit with ``exact``), then its
+    device time with the input read from device memory (``ms``) and from L2
+    (``ms_l2``), the plain version's and (``library``) one F.batch_norm's
+    time on cold inputs, and the bound: x read once and y written once
+    (plus the two (C,) f32 vectors) at the HBM rate."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -170,8 +183,13 @@ def measure_scale_bias_act(shape, dtype, act, gen, device, library: bool,
     y = fba.fused_scale_bias_act(x, scale, shift, act)
     torch.cuda.synchronize()
     ref = fba._scale_bias_act_ref(x, scale, shift, act)
-    err = (bf16_ulp_ok(y, ref) if dtype == torch.bfloat16
-           else f32_ok(y, ref))
+    if exact:
+        assert torch.equal(y, ref), \
+            f"scale_bias_act not bit-equal to its plain version at {shape}"
+        err = 0.0
+    else:
+        err = (bf16_ulp_ok(y, ref) if dtype == torch.bfloat16
+               else f32_ok(y, ref))
     nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * shape[-1]
     cold = cold_inputs(x, scale, shift)
 
@@ -477,6 +495,585 @@ def phase_serve(pred, tree, pngs, n_bn: int, size: int = IMG):
     return latencies
 
 
+# ------------------------------------------------------------ the train step
+TRAIN_BATCH = 16
+TRAIN_LR = 0.018
+# bench.py's level weights for the default tree (the reference recipe)
+LEVEL_WEIGHTS = [[0.0297, 1.577, 0.9619, 0.1770],
+                 [1.5432, 0.2638, 1.0413, 3.9722]]
+TRAIN_COUNTS = ("bn_stats", "bn_bwd_reduce", "bn_bwd_dx", "scale_bias_act")
+# f32 train step, card against CPU (see phase_train_parity)
+PARITY_LOSS_RTOL = 1e-4
+PARITY_GRAD_MEDIAN = 1e-4
+PARITY_GRAD_P90 = 1e-3
+PARITY_GRAD_MAX = 5e-2  # the worst tensor
+PARITY_ZERO_GRAD = 1e-9
+PARITY_STATS_RTOL = 1e-4
+PARITY_NEAR_TIES = 5e-4  # share of a level's pixels whose class may move
+
+
+def set_counts_to_zero():
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    fba.LAUNCHES = 0
+    fba.GRAD_COPIES = 0
+    for k in fba.TRAIN_LAUNCHES:
+        fba.TRAIN_LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    return dict(fba.TRAIN_LAUNCHES, scale_bias_act=fba.LAUNCHES,
+                grad_copies=fba.GRAD_COPIES)
+
+
+def synthetic_batch(tree, n: int, size: int, seed: int):
+    """Seeded images (n, S, S, 3) f32, normalised as training inputs, and
+    int8 ternary targets (n, S, S, C_total), from the port's numpy
+    synthetic generator and target factory."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .synthetic import synth_sample
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .target_factory import node_masks, ternary_encode
+
+    rng = np.random.default_rng(seed)
+    xs, ys = [], []
+    for _ in range(n):
+        img, mask = synth_sample(rng, size)
+        xs.append((np.stack((img,) * 3, -1).astype(np.float32) / 255.0
+                   - 0.5) / 0.5)
+        ys.append(ternary_encode(node_masks(mask, tree), tree)
+                  .astype(np.int8))
+    return torch.from_numpy(np.stack(xs)), torch.from_numpy(np.stack(ys))
+
+
+def train_setup(tree, sd, device, compute_dtype: str, double: bool = False):
+    """The W48 hierarchical model in train mode on ``device`` from ``sd``
+    (in float64 with ``double``, a reference on the CPU), its AdamW state
+    and its train step."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .state import create_train_state
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .steps import make_train_step
+
+    model = build_model(tree, 1, 1)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device=device, memory_format=torch.channels_last,
+                     dtype=torch.float64 if double else None).train()
+    step = make_train_step(model, tree, True, level_weights=LEVEL_WEIGHTS,
+                           compute_dtype=compute_dtype)
+    return model, create_train_state(model, TRAIN_LR), step
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (0 where both are 0)."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    return err / scale if scale else err
+
+
+def phase_train_parity(device, tree, sd, size: int = 128, batch: int = 2,
+                       steps: int = 2, settle: int = 2) -> dict:
+    """The full-width W48 train step in f32 (TF32 off) on the card against
+    the same step on the CPU (the kernels' plain versions), both against
+    the same step in float64 on the CPU, from the same weights and
+    batches.
+
+    Gradients: per tensor, the max abs error against float64 over the
+    tensor's largest |g|; on the card its median over tensors must be
+    within PARITY_GRAD_MEDIAN, its 90th percentile within PARITY_GRAD_P90
+    and its largest within PARITY_GRAD_MAX (sound held steps read up to
+    ~1e-2 on either device, always at a BN bias). The same numbers for the CPU's f32 step, and card
+    against CPU, are printed beside them: the CPU is often the one further
+    from float64, because both sides compute the batch variance by the
+    reference's formula E[x^2] - mean^2 in f32, and the card's kernel sums
+    each strip of rows in f32 and the strips in double where the plain
+    version sums in f32 throughout. Tensors whose gradient is 0 in exact
+    arithmetic (under PARITY_ZERO_GRAD of the largest: a conv bias ahead
+    of a train-mode BN) are left out.
+
+    The first steps from the seeded random weights amplify rounding
+    differences: at step 0 a few tensors' gradients differ by tens of per
+    cent between any two f32 runs and from float64, and at step 1 the 90th
+    percentile is still ~3e-4 on either device. So ``settle`` steps are run
+    on every side and printed, their gradients not held, and the next
+    ``steps`` steps are held in full. Every step after the first starts
+    every side from the float64 side's parameters, buffers and AdamW
+    state, rounded to f32: from the card's state, the compared steps would
+    differ from run to run (the card's convolutions do not round the same
+    way twice, and the early steps amplify that).
+
+    Loss and per-level losses agree with float64 to PARITY_LOSS_RTOL, BN
+    running statistics to PARITY_STATS_RTOL of each buffer's largest value,
+    confusion matrices of card and CPU up to PARITY_NEAR_TIES of the pixels
+    (near-ties of two logits). AdamW's update is about lr * sign(m /
+    sqrt(v)), so an element whose gradient is at the noise level moves by
+    up to 2 lr more on one side than on the other: parameters after each
+    update are held to 2 lr."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sides = {"card": train_setup(tree, sd, device, "float32"),
+             "cpu": train_setup(tree, sd, "cpu", "float32"),
+             "f64": train_setup(tree, sd, "cpu", "float32", double=True)}
+    dev = {"card": device, "cpu": "cpu", "f64": "cpu"}
+    out = {"size": size, "batch": batch, "steps": []}
+    for k in range(settle + steps):
+        held = k >= settle
+        for name in ("card", "cpu") if k else ():
+            # every side from the float64 side's state, rounded to f32, so
+            # every run compares from the same state; a copy of the
+            # optimizer's: on one device load_state_dict would share it
+            sides[name][0].load_state_dict(sides["f64"][0].state_dict())
+            sides[name][1].optimizer.load_state_dict(
+                copy.deepcopy(sides["f64"][1].optimizer.state_dict()))
+        x, y = synthetic_batch(tree, batch, size, SEED + 9 + k)
+        mask = (1.0, 0.0) if k == settle + steps - 1 else (1.0, 1.0)
+        aux, secs = {}, {}
+        for name, (model, state, step) in sides.items():
+            xx = x.to(dev[name])
+            t0 = time.perf_counter()
+            _, aux[name] = step(state, xx.double() if name == "f64" else xx,
+                                y.to(dev[name]),
+                                torch.tensor(mask, device=dev[name]))
+            if name == "card":
+                torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        loss = {n: float(a["loss"]) for n, a in aux.items()}
+        row = {"level_mask": mask, "loss": loss, "seconds": secs}
+        params = {n: dict(m.named_parameters())
+                  for n, (m, _, _) in sides.items()}
+        bufs = {n: {b: t for b, t in m.named_buffers()
+                    if b.endswith(("running_mean", "running_var"))}
+                for n, (m, _, _) in sides.items()}
+        for name in ("card", "cpu"):
+            row[name] = {
+                "loss_rel_err": abs(loss[name] - loss["f64"]) / abs(
+                    loss["f64"]),
+                "per_level_rel_err": rel_err(aux[name]["per_level"].cpu(),
+                                             aux["f64"]["per_level"]),
+                "stats_rel_err": max(rel_err(t.cpu(), bufs["f64"][b])
+                                     for b, t in bufs[name].items()),
+                "param_max_abs_err": max(
+                    float((p.detach().cpu().double()
+                           - params["f64"][n].detach()).abs().max())
+                    for n, p in params[name].items())}
+        g64 = {n: p.grad for n, p in params["f64"].items()}
+        top = max(float(g.abs().max()) for g in g64.values())
+        kept = [n for n, g in g64.items()
+                if float(g.abs().max()) > PARITY_ZERO_GRAD * top]
+        pairs = {"card_vs_cpu": ("card", "cpu"),
+                 "card_vs_f64": ("card", "f64"),
+                 "cpu_vs_f64": ("cpu", "f64")}
+        for key, (a, b) in pairs.items():
+            e = np.array([rel_err(params[a][n].grad.cpu().double(),
+                                  params[b][n].grad.double()) for n in kept])
+            row[key] = {"grad_median": float(np.median(e)),
+                        "grad_p90": float(np.quantile(e, 0.9)),
+                        "grad_max": float(e.max()),
+                        "worst": kept[int(e.argmax())]}
+        moved = []
+        for a, b in zip(aux["card"]["confmats"], aux["cpu"]["confmats"]):
+            a = a.cpu()
+            assert a.shape == b.shape and int(a.sum()) == int(b.sum())
+            moved.append(int((a - b).abs().sum()) // 2)
+        row["confmat_pixels_moved"] = moved
+        log(f"train parity (W48, {size} px, batch {batch}; card f32, cpu "
+            f"f32, cpu f64) step {k}"
+            + ("" if held else " (settling: its gradients are printed, not "
+               "held)") + f": {json.dumps(row)}")
+        assert all(np.isfinite(v) for v in loss.values()), loss
+        for name in ("card", "cpu"):
+            r = row[name]
+            assert r["loss_rel_err"] <= PARITY_LOSS_RTOL, (name, r)
+            assert r["per_level_rel_err"] <= PARITY_LOSS_RTOL, (name, r)
+            assert r["stats_rel_err"] <= PARITY_STATS_RTOL, (name, r)
+            assert r["param_max_abs_err"] <= 2 * TRAIN_LR + 1e-5, (name, r)
+        g = row["card_vs_f64"]
+        assert not held or g["grad_median"] <= PARITY_GRAD_MEDIAN, g
+        assert not held or g["grad_p90"] <= PARITY_GRAD_P90, g
+        assert not held or g["grad_max"] <= PARITY_GRAD_MAX, g
+        assert max(moved) <= PARITY_NEAR_TIES * batch * size * size, moved
+        out["steps"].append(row)
+    return out
+
+
+def closed_form_error(old, batch_stats, bns, d: int) -> float:
+    """Largest error, relative to each buffer's largest value, of the
+    running statistics after one step against D EMA updates with the
+    step's batch statistics: ``m^D * old + (1 - m^D) * batch`` (the running
+    variance takes the Bessel-corrected ``var * n / (n - 1)``)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .norm import BN_MOMENTUM
+
+    md = BN_MOMENTUM ** d
+    worst = 0.0
+    for mod in bns:
+        mean, var, n = batch_stats[mod]
+        om, ov = old[mod]
+        want_m = md * om + (1 - md) * mean
+        want_v = md * ov + (1 - md) * var * (n / (n - 1))
+        worst = max(worst, rel_err(mod.running_mean, want_m),
+                    rel_err(mod.running_var, want_v))
+    return worst
+
+
+def classify_kernel(name: str):
+    """The port kernel a profiler event belongs to, or None."""
+    if "scale_bias_act" in name:
+        return "scale_bias_act"
+    if "StatsOp" in name or "StatsFin" in name:
+        return "bn_stats"
+    if "ReduceOp" in name or "ReduceFin" in name or "bn_backward_dx" in name:
+        return "bn_backward"
+    return None
+
+
+def profile_call(run, what: str, top: int = 10):
+    """One ``run()`` under ``torch.profiler``: device busy time, the idle
+    share of the call's wall time (host clock around it, ending with a
+    synchronize), the top kernels and each port kernel's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    assert device_ms > 0, "the profiler saw no device time"
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    shares = {}
+    for e in kernels:
+        k = classify_kernel(e.key)
+        if k:
+            shares[k] = shares.get(k, 0.0) + e.self_device_time_total / 1e3
+    idle = max(0.0, 1 - device_ms / wall_ms)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in host
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    log(f"profile ({what}): wall {wall_ms:.3f} ms, device busy "
+        f"{device_ms:.3f} ms, idle share {idle * 100:.1f}%; port kernels: "
+        + ", ".join(f"{k} {v:.3f} ms ({v / device_ms * 100:.2f}%)"
+                    for k, v in sorted(shares.items()))
+        + f"; {launches} kernel launches from the host")
+    for e in kernels[:top]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:110]}")
+    log("  host, by self CPU time (profiled, so slower than unprofiled):")
+    for e in host[:6]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:80]} (with callees {e.cpu_time_total / 1e3:.3f} ms)")
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": idle,
+            "kernel_ms": shares, "host_launches": launches,
+            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                    for e in kernels[:top]],
+            "host_top": [(e.key[:80], e.self_cpu_time_total / 1e3, e.count)
+                         for e in host[:6]]}
+
+
+def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
+                size: int = IMG, timed: int = 5) -> dict:
+    """The train main path: W48 hierarchical, bf16 autocast with f32
+    parameters, AdamW at lr 0.018, bench.py's level weights, a seeded
+    synthetic batch with int8 ternary targets. One warm-up step (with hooks
+    that record each BN's input shape and batch statistics, for the
+    closed-form check of the running statistics with D = 2), then ``timed``
+    steps, each with its kernel launches counted (counts set to 0 just
+    before, read just after), and one step under the profiler. One eval
+    step at the same batch runs first."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import BatchNormAct
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .steps import make_eval_step
+
+    model, state, step = train_setup(tree, sd, device, "bfloat16")
+    assert model.bn_updates_per_step == tree.num_levels == 2
+    x, y = synthetic_batch(tree, batch, size, SEED)
+    assert y.dtype == torch.int8
+    x, y = x.to(device), y.to(device)
+    mask = torch.ones(tree.num_levels, device=device)
+    bns = [m for m in model.modules() if isinstance(m, BatchNormAct)]
+    assert len(bns) == n_bn
+    shapes, batch_stats = {}, {}
+
+    def record(mod, args):
+        xn = args[0].permute(0, 2, 3, 1)
+        key = (tuple(xn.shape), xn.dtype, mod.act)
+        shapes[key] = shapes.get(key, 0) + 1
+        with torch.no_grad():  # the plain version: no launch is counted
+            mean, var = fba._bn_stats_ref(xn)
+        batch_stats[mod] = (mean, var, xn.numel() // xn.shape[-1])
+
+    # the eval step first, while the running statistics are the seeded
+    # ones (after a few steps at lr 0.018 from random weights they no
+    # longer describe the activations)
+    eval_step = make_eval_step(model, tree, True, LEVEL_WEIGHTS,
+                               compute_dtype="bfloat16")
+    eval_step(x, y)
+    torch.cuda.synchronize()
+    set_counts_to_zero()
+    t0 = time.perf_counter()
+    res = eval_step(x, y)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    ec = read_counts()
+    assert ec["scale_bias_act"] == n_bn and ec["bn_stats"] == 0, ec
+    assert np.isfinite(float(res["loss"]))
+    assert int(res["confmats"][0].sum()) == batch * size * size
+    assert model.training  # the eval step restores train mode
+    log(f"eval step (bf16, batch {batch}): {eval_ms:.3f} ms, loss "
+        f"{float(res['loss']):.5f}, launches {ec}")
+    del res
+
+    conv_flops = [0]
+
+    def count_conv(mod, args, out):  # forward multiply-adds, as 2 FLOP
+        kh, kw = mod.kernel_size
+        conv_flops[0] += 2 * out.numel() * mod.in_channels // mod.groups \
+            * kh * kw
+
+    old = {m: (m.running_mean.clone(), m.running_var.clone()) for m in bns}
+    hooks = [m.register_forward_pre_hook(record) for m in bns]
+    hooks += [m.register_forward_hook(count_conv) for m in model.modules()
+              if isinstance(m, torch.nn.Conv2d)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, aux = step(state, x, y, mask)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    closed = closed_form_error(old, batch_stats, bns, d=2)
+    del batch_stats, old
+    log(f"train warm-up step: {warm_s:.2f} s, loss {float(aux['loss']):.5f};"
+        f" running statistics against the closed form with D = 2: max rel "
+        f"err {closed:.3e}; convs {conv_flops[0] / 1e9:.1f} GFLOP forward "
+        f"({conv_flops[0] / batch / 1e9:.1f} per image), about 3x that "
+        f"with dgrad and wgrad: "
+        f"{3 * conv_flops[0] / DENSE_BF16_FLOPS * 1e3:.2f} ms at the dense "
+        "bf16 peak")
+    assert closed <= 1e-5, closed
+    assert sum(shapes.values()) == n_bn
+
+    params = [p for p in model.parameters()]
+    before = [p.detach().clone() for p in params]
+    times, losses, counts = [], [], []
+    for _ in range(timed):
+        set_counts_to_zero()  # the main path: counts 0 just before ...
+        t0 = time.perf_counter()
+        state, aux = step(state, x, y, mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())  # ... and read just after
+        losses.append(float(aux["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(a, p.detach()) for a, p in
+                zip(before, params))
+    del before
+    for c in counts:
+        for k in TRAIN_COUNTS:
+            assert c[k] == n_bn, (k, c)
+    assert np.isfinite(losses).all(), losses
+    assert moved == len(params), (moved, len(params))
+    n_pix = [int(cm.sum()) for cm in aux["confmats"]]
+    assert all(cm.shape == (c + (L > 0),) * 2 for L, (cm, c) in
+               enumerate(zip(aux["confmats"], tree.classes_per_level)))
+    assert n_pix[0] == batch * size * size
+    step_ms = float(np.mean(times))
+    log(f"train main path (W48, bf16, batch {batch}, {size} px): step ms "
+        f"{[round(t, 3) for t in times]}, mean {step_ms:.3f} ms, "
+        f"{batch / step_ms * 1e3:.2f} images/s; losses "
+        f"{[round(v, 5) for v in losses]}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; launches per step {counts[0]}; "
+        f"{moved}/{len(params)} parameter tensors moved")
+    prof = profile_call(lambda: step(state, x, y, mask),
+                        f"one train step, bf16, batch {batch}")
+
+    return {"shapes": shapes, "counts": counts[0], "step_ms": times,
+            "images_per_s": batch / step_ms * 1e3, "peak_bytes": peak,
+            "warmup_s": warm_s, "losses": losses, "closed_form_err": closed,
+            "profile": prof, "eval_ms": eval_ms, "batch": batch,
+            "conv_gflop_forward": conv_flops[0] / 1e9,
+            "grad_copies": [c["grad_copies"] for c in counts]}
+
+
+def _stats_err(got, want) -> float:
+    """Max abs error of (mean, var); asserts 1e-5 relative: the mean
+    against |mean| + std, the variance against E[x^2] = var + mean^2, the
+    size of the two terms whose difference the formula takes (one row:
+    var is 0, and Σx² rounded in f32 leaves ~1e-7 of mean²)."""
+    (m, v), (mr, vr) = got, want
+    assert bool(((m - mr).abs() <= 1e-5 * (mr.abs() + vr.sqrt())
+                 + 1e-12).all()), "bn_stats mean off"
+    assert bool(((v - vr).abs() <= 1e-5 * (vr + mr * mr) + 1e-12).all()), \
+        "bn_stats var off"
+    return float(max((m - mr).abs().max(), (v - vr).abs().max()))
+
+
+def _backward_err(got, want) -> float:
+    """Max abs error of (dx, dgamma, dbeta); asserts dx within 1e-5 of
+    its largest value (plus one bf16 ulp of the value in bf16) and the
+    per-channel sums within 1e-5 of their largest."""
+    dx, dg, db = got
+    rdx, rdg, rdb = want
+    err = (dx.float() - rdx.float()).abs()
+    tol = 1e-5 * rdx.float().abs().max()
+    if dx.dtype == torch.bfloat16:
+        tol = tol + rdx.float().abs() * 2.0 ** -7
+    assert bool((err <= tol).all()), "bn_backward dx off"
+    for a, b in ((dg, rdg), (db, rdb)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), \
+            "bn_backward dgamma/dbeta off"
+    return float(max(err.max(), (dg - rdg).abs().max(),
+                     (db - rdb).abs().max()))
+
+
+def measure_train_kernels(shape, dtype, act, gen, device) -> dict:
+    """Kernels 1 and 3 against their plain versions on one seeded input,
+    then their times (inputs from device memory: ``ms``; from L2:
+    ``ms_l2``), the plain versions', one library call's and the bounds:
+    bn_stats reads x once; the BN backward reads x and g once and writes
+    dx once (its two passes move 5 such tensors)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=device) * 1.5
+         + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=device).to(dtype)
+    gamma = torch.rand(c, generator=gen, device=device) + 0.5
+    beta = torch.randn(c, generator=gen, device=device) * 0.5
+    mean, var = fba._bn_stats_ref(x)
+    rstd = torch.rsqrt(var + BN_EPS)
+    scale = gamma * rstd
+    shift = beta - mean * scale
+    vecs = (scale, shift, mean, rstd)
+    nb = x.numel() * x.element_size()
+
+    stats_err = _stats_err(fba.bn_stats(x), (mean, var))
+    got = fba.bn_act_backward(x, g, *vecs, act)
+    torch.cuda.synchronize()
+    want = fba._bn_backward_ref(x.reshape(-1, c), g.reshape(-1, c), *vecs,
+                                act)
+    bwd_err = _backward_err((got[0].reshape(-1, c), got[1], got[2]), want)
+
+    n_cold = max(2, -(-2 * L2_BYTES // (2 * nb)))
+    cold = [(x.clone(), g.clone(), gamma.clone(), *(v.clone() for v in vecs))
+            for _ in range(n_cold)]
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+    def stats_lib(xx):
+        return torch.batch_norm_stats(nchw(xx), BN_EPS)
+
+    def bwd_kernel(xx, gg, *v):
+        return fba.bn_act_backward(xx, gg, *v, act)
+
+    def bwd_plain(xx, gg, *v):
+        return fba._bn_backward_ref(xx.reshape(-1, c), gg.reshape(-1, c),
+                                    *v, act)
+
+    def bwd_lib(xx, gg, gm, mu, rs):
+        return torch.ops.aten.native_batch_norm_backward(
+            nchw(gg), nchw(xx), gm, None, None, mu, rs, True, BN_EPS,
+            [True, True, True])
+
+    stats = {"max_abs_err": stats_err, "bytes": nb + 2 * 4 * c,
+             "ms": time_ms(fba.bn_stats, [(a[0],) for a in cold]),
+             "ms_l2": time_ms(fba.bn_stats, [(x,)]),
+             "plain_ms": time_ms(fba._bn_stats_ref, [(a[0],) for a in cold]),
+             "library_ms": time_ms(stats_lib, [(a[0],) for a in cold])}
+    stats["bound_ms"] = stats["bytes"] / HBM_BYTES_PER_S * 1e3
+    bwd = {"max_abs_err": bwd_err, "bytes": 3 * nb + 6 * 4 * c,
+           "ms": time_ms(bwd_kernel, [(a[0], a[1], *a[3:]) for a in cold]),
+           "ms_l2": time_ms(bwd_kernel, [(x, g, *vecs)]),
+           "plain_ms": time_ms(bwd_plain,
+                               [(a[0], a[1], *a[3:]) for a in cold]),
+           "library_ms": time_ms(bwd_lib, [(a[0], a[1], a[2], a[5], a[6])
+                                           for a in cold])}
+    bwd["bound_ms"] = bwd["bytes"] / HBM_BYTES_PER_S * 1e3
+    return {"bn_stats": stats, "bn_backward": bwd}
+
+
+def phase_train_kernel_times(device, shapes) -> dict:
+    """Every kernel of the train step at every (shape, dtype, act) it was
+    launched with there, checked against its plain version (scale_bias_act
+    bit for bit), timed and bounded, summed over its launches of one step."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    keys = ("ms", "ms_l2", "plain_ms", "bound_ms", "library_ms", "bytes")
+    tot = {k: dict.fromkeys(keys + ("max_abs_err",), 0.0)
+           for k in ("bn_stats", "bn_backward", "scale_bias_act")}
+    for (shape, dtype, act), count in sorted(shapes.items(),
+                                             key=lambda kv: str(kv[0])):
+        rows = measure_train_kernels(shape, dtype, act, gen, device)
+        rows["scale_bias_act"] = measure_scale_bias_act(
+            shape, dtype, act, gen, device, library=True, exact=True)
+        log(f"train kernel case {list(shape)} {str(dtype)[6:]} {act} x"
+            f"{count}: " + json.dumps(rows))
+        for name, row in rows.items():
+            t = tot[name]
+            t["max_abs_err"] = max(t["max_abs_err"], row["max_abs_err"])
+            for k in keys:
+                t[k] += count * row[k]
+    for name, t in tot.items():
+        log(f"train-path {name} work: {sum(shapes.values())} launches over "
+            f"{len(shapes)} shapes, {t['bytes'] / 1e6:.1f} MB, kernel "
+            f"{t['ms']:.4f} ms from device memory ({t['ms_l2']:.4f} ms from "
+            f"L2), bound {t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, library {t['library_ms']:.4f} ms")
+    return tot
+
+
+def conv_bn_tool_bound() -> dict:
+    """The bound of the one TPU kernel still to port,
+    tools/pallas_conv_bn_experiment.py:54 (the eval shared head's 1x1
+    conv + BN + ReLU): a bf16 (N, 720) x (720, 720) product with N =
+    4 x 155 x 155 padded to 96256 rows, from its shapes alone."""
+    n, c = 96256, 720
+    flops = 2 * n * c * c
+    nbytes = 2 * n * c * 2 + c * c * 2 + 2 * c * 4  # x, out; W; a, b
+    row = {"flop": flops, "bytes": nbytes,
+           "ops_ms": flops / DENSE_BF16_FLOPS * 1e3,
+           "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    row["bound_by"] = ("operations" if row["ops_ms"] >= row["bytes_ms"]
+                       else "bytes")
+    log("kernel 4, tools/pallas_conv_bn_experiment.py:54 (not ported): "
+        + json.dumps(row))
+    return row
+
+
+def kernel_entry(name, source, replaces, launches, tot, work, **extra):
+    return {"name": name, "route": "cuda",
+            "source": "restrictive_hierarchical_semantic_segmentation_tpu_"
+                      f"torch/csrc/{source}",
+            "replaces": "restrictive_hierarchical_semantic_segmentation_tpu/"
+                        f"ops/fused_bn_act.py:{replaces}",
+            "launches": launches, "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+            "library_ms": tot["library_ms"], "ms_l2": tot["ms_l2"],
+            "work": work, **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -509,7 +1106,25 @@ def main() -> int:
     path = phase_path_kernel_times(device, result["shapes"])
     phase_profile(pred16, gray_images(result["bf16_batch"], IMG, SEED))
     latencies = phase_serve(pred16, tree, pngs, result["n_bn"])
+    del pred16
+    torch.cuda.empty_cache()
 
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+
+    sd = random_state_dict(build_model(tree, 1, 1), SEED)
+    parity = phase_train_parity(device, tree, sd)
+    train = phase_train(device, tree, sd, result["n_bn"])
+    torch.cuda.empty_cache()
+    log(f"train step times on {card}: {train['step_ms']} ms at batch "
+        f"{train['batch']}, {train['images_per_s']:.2f} images/s, peak "
+        f"{train['peak_bytes'] / 2 ** 30:.3f} GiB")
+    ttot = phase_train_kernel_times(device, train["shapes"])
+    conv_bn_tool_bound()
+
+    step_work = (f"all launches of one bf16 train step (W48, batch "
+                 f"{train['batch']}, {IMG} px), inputs read from device "
+                 "memory (ms_l2: from L2)")
     kernels = [{
         "name": "scale_bias_act",
         "route": "cuda",
@@ -518,7 +1133,9 @@ def main() -> int:
         "replaces": "restrictive_hierarchical_semantic_segmentation_tpu/ops/"
                     "fused_bn_act.py:100",
         "launches": result["launches"],
-        "max_abs_err": max([path["max_abs_err"]]
+        "train_launches": train["counts"]["scale_bias_act"],
+        "max_abs_err": max([path["max_abs_err"],
+                            ttot["scale_bias_act"]["max_abs_err"]]
                            + [c["max_abs_err"] for c in cases]),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],
@@ -530,9 +1147,27 @@ def main() -> int:
                 f"batch {result['bf16_batch']}, {IMG} px, inputs read from "
                 "device memory (ms_l2: from L2); library_ms is one "
                 "F.batch_norm(training=False) per launch (the relu launches "
-                "would need a second call)",
-    }]
-    log(json.dumps({"serve_latency_ms": latencies, "card": card}))
+                "would need a second call); train_*: the same over the "
+                "train_launches of one train step (" + step_work + ")",
+        **{f"train_{k}": ttot["scale_bias_act"][k]
+           for k in ("max_abs_err", "ms", "ms_l2", "plain_ms", "bound_ms",
+                     "library_ms")},
+    }, kernel_entry(
+        "bn_stats", "bn_stats.cu", 51, train["counts"]["bn_stats"],
+        ttot["bn_stats"], step_work + "; library_ms is one "
+        "torch.batch_norm_stats per launch"),
+        kernel_entry(
+        "bn_backward", "bn_backward.cu", 173,
+        train["counts"]["bn_bwd_reduce"], ttot["bn_backward"],
+        step_work + "; both passes (launches: pass A; launches_dx: pass B);"
+        " library_ms is one aten native_batch_norm_backward(train=True) per "
+        "launch, which computes act 'none' (relu needs its mask on top)",
+        launches_dx=train["counts"]["bn_bwd_dx"],
+        grad_copies=train["grad_copies"][0])]
+    log(json.dumps({"serve_latency_ms": latencies, "card": card,
+                    "train_parity": parity, "train": {
+                        k: v for k, v in train.items() if k != "shapes"}},
+                   default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

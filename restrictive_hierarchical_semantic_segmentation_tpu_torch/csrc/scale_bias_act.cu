@@ -26,12 +26,14 @@
 // it does not take. It launches on the caller's stream and does not
 // synchronise.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using rhss::grid_for;
+using rhss::kThreads;
+using rhss::ldg4;
 
 enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
 
@@ -46,10 +48,6 @@ __device__ __forceinline__ float activate(float y) {
 // PyTorch version computes it, so the two agree bit for bit.
 __device__ __forceinline__ float affine(float x, float s, float b) {
   return __fadd_rn(__fmul_rn(x, s), b);
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 // bf16: one uint4 = 8 values per thread and iteration.
@@ -101,20 +99,6 @@ scale_bias_act_f32(const float4* __restrict__ x, const float* __restrict__ scale
     o.w = activate<ACT>(affine(v.w, s.w, b.w));
     y[i] = o;
   }
-}
-
-int grid_for(int64_t n_vec) {
-  // enough resident blocks to fill every SM several times over; the
-  // grid-stride loop covers the rest
-  static int max_blocks = 0;
-  if (max_blocks == 0) {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    max_blocks = sms * 8;
-  }
-  const int64_t need = (n_vec + kThreads - 1) / kThreads;
-  return (int)(need < max_blocks ? need : max_blocks);
 }
 
 template <int ACT>

@@ -14,10 +14,18 @@ argument). ``concat_prev_probs`` concatenates the previous level's
 probabilities (resized, zero at level 0, right-padded to the widest level)
 to the input, and then pays one backbone pass per level.
 
+In train mode every BatchNorm of a backbone pass updates its running
+statistics once. The reference runs the backbone D times per step (D tree
+levels), so its running statistics see D updates with the same batch
+values; :attr:`HierarchicalSegmenter.bn_updates_per_step` says how many
+updates the shared forward stands for, and the train step applies the
+closed form (``train/steps.py:bn_ema_correction``).
+
 :meth:`HierarchicalSegmenter.forward` takes NHWC input and returns NHWC
 maps, as the JAX module does; inside, activations are NCHW in
 ``torch.channels_last`` memory format. Outputs are float32 whatever the
-compute dtype (``torch.autocast`` decides that).
+compute dtype (``torch.autocast`` decides that), or float64 for a model
+converted with ``.double()`` (a reference for the f32 gradients).
 """
 from __future__ import annotations
 
@@ -84,6 +92,16 @@ class HierarchicalSegmenter(nn.Module):
                     torch.as_tensor(tree.parent_index[L], dtype=torch.long),
                     persistent=False)
 
+    @property
+    def bn_updates_per_step(self) -> int:
+        """Running-statistics updates per step of the reference for each
+        one this forward makes: D with the shared backbone, else 1 (the
+        forward re-runs the backbone D times itself)."""
+        if (self.hierarchical and self.share_backbone
+                and not self.concat_prev_probs):
+            return self.tree.num_levels
+        return 1
+
     def _backbone_input(self, x: torch.Tensor,
                         prev_probs: Optional[torch.Tensor]) -> torch.Tensor:
         """x and prev_probs NCHW."""
@@ -99,8 +117,8 @@ class HierarchicalSegmenter(nn.Module):
             memory_format=torch.channels_last)
 
     def _logits(self, feats, name: str, hw) -> torch.Tensor:
-        z = getattr(self, name)(feats)
-        return resize_nchw(z, hw, self.align_corners).float()
+        z = resize_nchw(getattr(self, name)(feats), hw, self.align_corners)
+        return z if z.dtype == torch.float64 else z.float()
 
     def forward(self, x: torch.Tensor) -> SegmenterOutput:
         """x: (B, H, W, C_in) NHWC."""

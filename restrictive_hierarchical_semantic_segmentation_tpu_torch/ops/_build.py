@@ -1,10 +1,11 @@
 """Build the port's CUDA sources (``csrc/*.cu``) with ``nvcc`` and load them
 with ``ctypes``.
 
-Each source is a self-contained file with a plain C interface, compiled for
-Hopper (``sm_90a``) into ``build/torch_kernels/`` at the repository root. The
-library name carries a hash of the source and the flags, so an edited source
-is rebuilt at first use and an unchanged one is loaded as it is. Several
+Each source is a file with a plain C interface, compiled for Hopper
+(``sm_90a``) into ``build/torch_kernels/`` at the repository root; sources
+may include the headers of ``csrc/`` (``*.cuh``). The library name carries a
+hash of the source, every header and the flags, so an edited source or
+header is rebuilt at first use and an unchanged one is loaded as it is. Several
 sources build in parallel: :func:`build` starts one ``nvcc`` per source and
 waits for all of them.
 """
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every CUDA source of the port, by library name
-SOURCES = ("scale_bias_act",)
+SOURCES = ("scale_bias_act", "bn_stats", "bn_backward")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -46,8 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

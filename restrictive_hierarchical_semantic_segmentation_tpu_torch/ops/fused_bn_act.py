@@ -1,21 +1,36 @@
-"""Per-channel scale, shift and activation — the folded eval-mode BatchNorm.
+"""BatchNorm + activation kernels: the folded eval-mode pass, the batch
+statistics and the train-mode backward.
 
-Counterpart of the JAX package's ``ops/fused_bn_act.py:fused_scale_bias_act``
-(the Pallas ``_scale_bias_act_kernel``). Here it is a CUDA kernel written for
-Hopper, ``csrc/scale_bias_act.cu``, built with ``nvcc`` at first use and
-called through ``ctypes``; :func:`_scale_bias_act_ref` is its plain PyTorch
-version.
+Counterpart of the JAX package's ``ops/fused_bn_act.py``. Each of its three
+Pallas kernels is a CUDA kernel written for Hopper here, built with ``nvcc``
+at first use and called through ``ctypes``, with a plain PyTorch version
+beside it:
 
-:func:`fused_scale_bias_act` picks by where the tensor lies: a CPU tensor
-goes through the plain version, a CUDA tensor through the kernel (or the
-call raises). ``LAUNCHES`` counts kernel launches and nothing else.
+=====================================  ===================  ==============================
+Pallas kernel (JAX file)               CUDA source          plain version
+=====================================  ===================  ==============================
+``_scale_bias_act_kernel``             ``scale_bias_act.cu``  :func:`_scale_bias_act_ref`
+``_stats_kernel`` (``bn_stats``)       ``bn_stats.cu``        :func:`_bn_stats_ref`
+``_bwd_kernel`` + the tail of          ``bn_backward.cu``     :func:`_bn_backward_ref`
+``_fba_bwd`` that forms dx             (passes A and B)
+=====================================  ===================  ==============================
 
-The kernel writes a new tensor (out of place): the eval-mode caller could
-let it overwrite the dead conv output, but the saving is one allocation
-from PyTorch's caching allocator, not device traffic.
+Every wrapper picks by where the tensor lies: a CPU tensor goes through the
+plain version, a CUDA tensor through the kernel (or the call raises).
+``LAUNCHES`` counts ``scale_bias_act`` launches and ``TRAIN_LAUNCHES`` the
+train-mode kernels', by name; both count kernel launches and nothing else.
+``GRAD_COPIES`` counts backward launches whose incoming gradient had to be
+copied into the contiguous ``(rows, C)`` layout first.
 
-The training-mode kernels of the JAX file (``bn_stats``, the backward of
-``fused_bn_act``) come with the train-step slice.
+:class:`FusedBNAct` is the train-mode ``act(gamma * (x - mean) * rstd +
+beta)`` as an autograd Function (the JAX ``fused_bn_act`` custom VJP): its
+forward is the scale-bias-act kernel, it saves only x and ``(C,)`` vectors,
+and its backward is the two-pass BN backward kernel.
+:func:`batch_norm_act` takes the statistics first, on ``x.detach()``.
+
+The kernels write new tensors (out of place): the eval-mode caller could
+let scale-bias-act overwrite the dead conv output, but the saving is one
+allocation from PyTorch's caching allocator, not device traffic.
 """
 from __future__ import annotations
 
@@ -23,18 +38,30 @@ import ctypes
 
 import torch
 
-__all__ = ["fused_scale_bias_act", "ACTS", "LAUNCHES"]
+__all__ = ["fused_scale_bias_act", "bn_stats", "bn_act_backward",
+           "FusedBNAct", "fused_bn_act", "batch_norm_act", "ACTS",
+           "TRAIN_ACTS", "LAUNCHES", "TRAIN_LAUNCHES", "GRAD_COPIES"]
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
+# the train-mode backward differentiates these two only
+TRAIN_ACTS = ("none", "relu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
+TRAIN_LAUNCHES = {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+GRAD_COPIES = 0
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in f64 where it is f64 (the plain versions' math type:
+    f64 lets ``torch.autograd.gradcheck`` check them)."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _scale_bias_act_ref(x: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, act: str) -> torch.Tensor:
     """Plain version: f32 math, one rounding to x's dtype at the end."""
-    y = x.float() * scale.float() + shift.float()
+    y = _wide(x) * _wide(scale) + _wide(shift)
     if act == "relu":
         y = torch.relu(y)
     elif act == "leaky_relu":
@@ -42,21 +69,68 @@ def _scale_bias_act_ref(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-_FN = None  # the kernel's C entry point, loaded (and built) at first use
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# C entry points: (library, symbol) -> argtypes; each is loaded (and its
+# library built) at first use
+_SIGNATURES = {
+    ("scale_bias_act", "rhss_scale_bias_act"):
+        [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    ("bn_stats", "rhss_bn_stats"): [_P, _I64, _I, _I, _P, _P, _P, _P],
+    ("bn_backward", "rhss_bn_backward_reduce"):
+        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    ("bn_backward", "rhss_bn_backward_dx"):
+        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+_FNS = {}
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
+def _fn(lib: str, name: str):
+    key = (lib, name)
+    if key not in _FNS:
         from ._build import load
 
-        fn = load("scale_bias_act").rhss_scale_bias_act
+        fn = getattr(load(lib), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        _FN = fn
-    return _FN
+        fn.argtypes = _SIGNATURES[key]
+        _FNS[key] = fn
+    return _FNS[key]
+
+
+def _call(x: torch.Tensor, what: str, fn, *args) -> None:
+    """Run a C entry point with x's device current; raise on a CUDA error."""
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:  # the stream belongs to x's device: launch with it current
+        with torch.cuda.device(x.device):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_rows_c(x: torch.Tensor, what: str) -> int:
+    """The (rows, C) checks every kernel shares; returns C."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous (..., C) tensor "
+                         "(channels_last activations, viewed as NHWC)")
+    c = x.shape[-1]
+    if c % 8:
+        raise ValueError(f"{what} needs C % 8 == 0 (16-byte vectors of "
+                         f"bf16); got C = {c}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what} needs x 16-byte aligned")
+    return c
+
+
+def _device_of(x: torch.Tensor, what: str) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    return x.device.type
 
 
 def _per_channel(t: torch.Tensor, c: int, device, what: str) -> torch.Tensor:
@@ -73,33 +147,13 @@ def _per_channel(t: torch.Tensor, c: int, device, what: str) -> torch.Tensor:
 def _launch(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             act: str) -> torch.Tensor:
     global LAUNCHES
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"scale_bias_act takes float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if x.dim() < 1 or not x.is_contiguous():
-        raise ValueError("scale_bias_act needs a contiguous (..., C) tensor "
-                         "(channels_last activations, viewed as NHWC)")
-    c = x.shape[-1]
-    if c % 8:
-        raise ValueError(f"scale_bias_act needs C % 8 == 0 (16-byte vectors "
-                         f"of bf16); got C = {c}")
-    if x.data_ptr() % 16:
-        raise ValueError("scale_bias_act needs x 16-byte aligned")
+    c = _check_rows_c(x, "scale_bias_act")
     scale = _per_channel(scale, c, x.device, "scale")
     shift = _per_channel(shift, c, x.device, "shift")
     y = torch.empty_like(x)
-    fn = _kernel_fn()
-    args = (x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, _DTYPES[x.dtype], ACTS[act],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if x.device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:  # the stream belongs to x's device: launch with it current
-        with torch.cuda.device(x.device):
-            err = fn(*args)
-    if err:
-        raise RuntimeError(f"scale_bias_act kernel launch failed: CUDA error "
-                           f"{err}")
+    _call(x, "scale_bias_act", _fn("scale_bias_act", "rhss_scale_bias_act"),
+          x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
+          x.numel() // c, c, _DTYPES[x.dtype], ACTS[act], _stream(x))
     LAUNCHES += 1
     return y
 
@@ -114,9 +168,189 @@ def fused_scale_bias_act(x: torch.Tensor, scale: torch.Tensor,
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected one of "
                          f"{sorted(ACTS)}")
-    if x.device.type == "cpu":
+    if _device_of(x, "scale_bias_act") == "cpu":
         return _scale_bias_act_ref(x, scale, shift, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"scale_bias_act runs on cpu or cuda, not "
-                         f"{x.device}")
     return _launch(x, scale, shift, act)
+
+
+# ----------------------------------------------------------- batch statistics
+def _bn_stats_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: f32 sums over the rows of (rows, C), JAX's formula."""
+    xf = _wide(x.reshape(-1, x.shape[-1]))
+    n = xf.shape[0]
+    mean = xf.sum(0) / n
+    var = (xf * xf).sum(0) / n - mean * mean
+    return mean, torch.clamp(var, min=0.0)
+
+
+# the most strips a column reduction splits its rows into (kTargetBlocks in
+# csrc/bn_reduce.cuh)
+_MAX_STRIPS = 528
+
+
+def _workspace(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Scratch for a column reduction's per-strip partials: two f32 sums
+    per channel and strip."""
+    return torch.empty(2 * _MAX_STRIPS * c, dtype=torch.float32,
+                       device=x.device)
+
+
+def _launch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    c = _check_rows_c(x, "bn_stats")
+    rows = x.numel() // c
+    if rows == 0:
+        raise ValueError("bn_stats needs at least one row")
+    out = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    ws = _workspace(x, c)
+    _call(x, "bn_stats", _fn("bn_stats", "rhss_bn_stats"), x.data_ptr(),
+          rows, c, _DTYPES[x.dtype], ws.data_ptr(), out[0].data_ptr(),
+          out[1].data_ptr(), _stream(x))
+    TRAIN_LAUNCHES["bn_stats"] += 1
+    return out[0], out[1]
+
+
+def bn_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel ``(mean, var)`` of ``x`` (..., C) over every other axis,
+    in f32: ``mean = Σx / n`` and the biased ``var = max(Σx² / n − mean², 0)``
+    (JAX ``bn_stats``). Not differentiable: the train-mode backward folds
+    the statistics' gradient into dx."""
+    if _device_of(x, "bn_stats") == "cpu":
+        return _bn_stats_ref(x)
+    return _launch_stats(x)
+
+
+# ---------------------------------------------------------------- BN backward
+def _bn_backward_ref(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor, mean: torch.Tensor,
+                     rstd: torch.Tensor, act: str, need_dx: bool = True):
+    """Plain version on (rows, C): ``(dx or None, dgamma, dbeta)`` with the
+    JAX custom VJP's identities (``_fba_bwd``), f32 math, dx in x's dtype."""
+    xf = _wide(x)
+    gf = _wide(g)
+    if act == "relu":
+        dy = torch.where(xf * scale + shift > 0, gf, 0.0)
+    else:
+        dy = gf
+    xhat = (xf - mean) * rstd
+    edz = dy.sum(0)
+    eydz = (dy * xhat).sum(0)
+    dx = None
+    if need_dx:
+        n = xf.shape[0]
+        dx = (scale * (dy - (xhat * eydz + edz) / n)).to(x.dtype)
+    return dx, eydz, edz
+
+
+def _launch_backward(x: torch.Tensor, g: torch.Tensor, scale, shift, mean,
+                     rstd, act: str, need_dx: bool):
+    global GRAD_COPIES
+    c = _check_rows_c(x, "bn_backward")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"bn_backward needs g like x {tuple(x.shape)} "
+                         f"{x.dtype} {x.device}; got {tuple(g.shape)} "
+                         f"{g.dtype} {g.device}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        # the gradient autograd brings back may come in another layout (a
+        # slice of a concat's gradient, a resize's scatter): copy it into
+        # the (rows, C) layout the kernels read
+        g = g.contiguous() if not g.is_contiguous() else g.clone()
+        GRAD_COPIES += 1
+    vecs = [_per_channel(t, c, x.device, name) for t, name in
+            ((scale, "scale"), (shift, "shift"), (mean, "mean"),
+             (rstd, "rstd"))]
+    ptrs = [t.data_ptr() for t in vecs]
+    rows = x.numel() // c
+    if rows == 0:
+        raise ValueError("bn_backward needs at least one row")
+    sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    edz, eydz = sums[0], sums[1]
+    ws = _workspace(x, c)
+    head = (x.data_ptr(), g.data_ptr(), rows, c, _DTYPES[x.dtype],
+            ACTS[act])
+    _call(x, "bn_backward (reduce)",
+          _fn("bn_backward", "rhss_bn_backward_reduce"), *head, *ptrs,
+          ws.data_ptr(), edz.data_ptr(), eydz.data_ptr(), _stream(x))
+    TRAIN_LAUNCHES["bn_bwd_reduce"] += 1
+    dx = None
+    if need_dx:
+        dx = torch.empty_like(x)
+        _call(x, "bn_backward (dx)", _fn("bn_backward", "rhss_bn_backward_dx"),
+              *head, *ptrs, edz.data_ptr(), eydz.data_ptr(), dx.data_ptr(),
+              _stream(x))
+        TRAIN_LAUNCHES["bn_bwd_dx"] += 1
+    return dx, eydz, edz
+
+
+def bn_act_backward(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, mean: torch.Tensor,
+                    rstd: torch.Tensor, act: str, need_dx: bool = True):
+    """Backward of ``y = act(x * scale + shift)`` where ``scale = γ·rstd``,
+    ``shift = β − mean·γ·rstd`` and (mean, rstd) are x's batch statistics.
+
+    x and g are (rows, C) (or (..., C)); the ``(C,)`` vectors are f32.
+    Returns ``(dx, dgamma, dbeta)``: dx in x's dtype (None unless
+    ``need_dx``), ``dgamma = Σ dy·x̂`` and ``dbeta = Σ dy`` in f32.
+    ``act``: "none" or "relu"."""
+    if act not in TRAIN_ACTS:
+        raise ValueError(f"the train-mode BN backward takes act in "
+                         f"{TRAIN_ACTS}, not {act!r}")
+    if _device_of(x, "bn_backward") == "cpu":
+        c = x.shape[-1]
+        dx, dg, db = _bn_backward_ref(x.reshape(-1, c), g.reshape(-1, c),
+                                      scale, shift, mean, rstd, act, need_dx)
+        return (None if dx is None else dx.reshape(x.shape)), dg, db
+    return _launch_backward(x, g, scale, shift, mean, rstd, act, need_dx)
+
+
+class FusedBNAct(torch.autograd.Function):
+    """``act(gamma * (x - mean) * rstd + beta)`` with ``rstd = rsqrt(var +
+    eps)`` and (mean, var) the batch statistics of x, computed without
+    gradient by the caller (JAX ``fused_bn_act`` and its custom VJP).
+
+    Forward: the scale-bias-act kernel. Saved: x and ``(C,)`` vectors only;
+    saving y as well would double the activation memory of a train step.
+    Backward: the BN backward kernel, whose dx carries the gradient that
+    flows through the batch statistics. Autocast is off inside: x keeps its
+    dtype (bf16 under a bf16 autocast), every ``(C,)`` vector stays f32."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, gamma, beta, eps: float, act: str):
+        with torch.autocast(x.device.type, enabled=False):
+            mean, var, gamma, beta = map(_wide, (mean, var, gamma, beta))
+            rstd = torch.rsqrt(var + eps)
+            scale = gamma * rstd
+            shift = beta - mean * gamma * rstd
+            y = fused_scale_bias_act(x, scale, shift, act)
+        ctx.save_for_backward(x, mean, rstd, scale, shift)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale, shift = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        with torch.autocast(x.device.type, enabled=False):
+            dx, dgamma, dbeta = bn_act_backward(x, g, scale, shift, mean,
+                                                rstd, ctx.act, need_dx)
+        return dx, None, None, dgamma, dbeta, None, None
+
+
+def fused_bn_act(x, mean, var, gamma, beta, eps: float = 1e-5,
+                 act: str = "relu") -> torch.Tensor:
+    """Train-mode fused BN + act on (..., C) ``x`` (see :class:`FusedBNAct`).
+    ``act``: "relu" | "none"."""
+    if act not in TRAIN_ACTS:
+        # the JAX custom VJP treats every act but relu as the identity,
+        # which is wrong for leaky_relu: refuse rather than copy that
+        raise ValueError(f"train-mode BN takes act in {TRAIN_ACTS}, not "
+                         f"{act!r} (the backward differentiates those only)")
+    return FusedBNAct.apply(x, mean, var, gamma, beta, eps, act)
+
+
+def batch_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float = 1e-5, act: str = "relu"):
+    """Train-mode BN + act from raw activations: ``(y, mean, var)``, the
+    batch statistics taken on ``x.detach()`` (their gradient is folded into
+    the backward's dx) and returned for the running-statistics update."""
+    mean, var = bn_stats(x.detach())
+    return fused_bn_act(x, mean, var, gamma, beta, eps, act), mean, var

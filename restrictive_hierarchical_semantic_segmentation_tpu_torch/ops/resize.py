@@ -51,8 +51,12 @@ def _linear_indices_weights(in_size: int, out_size: int,
 def _tables(in_size: int, out_size: int, align_corners: bool,
             device: torch.device):
     lo, hi, w = _linear_indices_weights(in_size, out_size, align_corners)
-    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),
-            torch.from_numpy(w).to(device))
+    # normal tensors even when first asked for under inference_mode (an
+    # eval step): a later train step saves them for its backward
+    with torch.inference_mode(False):
+        return (torch.from_numpy(lo).to(device),
+                torch.from_numpy(hi).to(device),
+                torch.from_numpy(w).to(device))
 
 
 def _resize_axis(x: torch.Tensor, dim: int, out_size: int,

@@ -74,3 +74,171 @@ def test_batchnorm_module_on_card_equals_cpu(cuda):
     # the folded scale takes rsqrt, which CUDA computes within 2 ulp of the
     # CPU's value; a few f32 ulp of |x * scale| (|x| < 6, scale < 2) remain
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+# ----------------------------------------------------------- train kernels
+# Tolerances: the kernels add in another order than torch's sums (strips of
+# rows in f32, the strips in double), so statistics and per-channel sums
+# agree to 1e-5 relative (the variance relative to E[x^2] = var + mean^2,
+# the size of the two terms it subtracts); dx agrees to 1e-5 of its largest
+# value in f32, and in bf16 to one bf16 ulp of the value besides (a value
+# near a rounding boundary may round either way).
+TRAIN_SHAPES = [(16, 310, 310, 64), (16, 155, 155, 256), (16, 39, 39, 192),
+                (2, 20, 20, 384), (1001, 48), (3, 7, 720), (1, 8)]
+
+
+def _stats_ok(got, want):
+    (m, v), (mr, vr) = got, want
+    assert m.dtype == v.dtype == torch.float32
+    assert bool(((m - mr).abs() <= 1e-5 * (mr.abs() + vr.sqrt())
+                 + 1e-12).all())
+    assert bool(((v - vr).abs() <= 1e-5 * (vr + mr * mr) + 1e-12).all())
+
+
+def _train_inputs(shape, dtype, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=cuda) * 1.5 + 0.7).to(dtype)
+    grad = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    mean, var = fba._bn_stats_ref(x)
+    rstd = torch.rsqrt(var + 1e-5)
+    gamma = torch.rand(c, generator=g, device=cuda) + 0.5
+    beta = torch.randn(c, generator=g, device=cuda) * 0.5
+    scale = gamma * rstd
+    shift = beta - mean * scale
+    return x, grad, scale, shift, mean, rstd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_bn_stats_kernel_equals_plain(cuda, shape, dtype):
+    x = _train_inputs(shape, dtype, cuda)[0]
+    before = fba.TRAIN_LAUNCHES["bn_stats"]
+    got = fba.bn_stats(x)
+    torch.cuda.synchronize()
+    assert fba.TRAIN_LAUNCHES["bn_stats"] == before + 1
+    _stats_ok(got, fba._bn_stats_ref(x))
+
+
+def _dx_ok(dx, ref):
+    assert dx.dtype == ref.dtype and dx.shape == ref.shape
+    err = (dx.float() - ref.float()).abs()
+    tol = 1e-5 * ref.float().abs().max()
+    if ref.dtype == torch.bfloat16:
+        tol = tol + ref.float().abs() * 2.0 ** -7
+    assert bool((err <= tol).all()), float(err.max())
+
+
+def _sums_ok(got, ref):
+    assert got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_bn_backward_kernel_equals_plain(cuda, shape, dtype, act):
+    x, grad, *vecs = _train_inputs(shape, dtype, cuda)
+    c = shape[-1]
+    before = dict(fba.TRAIN_LAUNCHES)
+    dx, dgamma, dbeta = fba.bn_act_backward(x, grad, *vecs, act)
+    torch.cuda.synchronize()
+    assert fba.TRAIN_LAUNCHES["bn_bwd_reduce"] == before["bn_bwd_reduce"] + 1
+    assert fba.TRAIN_LAUNCHES["bn_bwd_dx"] == before["bn_bwd_dx"] + 1
+    rdx, rdg, rdb = fba._bn_backward_ref(x.reshape(-1, c), grad.reshape(-1, c),
+                                         *vecs, act)
+    _dx_ok(dx, rdx.reshape(shape))
+    _sums_ok(dgamma, rdg)
+    _sums_ok(dbeta, rdb)
+    # without dx only pass A runs
+    none, dg2, db2 = fba.bn_act_backward(x, grad, *vecs, act, need_dx=False)
+    assert none is None
+    assert fba.TRAIN_LAUNCHES["bn_bwd_dx"] == before["bn_bwd_dx"] + 1
+    assert torch.equal(dg2, dgamma) and torch.equal(db2, dbeta)
+
+
+def test_bn_backward_copies_a_gradient_in_another_layout(cuda):
+    shape = (2, 20, 20, 384)
+    x, grad, *vecs = _train_inputs(shape, torch.bfloat16, cuda)
+    # the same values laid out NCHW-contiguous, seen as NHWC
+    strided = grad.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not strided.is_contiguous()
+    copies = fba.GRAD_COPIES
+    got = fba.bn_act_backward(x, strided, *vecs, "relu")
+    want = fba.bn_act_backward(x, grad, *vecs, "relu")
+    assert fba.GRAD_COPIES == copies + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_train_kernels_reject_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError, match="C % 8"):
+        fba.bn_stats(torch.ones(4, 12, device=cuda))
+    with pytest.raises(TypeError):
+        fba.bn_stats(torch.ones(4, 16, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        fba.bn_stats(torch.ones(16, 4, device=cuda).t())
+    x, grad, *vecs = _train_inputs((4, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="leaky_relu"):
+        fba.bn_act_backward(x, grad, *vecs, "leaky_relu")
+    with pytest.raises(ValueError, match="g like x"):
+        fba.bn_act_backward(x, grad.bfloat16(), *vecs, "relu")
+    with pytest.raises(ValueError, match="C % 8"):
+        fba.bn_act_backward(torch.ones(4, 12, device=cuda),
+                            torch.ones(4, 12, device=cuda),
+                            *[torch.ones(12, device=cuda)] * 4, "relu")
+    bn = BatchNormAct(16, "leaky_relu").to(cuda).train()
+    with pytest.raises(ValueError, match="leaky_relu"):
+        bn(torch.ones(2, 16, 3, 3, device=cuda))
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_train_mode_batchnorm_on_card_equals_cpu(cuda, act):
+    """Forward, running statistics and gradients of a train-mode
+    BatchNormAct, f32, on the card through its three kernels against the
+    same module on the CPU through the plain versions."""
+    torch.manual_seed(1)
+    cpu = BatchNormAct(96, act).train()
+    with torch.no_grad():
+        cpu.weight.uniform_(0.5, 1.5)
+        cpu.bias.normal_(0, 0.1)
+        cpu.running_mean.normal_(0, 0.1)
+        cpu.running_var.uniform_(0.5, 1.5)
+    card = BatchNormAct(96, act).to(cuda).train()
+    card.load_state_dict(cpu.state_dict())
+    x = (torch.randn(4, 96, 33, 29) * 2 + 0.5).contiguous(
+        memory_format=torch.channels_last)
+    ct = torch.randn(x.shape)
+    xs = [x.clone().requires_grad_(), x.to(cuda).requires_grad_()]
+    before = dict(fba.TRAIN_LAUNCHES)
+    outs = []
+    for bn, xx in zip((cpu, card), xs):
+        y = bn(xx)
+        (y * ct.to(xx.device)).sum().backward()
+        outs.append(y)
+    torch.cuda.synchronize()
+    assert all(fba.TRAIN_LAUNCHES[k] == before[k] + 1 for k in before)
+    torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xs[1].grad.cpu(), xs[0].grad, rtol=1e-4,
+                               atol=1e-5)
+    for name in ("weight", "bias"):
+        got = getattr(card, name).grad.cpu()
+        want = getattr(cpu, name).grad
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    for name in ("running_mean", "running_var"):
+        torch.testing.assert_close(getattr(card, name).cpu(),
+                                   getattr(cpu, name), rtol=1e-5, atol=1e-6)
+
+
+def test_fused_bn_act_under_bf16_autocast_keeps_vectors_f32(cuda):
+    x = torch.randn(2, 64, 9, 10, device=cuda).contiguous(
+        memory_format=torch.channels_last).bfloat16().requires_grad_()
+    bn = BatchNormAct(64, "relu").to(cuda).train()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = bn(x)
+    assert y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16
+    assert bn.weight.grad.dtype == bn.bias.grad.dtype == torch.float32
+    assert bn.running_mean.dtype == bn.running_var.dtype == torch.float32

@@ -29,20 +29,36 @@ def test_forbidden_matches_exact_names_only():
     assert not _forbidden("jaxtyping")
 
 
-def test_port_and_serve_cli_import_no_jax():
-    code = (
-        "import json, sys\n"
-        f"import {PORT}\n"
-        f"import {PORT}.cli.serve, {PORT}.train.serving, {PORT}.bridge\n"
-        f"import {PORT}.models, {PORT}.ops, {PORT}.data.dataset\n"
-        "print(json.dumps(sorted(sys.modules)))\n")
+def _modules_after(imports: str) -> list:
+    """The modules loaded by a fresh interpreter after ``imports``."""
+    code = (f"import json, sys\n{imports}\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert PORT in mods
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_and_serve_cli_import_no_jax():
+    mods = _modules_after(
+        f"import {PORT}\n"
+        f"import {PORT}.cli.serve, {PORT}.train.serving, {PORT}.bridge\n"
+        f"import {PORT}.models, {PORT}.ops, {PORT}.data.dataset\n"
+        f"import {PORT}.train.steps, {PORT}.train.state\n"
+        f"import {PORT}.losses.hierarchical, {PORT}.metrics.segmentation\n"
+        f"import {PORT}.data.synthetic, {PORT}.data.target_factory")
+    assert PORT in mods and f"{PORT}.train.steps" in mods
     assert [m for m in mods if _forbidden(m)] == []
+
+
+def test_train_path_data_imports_no_cv2():
+    # the card's machine has no OpenCV: the synthetic data and the target
+    # factory that feed the train step must not need it
+    mods = _modules_after(f"import {PORT}.data.synthetic\n"
+                          f"import {PORT}.data.target_factory")
+    assert f"{PORT}.data.synthetic" in mods
+    assert [m for m in mods if m == "cv2" or m.startswith("cv2.")] == []
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)

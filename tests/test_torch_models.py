@@ -64,8 +64,20 @@ def test_batchnorm_act_matches_jax(flavour, act):
 
 
 def test_batchnorm_act_train_mode_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        BatchNormAct(8).train()(torch.zeros(1, 8, 2, 2))
+    # train mode came with the train slice (test_torch_bn_train.py holds it
+    # against the JAX BatchNorms): it normalizes with the batch statistics
+    # and moves the running buffers by the flax momentum 0.9, the variance
+    # Bessel-corrected
+    bn = BatchNormAct(8).train()
+    x = torch.arange(64.0).reshape(2, 8, 2, 2).contiguous(
+        memory_format=torch.channels_last)
+    y = bn(x)
+    mean = x.mean((0, 2, 3))
+    var = x.var((0, 2, 3), unbiased=False)
+    want = (x - mean[:, None, None]) / torch.sqrt(var + 1e-5)[:, None, None]
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var * 8 / 7)
 
 
 def test_film_matches_jax():

@@ -125,3 +125,12 @@ def test_gated_grouped_softmax_matches_jax(name):
             trestrictive.compose_children(torch.from_numpy(z),
                                           torch.from_numpy(p), *args),
             tpc.numpy())
+
+
+@pytest.mark.parametrize("idx", [[2, 0, 3], [1, 2, 3], [4, 4, 0, 1]])
+def test_static_channel_take_matches_jax(idx):
+    x = np.random.default_rng(5).standard_normal((2, 3, 4, 5)) \
+        .astype(np.float32)
+    want = np.asarray(jrestrictive.static_channel_take(jnp.asarray(x), idx))
+    got = trestrictive.static_channel_take(torch.from_numpy(x), idx)
+    np.testing.assert_array_equal(got.numpy(), want)
