@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the
 H100): builds the port's CUDA kernels from ``csrc/``, holds each against its
 plain PyTorch version, serves the hierarchical HRNet-W48 segmenter at 620 px
-through the port's ``Predictor`` and its HTTP server, trains it for a few
-steps at batch 16, and checks what comes out.
+and the UNet (the default model) at 352 px through the port's ``Predictor``
+and its HTTP server, trains both for a few steps at batch 16, runs the fused
+1x1 conv + BN + ReLU tool, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,21 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    counted, then one step under the profiler;
 8. train kernels: the batch-statistics, BN-backward and scale-bias-act
    kernels against their plain versions at every shape of the train step,
-   timed beside their bounds, the plain versions and a library call.
+   timed beside their bounds, the plain versions and a library call;
+9. UNet slice: phase 4 for the hierarchical UNet at 352 px (18 BN modules,
+   every BN input checked to be channels_last, so no copy precedes a BN
+   kernel), its bf16 forward under the profiler, then one HTTP request to
+   the serve CLI's server built at the CLI's defaults (flat UNet, 352 px,
+   bf16);
+10. UNet train parity: phase 6 for the UNet at 128 px, batch 2;
+11. UNet train: phase 7 for the UNet at 352 px, batch 16;
+12. UNet train kernels: phase 8 at the UNet's train shapes (the largest is
+    (16, 352, 352, 64), 1,982,464 rows);
+13. conv + BN + ReLU: the tool ``tools/conv_bn_experiment.py`` on the card
+    at its full shapes (the fused kernel's main path, its launches
+    counted), the kernel against its plain version at four shapes (TF32
+    off), and its time beside its bound, the plain version's and one cuBLAS
+    ``torch.matmul``.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 the ``{"ok": true, "device": ...}`` JSON line. Imports no jax.
@@ -63,6 +78,10 @@ KERNEL_CASES = [
     ((1, 39, 39, 192), torch.bfloat16, "leaky_relu"),   # 1521 rows: ragged
     ((1, 7, 11, 96), torch.bfloat16, "relu"),           # 77 rows: ragged
 ]
+# the two donors at full width: model_select -> name, BN modules, serving
+# size, and the gain of the seeded conv weights (see random_state_dict)
+MODELS = {1: {"name": "W48", "n_bn": 306, "img": IMG, "conv_gain": 0.7},
+          0: {"name": "UNet", "n_bn": 18, "img": 352, "conv_gain": 2 ** 0.5}}
 
 
 def log(*a):
@@ -227,12 +246,15 @@ def phase_kernels(device):
     return rows
 
 
-def random_state_dict(model, seed: int):
-    """Seeded random weights: convs ~ N(0, 0.7^2 / fan_in) (at gain 1 the
-    residual sums of 100+ layers grow the logits to ~5e3; at 0.7 they stay
-    near 10), linears ~ N(0, 1 / fan_in), small biases, BN affine near 1/0,
-    running mean ~ N(0, 0.1) and var ~ U(0.5, 1.5) so the folded scale and
-    shift are not the identity."""
+def random_state_dict(model, seed: int, conv_gain: float = 0.7):
+    """Seeded random weights: convs ~ N(0, conv_gain^2 / fan_in), linears ~
+    N(0, 1 / fan_in), small biases, BN affine near 1/0, running mean ~ N(0,
+    0.1) and var ~ U(0.5, 1.5) so the folded scale and shift are not the
+    identity. The gain keeps the logits O(1-10): for HRNet 0.7 (at gain 1
+    the residual sums of 100+ layers grow the logits to ~5e3; at 0.7 they
+    stay near 10); for the UNet sqrt(2) (18 conv-ReLU layers without
+    residuals halve the activations' second moment at each layer at gain 1,
+    and the logits shrink to ~0.4; at sqrt(2) they stay near 2)."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
         import BatchNormAct
 
@@ -251,7 +273,7 @@ def random_state_dict(model, seed: int):
                 "running_var": 0.5 + torch.rand(c, generator=g),
             }[leaf]
         elif leaf == "weight":
-            gain = 0.7 if t.dim() == 4 else 1.0
+            gain = conv_gain if t.dim() == 4 else 1.0
             val = torch.randn(t.shape, generator=g) * gain / t[0].numel() ** 0.5
         else:
             val = 0.01 * torch.randn(t.shape, generator=g)
@@ -272,9 +294,12 @@ def gray_images(n: int, size: int, seed: int) -> np.ndarray:
     return np.stack(out)
 
 
-def phase_slice(device, size: int = IMG, batch: int = 4):
-    """The W48 hierarchical Predictor on the card: f32 against the CPU, then
-    the bf16 main path at ``batch`` with its kernel launches counted."""
+def phase_slice(device, model_select: int = 1, batch: int = 4,
+                size: int = None):
+    """The hierarchical Predictor of one donor (``MODELS``) on the card: f32
+    against the CPU, then the bf16 main path at ``batch`` with its kernel
+    launches counted and every BN input checked to be channels_last (a BN
+    input in another layout would be copied before its kernel)."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli.serve \
         import preprocess_bytes
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run \
@@ -293,24 +318,27 @@ def phase_slice(device, size: int = IMG, batch: int = 4):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    spec = MODELS[model_select]
+    size = size or spec["img"]
     tree = ClassTree.from_json("assets/class_tree_tl.json",
                                "assets/class_map.csv")
-    model = build_model(tree, 1, 1)
+    model = build_model(tree, model_select, 1)
     n_bn = sum(isinstance(m, BatchNormAct) for m in model.modules())
-    # one per conv of the W48 backbone, as in the JAX model's trace
-    assert n_bn == 306, n_bn
+    # one per conv of the backbone, as in the JAX model's trace
+    assert n_bn == spec["n_bn"], n_bn
     n_params = sum(p.numel() for p in model.parameters())
-    sd = random_state_dict(model, SEED)
+    n_backbone = sum(p.numel() for p in model.backbone.parameters())
+    sd = random_state_dict(model, SEED, spec["conv_gain"])
     del model
-    log(f"slice: HRNet-W48 hierarchical, "
-        f"{n_params / 1e6:.3f} M params, {n_bn} BN modules, "
+    log(f"slice: {spec['name']} hierarchical, {n_params / 1e6:.3f} M params "
+        f"({n_backbone / 1e6:.3f} M in the backbone), {n_bn} BN modules, "
         f"levels {tree.classes_per_level}, {size} px")
 
     imgs = gray_images(batch, size, SEED)
     pngs = [encode_png_gray8(im) for im in imgs]
     x = np.concatenate([preprocess_bytes(p, size) for p in pngs])  # f32
 
-    cfg32 = RunConfig(model_select=1, model_type=1, img_size=size,
+    cfg32 = RunConfig(model_select=model_select, model_type=1, img_size=size,
                       compute_dtype="float32")
     pred32 = Predictor(cfg32, sd, tree=tree, device=device)
     fba.LAUNCHES = 0
@@ -345,17 +373,19 @@ def phase_slice(device, size: int = IMG, batch: int = 4):
                                       "max_abs_logit": scale,
                                       "class_map_agree": agree}
 
-    cfg16 = RunConfig(model_select=1, model_type=1, img_size=size,
+    cfg16 = RunConfig(model_select=model_select, model_type=1, img_size=size,
                       compute_dtype="bfloat16")
     pred16 = Predictor(cfg16, sd, tree=tree, device=device)
     pred16(x)  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
     shapes = {}
+    copied = [0]
 
     def record(mod, args):
-        key = (tuple(args[0].permute(0, 2, 3, 1).shape), args[0].dtype,
-               mod.act)
+        xn = args[0].permute(0, 2, 3, 1)
+        key = (tuple(xn.shape), args[0].dtype, mod.act)
         shapes[key] = shapes.get(key, 0) + 1
+        copied[0] += not xn.is_contiguous()
 
     hooks = [m.register_forward_pre_hook(record)
              for m in pred16.model.modules() if isinstance(m, BatchNormAct)]
@@ -367,8 +397,10 @@ def phase_slice(device, size: int = IMG, batch: int = 4):
     for h in hooks:
         h.remove()
     assert launches == n_bn, (launches, n_bn)
-    log(f"main path (bf16, batch {batch}): {launches} scale_bias_act "
-        f"launches")
+    assert copied[0] == 0, f"{copied[0]} BN inputs not channels_last"
+    log(f"main path ({spec['name']}, bf16, batch {batch}): {launches} "
+        f"scale_bias_act launches; every BN input channels_last (no copy "
+        f"before a BN kernel)")
     t0 = time.perf_counter()
     reps = 5
     for _ in range(reps):
@@ -385,8 +417,12 @@ def phase_slice(device, size: int = IMG, batch: int = 4):
     log(f"bf16 vs f32 on the card, batch {batch}: class maps agree on "
         f"{[f'{a * 100:.3f}%' for a in agree16]} of pixels per level")
     result.update(launches=launches, bf16_batch=batch, bf16_ms=bf16_ms,
-                  bf16_vs_f32_agree=agree16, shapes=shapes)
-    return result, pred16, tree, pngs
+                  bf16_vs_f32_agree=agree16, shapes=shapes, size=size,
+                  max_abs_logit_bf16=[float(np.abs(z).max())
+                                      for z in out16["logits"]])
+    log(f"{spec['name']} logit scale (bf16, batch {batch}): max |logit| per "
+        f"level {result['max_abs_logit_bf16']}")
+    return result, pred16, tree, pngs, sd
 
 
 def phase_path_kernel_times(device, shapes):
@@ -415,15 +451,18 @@ def phase_path_kernel_times(device, shapes):
 
 def phase_profile(pred, images: np.ndarray, top: int = 8):
     """One bf16 Predictor call under ``torch.profiler``: device time by
-    kernel, the scale_bias_act share, and the device's idle share of the
-    call's wall time (host clock around the call)."""
+    kernel, the scale_bias_act share, the device's idle share of the call's
+    wall time (host clock around the call), and the ``aten::copy_`` calls
+    by the shape of what they copy (the input's copy to the card,
+    autocast's bf16 copies of the weights, the outputs' copies to the host,
+    and any layout copy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     pred(images)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         pred(images)
         torch.cuda.synchronize()
@@ -431,20 +470,30 @@ def phase_profile(pred, images: np.ndarray, top: int = 8):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    copy_shapes = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type == DeviceType.CPU and e.key == "aten::copy_":
+            shape = str(e.input_shapes[0] if e.input_shapes else "?")
+            copy_shapes[shape] = copy_shapes.get(shape, 0) + e.count
     if device_ms == 0:
         log("profile: the profiler saw no device time")
         return None
     kernels.sort(key=lambda e: -e.self_device_time_total)
     bn_ms = sum(e.self_device_time_total for e in kernels
                 if "scale_bias_act" in e.key) / 1e3
+    copies = sum(copy_shapes.values())
     log(f"profile (bf16, batch {images.shape[0]}): wall {wall_ms:.3f} ms, "
         f"device busy {device_ms:.3f} ms, idle share "
         f"{max(0.0, 1 - device_ms / wall_ms) * 100:.1f}%, scale_bias_act "
-        f"{bn_ms:.3f} ms ({bn_ms / device_ms * 100:.2f}% of device time)")
+        f"{bn_ms:.3f} ms ({bn_ms / device_ms * 100:.2f}% of device time), "
+        f"{copies} aten::copy_ calls")
     for e in kernels[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:110]}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "bn_ms": bn_ms}
+    log("  aten::copy_ by the shape copied: " + json.dumps(
+        dict(sorted(copy_shapes.items(), key=lambda kv: -kv[1]))))
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "bn_ms": bn_ms,
+            "copies": copies, "copy_shapes": copy_shapes}
 
 
 def phase_serve(pred, tree, pngs, n_bn: int, size: int = IMG):
@@ -493,6 +542,74 @@ def phase_serve(pred, tree, pngs, n_bn: int, size: int = IMG):
         f"{served_launches} kernel launches")
     assert served_launches == len(pngs) * n_bn, served_launches
     return latencies
+
+
+def phase_serve_cli(n_bn: int) -> dict:
+    """The serve CLI's server (``cli/serve.py:build_server``, as ``main``
+    builds it) at the CLI's defaults -- the flat UNet, 352 px, bf16, f32
+    input, a warm-up forward, on cuda -- on an ephemeral port in place of
+    8600, with seeded weights written as a ``.pt`` under ``build/``; one
+    POSTed PNG of another size (the server resizes it) must come back as a
+    352x352 class map through one forward of ``n_bn`` kernel launches."""
+    import pathlib
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        serve,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.png \
+        import decode_png, encode_png_gray8
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    tree_files = ["--tree-root", "assets/class_tree_tl.json",
+                  "--class-map", "assets/class_map.csv"]
+    defaults = serve.get_args(["--model-weights", "w.pt"] + tree_files)
+    assert (defaults.model_select, defaults.model_type, defaults.img_size,
+            defaults.compute_dtype) == (0, 0, 352, "bfloat16"), defaults
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    out = pathlib.Path("build/chip_smoke")
+    out.mkdir(parents=True, exist_ok=True)
+    weights = out / "unet_flat.pt"
+    torch.save(random_state_dict(build_model(tree, 0, 0), SEED,
+                                 MODELS[0]["conv_gain"]), str(weights))
+    args = serve.get_args(["--model-weights", str(weights), "--port", "0"]
+                          + tree_files)
+    t0 = time.perf_counter()
+    server = serve.build_server(args)
+    build_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    png = encode_png_gray8(gray_images(1, 400, SEED + 3)[0][:, 50:350])
+    try:
+        fba.LAUNCHES = 0
+        req = urllib.request.Request(url + "/v1/predict", data=png,
+                                     method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+            body = r.read()
+        latency = (time.perf_counter() - t0) * 1e3
+        launches = fba.LAUNCHES
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    cmap = decode_png(body)
+    assert cmap.shape == (352, 352), cmap.shape
+    assert int(cmap.max()) < tree.num_leaves
+    assert launches == n_bn, launches
+    log(f"serve CLI at its defaults (flat UNet, 352 px, bf16): built in "
+        f"{build_s:.2f} s with its warm-up; one 400x300 PNG answered 200 "
+        f"with a 352x352 class map in {latency:.3f} ms, {launches} "
+        f"scale_bias_act launches")
+    return {"latency_ms": latency, "launches": launches, "build_s": build_s}
 
 
 # ------------------------------------------------------------ the train step
@@ -552,10 +669,11 @@ def synthetic_batch(tree, n: int, size: int, seed: int):
     return torch.from_numpy(np.stack(xs)), torch.from_numpy(np.stack(ys))
 
 
-def train_setup(tree, sd, device, compute_dtype: str, double: bool = False):
-    """The W48 hierarchical model in train mode on ``device`` from ``sd``
-    (in float64 with ``double``, a reference on the CPU), its AdamW state
-    and its train step."""
+def train_setup(tree, sd, device, compute_dtype: str, double: bool = False,
+                model_select: int = 1):
+    """The hierarchical model of one donor (``MODELS``) in train mode on
+    ``device`` from ``sd`` (in float64 with ``double``, a reference on the
+    CPU), its AdamW state and its train step."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
         import build_model
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
@@ -563,7 +681,7 @@ def train_setup(tree, sd, device, compute_dtype: str, double: bool = False):
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
         .steps import make_train_step
 
-    model = build_model(tree, 1, 1)
+    model = build_model(tree, model_select, 1)
     model.load_state_dict(sd, strict=True)
     model = model.to(device=device, memory_format=torch.channels_last,
                      dtype=torch.float64 if double else None).train()
@@ -580,11 +698,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_train_parity(device, tree, sd, size: int = 128, batch: int = 2,
-                       steps: int = 2, settle: int = 2) -> dict:
-    """The full-width W48 train step in f32 (TF32 off) on the card against
-    the same step on the CPU (the kernels' plain versions), both against
-    the same step in float64 on the CPU, from the same weights and
-    batches.
+                       steps: int = 2, settle: int = 2,
+                       model_select: int = 1) -> dict:
+    """The full-width train step of one donor (``MODELS``; W48 by default)
+    in f32 (TF32 off) on the card against the same step on the CPU (the
+    kernels' plain versions), both against the same step in float64 on the
+    CPU, from the same weights and batches.
 
     Gradients: per tensor, the max abs error against float64 over the
     tensor's largest |g|; on the card its median over tensors must be
@@ -619,9 +738,12 @@ def phase_train_parity(device, tree, sd, size: int = 128, batch: int = 2,
     update are held to 2 lr."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sides = {"card": train_setup(tree, sd, device, "float32"),
-             "cpu": train_setup(tree, sd, "cpu", "float32"),
-             "f64": train_setup(tree, sd, "cpu", "float32", double=True)}
+    sides = {"card": train_setup(tree, sd, device, "float32",
+                                 model_select=model_select),
+             "cpu": train_setup(tree, sd, "cpu", "float32",
+                                model_select=model_select),
+             "f64": train_setup(tree, sd, "cpu", "float32", double=True,
+                                model_select=model_select)}
     dev = {"card": device, "cpu": "cpu", "f64": "cpu"}
     out = {"size": size, "batch": batch, "steps": []}
     for k in range(settle + steps):
@@ -684,7 +806,8 @@ def phase_train_parity(device, tree, sd, size: int = 128, batch: int = 2,
             assert a.shape == b.shape and int(a.sum()) == int(b.sum())
             moved.append(int((a - b).abs().sum()) // 2)
         row["confmat_pixels_moved"] = moved
-        log(f"train parity (W48, {size} px, batch {batch}; card f32, cpu "
+        log(f"train parity ({MODELS[model_select]['name']}, {size} px, batch "
+            f"{batch}; card f32, cpu "
             f"f32, cpu f64) step {k}"
             + ("" if held else " (settling: its gradients are printed, not "
                "held)") + f": {json.dumps(row)}")
@@ -785,9 +908,9 @@ def profile_call(run, what: str, top: int = 10):
 
 
 def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
-                size: int = IMG, timed: int = 5) -> dict:
-    """The train main path: W48 hierarchical, bf16 autocast with f32
-    parameters, AdamW at lr 0.018, bench.py's level weights, a seeded
+                size: int = IMG, timed: int = 5, model_select: int = 1) -> dict:
+    """The train main path of one donor (``MODELS``; W48 by default),
+    hierarchical, bf16 autocast with f32 parameters, AdamW at lr 0.018, bench.py's level weights, a seeded
     synthetic batch with int8 ternary targets. One warm-up step (with hooks
     that record each BN's input shape and batch statistics, for the
     closed-form check of the running statistics with D = 2), then ``timed``
@@ -802,7 +925,9 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
         .steps import make_eval_step
 
-    model, state, step = train_setup(tree, sd, device, "bfloat16")
+    name = MODELS[model_select]["name"]
+    model, state, step = train_setup(tree, sd, device, "bfloat16",
+                                     model_select=model_select)
     assert model.bn_updates_per_step == tree.num_levels == 2
     x, y = synthetic_batch(tree, batch, size, SEED)
     assert y.dtype == torch.int8
@@ -837,7 +962,7 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
     assert np.isfinite(float(res["loss"]))
     assert int(res["confmats"][0].sum()) == batch * size * size
     assert model.training  # the eval step restores train mode
-    log(f"eval step (bf16, batch {batch}): {eval_ms:.3f} ms, loss "
+    log(f"eval step ({name}, bf16, batch {batch}): {eval_ms:.3f} ms, loss "
         f"{float(res['loss']):.5f}, launches {ec}")
     del res
 
@@ -861,7 +986,8 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
         h.remove()
     closed = closed_form_error(old, batch_stats, bns, d=2)
     del batch_stats, old
-    log(f"train warm-up step: {warm_s:.2f} s, loss {float(aux['loss']):.5f};"
+    log(f"train warm-up step ({name}): {warm_s:.2f} s, loss "
+        f"{float(aux['loss']):.5f};"
         f" running statistics against the closed form with D = 2: max rel "
         f"err {closed:.3e}; convs {conv_flops[0] / 1e9:.1f} GFLOP forward "
         f"({conv_flops[0] / batch / 1e9:.1f} per image), about 3x that "
@@ -896,14 +1022,14 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
                enumerate(zip(aux["confmats"], tree.classes_per_level)))
     assert n_pix[0] == batch * size * size
     step_ms = float(np.mean(times))
-    log(f"train main path (W48, bf16, batch {batch}, {size} px): step ms "
+    log(f"train main path ({name}, bf16, batch {batch}, {size} px): step ms "
         f"{[round(t, 3) for t in times]}, mean {step_ms:.3f} ms, "
         f"{batch / step_ms * 1e3:.2f} images/s; losses "
         f"{[round(v, 5) for v in losses]}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches per step {counts[0]}; "
         f"{moved}/{len(params)} parameter tensors moved")
     prof = profile_call(lambda: step(state, x, y, mask),
-                        f"one train step, bf16, batch {batch}")
+                        f"one {name} train step, bf16, batch {batch}")
 
     return {"shapes": shapes, "counts": counts[0], "step_ms": times,
             "images_per_s": batch / step_ms * 1e3, "peak_bytes": peak,
@@ -1042,36 +1168,115 @@ def phase_train_kernel_times(device, shapes) -> dict:
     return tot
 
 
+# kernel 4 against its plain version: the tool's shape, the same rows
+# unpadded (ragged: 96100 is not a multiple of the 128-row block tile), a
+# block's worth and less, and a narrow shape whose K and N fit in one tile
+CONV_BN_CASES = [(96256, 720, 720), (96100, 720, 720), (77, 720, 720),
+                 (1000, 48, 64)]
+CONV_BN_SOURCE = ("restrictive_hierarchical_semantic_segmentation_tpu_torch/"
+                  "csrc/conv_bn_relu.cu")
+CONV_BN_REPLACES = "tools/pallas_conv_bn_experiment.py:54"
+
+
 def conv_bn_tool_bound() -> dict:
-    """The bound of the one TPU kernel still to port,
-    tools/pallas_conv_bn_experiment.py:54 (the eval shared head's 1x1
-    conv + BN + ReLU): a bf16 (N, 720) x (720, 720) product with N =
-    4 x 155 x 155 padded to 96256 rows, from its shapes alone."""
-    n, c = 96256, 720
-    flops = 2 * n * c * c
-    nbytes = 2 * n * c * 2 + c * c * 2 + 2 * c * 4  # x, out; W; a, b
-    row = {"flop": flops, "bytes": nbytes,
-           "ops_ms": flops / DENSE_BF16_FLOPS * 1e3,
-           "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-    row["bound_by"] = ("operations" if row["ops_ms"] >= row["bytes_ms"]
-                       else "bytes")
-    log("kernel 4, tools/pallas_conv_bn_experiment.py:54 (not ported): "
-        + json.dumps(row))
+    """The bound of tools/pallas_conv_bn_experiment.py:54 (the eval shared
+    head's 1x1 conv + BN + ReLU) at the tool's shape: a bf16 (N, 720) x
+    (720, 720) product with N = 4 x 155 x 155 padded to 96256 rows, from
+    its shapes alone (``tools/conv_bn_experiment.py:bound``)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.tools \
+        .conv_bn_experiment import bound
+
+    row = bound(96256, 720, 720)
+    log(f"kernel 4 bound, {CONV_BN_REPLACES}: " + json.dumps(row))
     return row
 
 
-def kernel_entry(name, source, replaces, launches, tot, work, **extra):
+def phase_conv_bn(device) -> dict:
+    """Kernel 4's main path, the tool at its full shapes with the launches
+    counted (set to 0 just before, read just after); then the kernel
+    against its plain version (TF32 off, so the plain f32 product is f32)
+    at CONV_BN_CASES within the tool's tolerance (one bf16 ulp plus the
+    worst-case f32 sum-order error over K); then its time at the tool's
+    shape from device memory (``ms``) and from L2 (``ms_l2``: x is 139 MB,
+    so L2 holds only w), the plain version's, and one cuBLAS bf16
+    ``torch.matmul(x, w)``, the product the kernel fuses its epilogue
+    into."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        conv_bn_relu as k4,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.tools import (
+        conv_bn_experiment as tool,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k4.LAUNCHES = 0
+    tool_row = tool.run(device=device)
+    torch.cuda.synchronize()
+    launches = k4.LAUNCHES
+    assert launches >= 1 and tool_row["within_tolerance"], tool_row
+    log(f"conv+BN+ReLU tool on the card: {launches} kernel launches")
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    cases = []
+    for n, c_in, c_out in CONV_BN_CASES:
+        x = torch.randn(n, c_in, generator=gen, device=device).bfloat16()
+        w = (torch.randn(c_in, c_out, generator=gen, device=device)
+             * 0.05).bfloat16()
+        a = torch.rand(c_out, generator=gen, device=device) + 0.5
+        b = torch.randn(c_out, generator=gen, device=device)
+        y = k4.conv1x1_bn_relu(x, w, a, b)
+        torch.cuda.synchronize()
+        ref = k4._conv1x1_bn_relu_ref(x, w, a, b)
+        err = (y.float() - ref.float()).abs()
+        tol = tool.tolerance(x, w, a, ref)
+        assert y.shape == ref.shape and bool((err <= tol).all()), \
+            f"conv1x1_bn_relu off at {(n, c_in, c_out)}"
+        cases.append({"shape": [n, c_in, c_out], "max_abs_err":
+                      float(err.max()), "max_err_over_tol":
+                      float((err / tol).max()),
+                      "exact_share": float((err == 0).float().mean())})
+        log("conv+BN+ReLU case " + json.dumps(cases[-1]))
+        del x, w, y, ref, err, tol
+
+    x, w, a, b = tool.inputs(96256, 720, device)
+    cold = [(x.clone(), w.clone(), a.clone(), b.clone()) for _ in range(2)]
+    row = {"ms": time_ms(k4.conv1x1_bn_relu, cold),
+           "ms_l2": time_ms(k4.conv1x1_bn_relu, [(x, w, a, b)]),
+           "plain_ms": time_ms(k4._conv1x1_bn_relu_ref, cold),
+           "library_ms": time_ms(torch.matmul, [c[:2] for c in cold])}
+    bnd = conv_bn_tool_bound()
+    row.update(launches=launches, bound_ms=bnd["bound_ms"],
+               bound_by=bnd["bound_by"], flop=bnd["flop"],
+               max_abs_err=max([tool_row["max_abs_err"]]
+                               + [c["max_abs_err"] for c in cases]),
+               cases=cases, tool=tool_row)
+    log(f"conv+BN+ReLU at (96256, 720) x (720, 720): kernel {row['ms']:.4f} "
+        f"ms ({bnd['flop'] / row['ms'] / 1e9:.1f} TFLOP/s; {row['ms_l2']:.4f}"
+        f" ms with x and w in place), bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, cuBLAS bf16 "
+        f"matmul {row['library_ms']:.4f} ms")
+    return row
+
+
+def kernel_entry(name, source, replaces, launches, tot, work,
+                 bound_by="bytes", **extra):
+    """One row of the kernels line; ``source`` is a file of ``csrc/``,
+    ``replaces`` a file:line of the repository."""
     return {"name": name, "route": "cuda",
             "source": "restrictive_hierarchical_semantic_segmentation_tpu_"
                       f"torch/csrc/{source}",
-            "replaces": "restrictive_hierarchical_semantic_segmentation_tpu/"
-                        f"ops/fused_bn_act.py:{replaces}",
+            "replaces": replaces,
             "launches": launches, "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+            "bound_ms": tot["bound_ms"], "bound_by": bound_by,
             "library_ms": tot["library_ms"], "ms_l2": tot["ms_l2"],
             "work": work, **extra}
+
+
+BN_FILE = "restrictive_hierarchical_semantic_segmentation_tpu/ops/" \
+          "fused_bn_act.py"
+TOTAL_KEYS = ("max_abs_err", "ms", "ms_l2", "plain_ms", "bound_ms",
+              "library_ms")
 
 
 def main() -> int:
@@ -1099,7 +1304,7 @@ def main() -> int:
         log(f"  {name}: {'; '.join(sorted(set(regs)))}")
 
     cases = phase_kernels(device)
-    result, pred16, tree, pngs = phase_slice(device)
+    result, pred16, tree, pngs, sd = phase_slice(device)
     log(f"times on {card}: f32 batch 1 {result['f32_b1_ms']:.2f} ms; "
         f"bf16 batch {result['bf16_batch']} {result['bf16_ms']:.2f} ms per "
         f"batch ({result['bf16_ms'] / result['bf16_batch']:.2f} ms/image)")
@@ -1109,10 +1314,6 @@ def main() -> int:
     del pred16
     torch.cuda.empty_cache()
 
-    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
-        import build_model
-
-    sd = random_state_dict(build_model(tree, 1, 1), SEED)
     parity = phase_train_parity(device, tree, sd)
     train = phase_train(device, tree, sd, result["n_bn"])
     torch.cuda.empty_cache()
@@ -1120,22 +1321,62 @@ def main() -> int:
         f"{train['batch']}, {train['images_per_s']:.2f} images/s, peak "
         f"{train['peak_bytes'] / 2 ** 30:.3f} GiB")
     ttot = phase_train_kernel_times(device, train["shapes"])
-    conv_bn_tool_bound()
+    del sd
+    torch.cuda.empty_cache()
+
+    # the UNet donor, the JAX package's default model
+    uimg = MODELS[0]["img"]
+    uresult, upred16, _, _, usd = phase_slice(device, model_select=0)
+    log(f"UNet times on {card}: f32 batch 1 {uresult['f32_b1_ms']:.2f} ms; "
+        f"bf16 batch {uresult['bf16_batch']} {uresult['bf16_ms']:.2f} ms per "
+        f"batch")
+    upath = phase_path_kernel_times(device, uresult["shapes"])
+    uprof = phase_profile(upred16, gray_images(uresult["bf16_batch"], uimg,
+                                               SEED))
+    del upred16
+    torch.cuda.empty_cache()
+    ucli = phase_serve_cli(uresult["n_bn"])
+    torch.cuda.empty_cache()
+    # at 96 px, batch 2, the second held batch put the card's f32 gradients
+    # 4.2e-4 (median over tensors) from float64, over the 1e-4 limit, with
+    # cuDNN and the port's kernels not the cause (PERF.md, Findings): f32 on a
+    # step whose gradients are sums that nearly cancel, a batch at a time;
+    # the UNet is held at 128 px, as W48 is
+    uparity = phase_train_parity(device, tree, usd, size=128, model_select=0)
+    utrain = phase_train(device, tree, usd, uresult["n_bn"], size=uimg,
+                         model_select=0)
+    torch.cuda.empty_cache()
+    log(f"UNet train step times on {card}: {utrain['step_ms']} ms at batch "
+        f"{utrain['batch']}, {utrain['images_per_s']:.2f} images/s, peak "
+        f"{utrain['peak_bytes'] / 2 ** 30:.3f} GiB")
+    utot = phase_train_kernel_times(device, utrain["shapes"])
+    del usd
+    torch.cuda.empty_cache()
+
+    conv = phase_conv_bn(device)
 
     step_work = (f"all launches of one bf16 train step (W48, batch "
                  f"{train['batch']}, {IMG} px), inputs read from device "
                  "memory (ms_l2: from L2)")
+    unet_work = (f"; unet_*: the same over one bf16 UNet train step (batch "
+                 f"{utrain['batch']}, {uimg} px)")
+
+    def unet(name):
+        return {f"unet_{k}": utot[name][k] for k in TOTAL_KEYS}
+
     kernels = [{
         "name": "scale_bias_act",
         "route": "cuda",
         "source": "restrictive_hierarchical_semantic_segmentation_tpu_torch/"
                   "csrc/scale_bias_act.cu",
-        "replaces": "restrictive_hierarchical_semantic_segmentation_tpu/ops/"
-                    "fused_bn_act.py:100",
+        "replaces": f"{BN_FILE}:100",
         "launches": result["launches"],
         "train_launches": train["counts"]["scale_bias_act"],
-        "max_abs_err": max([path["max_abs_err"],
-                            ttot["scale_bias_act"]["max_abs_err"]]
+        "unet_serve_launches": uresult["launches"],
+        "unet_launches": utrain["counts"]["scale_bias_act"],
+        "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
+                            ttot["scale_bias_act"]["max_abs_err"],
+                            utot["scale_bias_act"]["max_abs_err"]]
                            + [c["max_abs_err"] for c in cases]),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],
@@ -1148,25 +1389,49 @@ def main() -> int:
                 "device memory (ms_l2: from L2); library_ms is one "
                 "F.batch_norm(training=False) per launch (the relu launches "
                 "would need a second call); train_*: the same over the "
-                "train_launches of one train step (" + step_work + ")",
-        **{f"train_{k}": ttot["scale_bias_act"][k]
-           for k in ("max_abs_err", "ms", "ms_l2", "plain_ms", "bound_ms",
-                     "library_ms")},
+                "train_launches of one train step (" + step_work + ")"
+                "; unet_serve_*: over one bf16 UNet forward at batch "
+                f"{uresult['bf16_batch']}, {uimg} px" + unet_work,
+        **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
+        **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
+        **unet("scale_bias_act"),
     }, kernel_entry(
-        "bn_stats", "bn_stats.cu", 51, train["counts"]["bn_stats"],
-        ttot["bn_stats"], step_work + "; library_ms is one "
-        "torch.batch_norm_stats per launch"),
+        "bn_stats", "bn_stats.cu", f"{BN_FILE}:51",
+        train["counts"]["bn_stats"], ttot["bn_stats"],
+        step_work + "; library_ms is one torch.batch_norm_stats per launch"
+        + unet_work, unet_launches=utrain["counts"]["bn_stats"],
+        **unet("bn_stats")),
         kernel_entry(
-        "bn_backward", "bn_backward.cu", 173,
+        "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
         train["counts"]["bn_bwd_reduce"], ttot["bn_backward"],
         step_work + "; both passes (launches: pass A; launches_dx: pass B);"
         " library_ms is one aten native_batch_norm_backward(train=True) per "
-        "launch, which computes act 'none' (relu needs its mask on top)",
+        "launch, which computes act 'none' (relu needs its mask on top)"
+        + unet_work,
         launches_dx=train["counts"]["bn_bwd_dx"],
-        grad_copies=train["grad_copies"][0])]
+        grad_copies=train["grad_copies"][0],
+        unet_launches=utrain["counts"]["bn_bwd_reduce"],
+        unet_launches_dx=utrain["counts"]["bn_bwd_dx"],
+        unet_grad_copies=utrain["grad_copies"][0], **unet("bn_backward")),
+        kernel_entry(
+        "conv1x1_bn_relu", "conv_bn_relu.cu", CONV_BN_REPLACES,
+        conv["launches"], conv,
+        "one call at the tool's shape (96256, 720) x (720, 720), inputs read "
+        "from device memory (ms_l2: the same input each call); launches: "
+        "the tool's run on the card (tools/conv_bn_experiment.py); "
+        "library_ms is one cuBLAS bf16 torch.matmul(x, w)",
+        bound_by=conv["bound_by"], tool=conv["tool"])]
+    for k in kernels:
+        assert k["launches"] >= 1, k["name"]
     log(json.dumps({"serve_latency_ms": latencies, "card": card,
                     "train_parity": parity, "train": {
-                        k: v for k, v in train.items() if k != "shapes"}},
+                        k: v for k, v in train.items() if k != "shapes"},
+                    "unet_serve": {k: v for k, v in uresult.items()
+                                   if k != "shapes"},
+                    "unet_profile": uprof, "unet_serve_cli": ucli,
+                    "unet_train_parity": uparity, "unet_train": {
+                        k: v for k, v in utrain.items() if k != "shapes"},
+                    "conv_bn_cases": conv["cases"]},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

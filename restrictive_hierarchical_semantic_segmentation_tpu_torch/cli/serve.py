@@ -203,8 +203,10 @@ def make_server(predictor, tree, img_size: int, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def main(argv=None):
-    args = get_args(argv)
+def build_server(args) -> ThreadingHTTPServer:
+    """The Predictor and HTTP server that ``main`` runs for parsed ``args``
+    (after the warm-up forward when ``--warmup`` asks for it); the caller
+    serves and closes it."""
     from ..config.run import RunConfig
     from ..hierarchy.tree import ClassTree
     from ..train.serving import Predictor
@@ -229,9 +231,13 @@ def main(argv=None):
         print("warming up (batch-1 forward)...", flush=True)
         predictor.warmup(
             batch=1, input_dtype="uint8" if args.io == "u8" else "float32")
-    server = make_server(predictor, tree, args.img_size, args.host, args.port,
-                         max_body_bytes=args.max_body_mb << 20,
-                         hierarchical=args.model_type == 1, io=args.io)
+    return make_server(predictor, tree, args.img_size, args.host, args.port,
+                       max_body_bytes=args.max_body_mb << 20,
+                       hierarchical=args.model_type == 1, io=args.io)
+
+
+def main(argv=None):
+    server = build_server(get_args(argv))
     host, port = server.server_address[:2]
     print(f"serving on http://{host}:{port}  "
           f"(POST /v1/predict, GET /healthz)", flush=True)

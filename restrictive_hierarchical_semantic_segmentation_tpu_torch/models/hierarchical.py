@@ -159,19 +159,22 @@ def build_model(tree: ClassTree, model_select: int = 0, model_type: int = 1,
     """Factory matching the reference CLI conventions (train.py:456-462):
     ``model_select`` 0 = UNet, 1 = HRNet; ``model_type`` 0 = flat, 1 = hier.
     The model is built on the CPU in train mode; callers move it and call
-    ``.eval()``."""
-    if model_select == 0:
-        raise NotImplementedError("UNet donor: later slice (use "
-                                  "model_select=1, HRNet)")
-    from ..config.hrnet import hrnet_w48
-    from .backbones.hrnet import HRNetBackbone
-
-    cfg = hrnet_config or hrnet_w48()
+    ``.eval()``. ``hrnet_config`` and ``use_pallas_bn`` apply to HRNet only."""
     in_ch = 3 + (max(tree.classes_per_level) if concat_prev_probs else 0)
-    backbone = HRNetBackbone(cfg, in_channels=in_ch,
-                             use_pallas_bn=use_pallas_bn)
+    if model_select == 0:
+        from .backbones.unet import UNetBackbone
+
+        backbone = UNetBackbone(in_channels=in_ch)
+        final_k, ac = 1, True
+    else:
+        from ..config.hrnet import hrnet_w48
+        from .backbones.hrnet import HRNetBackbone
+
+        cfg = hrnet_config or hrnet_w48()
+        backbone = HRNetBackbone(cfg, in_channels=in_ch,
+                                 use_pallas_bn=use_pallas_bn)
+        final_k, ac = cfg.final_conv_kernel, cfg.align_corners
     return HierarchicalSegmenter(
         tree=tree, backbone=backbone, hierarchical=model_type == 1,
-        final_conv_kernel=cfg.final_conv_kernel,
-        align_corners=cfg.align_corners,
+        final_conv_kernel=final_k, align_corners=ac,
         concat_prev_probs=concat_prev_probs, share_backbone=share_backbone)

@@ -29,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every CUDA source of the port, by library name
-SOURCES = ("scale_bias_act", "bn_stats", "bn_backward")
+SOURCES = ("scale_bias_act", "bn_stats", "bn_backward", "conv_bn_relu")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

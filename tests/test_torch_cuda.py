@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and the BatchNorm module on the card against itself on the CPU. Marked
+the BatchNorm module on the card against itself on the CPU, and the fused
+1x1 conv + BN + ReLU kernel and its tool. Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -12,7 +13,13 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.models.norm import
     BatchNormAct,
 )
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+    conv_bn_relu as k4,
+)
+from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
     fused_bn_act as fba,
+)
+from restrictive_hierarchical_semantic_segmentation_tpu_torch.tools import (
+    conv_bn_experiment as tool,
 )
 
 pytestmark = pytest.mark.cuda
@@ -242,3 +249,66 @@ def test_fused_bn_act_under_bf16_autocast_keeps_vectors_f32(cuda):
     assert x.grad.dtype == torch.bfloat16
     assert bn.weight.grad.dtype == bn.bias.grad.dtype == torch.float32
     assert bn.running_mean.dtype == bn.running_var.dtype == torch.float32
+
+
+# ------------------------------------------------ 1x1 conv + BN + ReLU (GEMM)
+# Tolerance (tools/conv_bn_experiment.py:tolerance): one bf16 ulp of the
+# plain version's value, plus K * 2^-24 * |a| * (|x| @ |w|), the worst-case
+# error of an f32 sum of K products in another order (the plain version is
+# an f32 matmul with TF32 off). Shapes: the tool's, its rows unpadded
+# (ragged against the 128-row tile), fewer rows than one tile, and a narrow
+# K and N inside one tile.
+CONV_BN_SHAPES = [(96256, 720, 720), (96100, 720, 720), (77, 720, 720),
+                  (1000, 48, 64)]
+
+
+def _conv_bn_inputs(shape, cuda, seed=0):
+    n, c_in, c_out = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, c_in, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(c_in, c_out, generator=g, device=cuda) * 0.05).bfloat16()
+    a = torch.rand(c_out, generator=g, device=cuda) + 0.5
+    b = torch.randn(c_out, generator=g, device=cuda)
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("shape", CONV_BN_SHAPES)
+def test_conv_bn_relu_kernel_equals_plain(cuda, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, a, b = _conv_bn_inputs(shape, cuda)
+    before = k4.LAUNCHES
+    y = k4.conv1x1_bn_relu(x, w, a, b)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    ref = k4._conv1x1_bn_relu_ref(x, w, a, b)
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= tool.tolerance(x, w, a, ref)).all()), \
+        float(err.max())
+
+
+def test_conv_bn_relu_kernel_rejects_what_it_does_not_take(cuda):
+    x, w, a, b = _conv_bn_inputs((64, 32, 16), cuda)
+    before = k4.LAUNCHES
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.conv1x1_bn_relu(x.t().contiguous().t(), w, a, b)
+    flat = torch.zeros(64 * 32 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        k4.conv1x1_bn_relu(flat[1:].view(64, 32), w, a, b)
+    with pytest.raises(ValueError, match="C_in % 16"):
+        k4.conv1x1_bn_relu(x[:, :24].contiguous(), w[:24], a, b)
+    with pytest.raises(ValueError, match="C_out % 8"):
+        k4.conv1x1_bn_relu(x, w[:, :12].contiguous(), a[:12], b[:12])
+    with pytest.raises(TypeError):
+        k4.conv1x1_bn_relu(x.half(), w, a, b)
+    with pytest.raises(ValueError, match="one device"):
+        k4.conv1x1_bn_relu(x, w.cpu(), a, b)
+    assert k4.LAUNCHES == before
+
+
+def test_conv_bn_tool_on_card(cuda):
+    before = k4.LAUNCHES
+    row = tool.run(b=1, h=20, w=20, c=64, tile_n=128, steps=2)
+    assert k4.LAUNCHES >= before + 1
+    assert row["within_tolerance"] and row["device"] == "cuda"
+    assert row["kernel_ms"] > 0 and row["library_ms"] > 0 and row["card"]

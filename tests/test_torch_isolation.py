@@ -47,8 +47,12 @@ def test_port_and_serve_cli_import_no_jax():
         f"import {PORT}.models, {PORT}.ops, {PORT}.data.dataset\n"
         f"import {PORT}.train.steps, {PORT}.train.state\n"
         f"import {PORT}.losses.hierarchical, {PORT}.metrics.segmentation\n"
-        f"import {PORT}.data.synthetic, {PORT}.data.target_factory")
+        f"import {PORT}.data.synthetic, {PORT}.data.target_factory\n"
+        f"import {PORT}.models.backbones.unet, {PORT}.ops.conv_bn_relu\n"
+        f"import {PORT}.tools.conv_bn_experiment")
     assert PORT in mods and f"{PORT}.train.steps" in mods
+    assert f"{PORT}.models.backbones.unet" in mods
+    assert f"{PORT}.tools.conv_bn_experiment" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 

@@ -27,6 +27,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.models import (
     BatchNormAct,
     FiLM,
     HRNetBackbone,
+    UNetBackbone,
 )
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.models.hierarchical import (
     build_model as port_build_model,
@@ -116,8 +117,11 @@ def test_hrnet_head_modes():
         HRNetBackbone(pcfg, head_mode="sum")
     with pytest.raises(ValueError):
         HRNetBackbone(pcfg, head_mode="concatenate")
-    with pytest.raises(NotImplementedError, match="UNet donor"):
-        port_build_model(trees("default")[1], model_select=0)
+    # model_select 0, the default, is the UNet donor: 9 DoubleConvs of two
+    # BatchNorms each (test_torch_unet.py holds it against the JAX UNet)
+    unet = port_build_model(trees("default")[1], model_select=0)
+    assert isinstance(unet.backbone, UNetBackbone)
+    assert sum(isinstance(m, BatchNormAct) for m in unet.modules()) == 18
 
 
 @pytest.mark.parametrize("concat", [False, True], ids=["film", "concat"])

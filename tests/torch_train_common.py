@@ -3,9 +3,9 @@
 one tiny-HRNet train step on the JAX side and on the port's, from the same
 variables and batch, and the checks between them.
 
-Setting: the tiny HRNet (``torch_port_common.tiny_hrnet``) on the default
-tree, 64 px, batch 4, fp32, AdamW at lr 0.018 with ``bench.py``'s level
-weights. Images and int8 ternary targets come from the port's numpy
+Setting: the tiny HRNet (``torch_port_common.tiny_hrnet``), or with
+``donor="unet"`` a UNet of base width 8, on the default tree, 64 px, batch
+4, fp32, AdamW at lr 0.018 with ``bench.py``'s level weights. Images and int8 ternary targets come from the port's numpy
 synthetic generator and target factory; the same arrays go to both sides.
 
 Each comparison is made after each of two steps. The second step starts
@@ -27,7 +27,11 @@ Tolerances, and why:
   another BatchNorm): there it sits up to 1.5e-2 of a tensor's largest
   gradient from the port, while the port stays within ~1e-5 of a float64
   run (``test_torch_bn_train.py:test_step_gradients_against_float64``);
-  so 5e-2;
+  so 5e-2. The UNet's convs have biases, and each sits ahead of a
+  train-mode BatchNorm, so its gradient is 0 in exact arithmetic and f32
+  noise on either side (measured: <= 1.8e-6 apart, the step's largest
+  gradient being 0.10): those tensors are held to 5e-5 of the step's
+  largest gradient instead;
 * running statistics: ``STATS_RTOL[oracle]`` of the tensor's largest
   value (1e-5; 1e-4 for the default path, whose batch variance carries the
   same cancellation);
@@ -48,6 +52,12 @@ import numpy as np
 import optax
 import torch
 
+from restrictive_hierarchical_semantic_segmentation_tpu.models.backbones.unet import (
+    UNetBackbone as JaxUNet,
+)
+from restrictive_hierarchical_semantic_segmentation_tpu.models.hierarchical import (
+    HierarchicalSegmenter as JaxSegmenter,
+)
 from restrictive_hierarchical_semantic_segmentation_tpu.models.hierarchical import (
     build_model as jax_build_model,
 )
@@ -67,6 +77,10 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.target_factor
     node_masks,
     ternary_encode,
 )
+from restrictive_hierarchical_semantic_segmentation_tpu_torch.models import (
+    HierarchicalSegmenter,
+    UNetBackbone,
+)
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.models.hierarchical import (
     build_model as port_build_model,
 )
@@ -84,6 +98,7 @@ LEVEL_WEIGHTS = [[0.0297, 1.577, 0.9619, 0.1770],
                  [1.5432, 0.2638, 1.0413, 3.9722]]
 S, B = 64, 4
 GRAD_RTOL = {"pallas": 1e-4, "default": 5e-2}
+ZERO_GRAD_TOL = 5e-5
 STATS_RTOL = {"pallas": 1e-5, "default": 1e-4}
 
 
@@ -123,18 +138,47 @@ def flat(params, stats=None):
         jax.device_get(params), jax.device_get(stats or {})).items()}
 
 
-class Pair:
-    """The JAX step and the port's, from the same variables. ``oracle``:
-    "pallas" (the JAX model with ``use_pallas_bn=True``, its kernels in
-    interpret mode) or "default" (``LeanBatchNorm``)."""
+UNET_BASE = 8
 
-    def __init__(self, share=True, grad_accum=1, oracle="pallas", seed=0):
+
+def unet_models(jtree, ptree, model_type=1, share=True, base_ch=UNET_BASE):
+    """The hierarchical (or flat) segmenter on a UNet of width ``base_ch``,
+    as the JAX ``build_model(model_select=0)`` builds it (a 1x1 head,
+    ``align_corners=True``) at full width: (JAX module, port module)."""
+    jm = JaxSegmenter(tree=jtree, backbone=JaxUNet(base_ch=base_ch),
+                      hierarchical=model_type == 1, final_conv_kernel=1,
+                      align_corners=True, share_backbone=share)
+    pm = HierarchicalSegmenter(ptree, UNetBackbone(base_ch=base_ch),
+                               hierarchical=model_type == 1,
+                               final_conv_kernel=1, align_corners=True,
+                               share_backbone=share)
+    return jm, pm
+
+
+class Pair:
+    """The JAX step and the port's, from the same variables. ``donor``:
+    "hrnet" (the tiny HRNet) or "unet" (``unet_models``). ``oracle``:
+    "pallas" (the JAX model with ``use_pallas_bn=True``, its kernels in
+    interpret mode) or "default" (``LeanBatchNorm``; the JAX UNet has no
+    other BatchNorm)."""
+
+    def __init__(self, share=True, grad_accum=1, oracle="pallas", seed=0,
+                 donor="hrnet"):
+        if donor == "unet" and oracle != "default":
+            raise ValueError("the JAX UNet has LeanBatchNorm only: use "
+                             "oracle='default'")
         self.oracle = oracle
+        self.donor = donor
         self.jtree, self.ptree = trees("default")
         jcfg, pcfg = tiny_configs()
         self.x, self.y = batch(self.ptree)
-        jm = jax_build_model(self.jtree, 1, 1, jcfg, share_backbone=share,
-                             use_pallas_bn=oracle == "pallas")
+        if donor == "unet":
+            jm, pm = unet_models(self.jtree, self.ptree, share=share)
+        else:
+            jm = jax_build_model(self.jtree, 1, 1, jcfg, share_backbone=share,
+                                 use_pallas_bn=oracle == "pallas")
+            pm = port_build_model(self.ptree, 1, 1, pcfg,
+                                  share_backbone=share)
         params, stats = jax_variables(jm, self.x[:1], seed=seed, train=False)
         tx = adamw_keeping_grads(LR)
         self.jstate = JaxTrainState(params=params, batch_stats=stats,
@@ -144,7 +188,6 @@ class Pair:
             jm, tx, self.jtree, True, level_weights=LEVEL_WEIGHTS,
             donate=False, grad_accum=grad_accum)
         self.jm = jm
-        pm = port_build_model(self.ptree, 1, 1, pcfg, share_backbone=share)
         pm.load_state_dict(state_dict_from_flax(params, stats), strict=True)
         self.pm = pm.to(memory_format=torch.channels_last)
         self.pstate = create_train_state(self.pm, LR)
@@ -178,10 +221,24 @@ class Pair:
         got = {n: p.grad.numpy() for n, p in self.pm.named_parameters()}
         assert set(got) == set(want)
         rtol = GRAD_RTOL[self.oracle]
+        top = max(np.abs(g).max() for g in want.values())
         for n, g in got.items():
             scale = np.abs(want[n]).max()
             err = np.abs(g - want[n]).max()
-            assert err <= rtol * scale + 1e-7, (n, err, scale)
+            if n in self.zero_grads():
+                assert err <= ZERO_GRAD_TOL * top, (n, err, top)
+            else:
+                assert err <= rtol * scale + 1e-7, (n, err, scale)
+
+    def zero_grads(self):
+        """Parameters whose gradient is 0 in exact arithmetic: the bias of
+        a conv whose output goes straight into a train-mode BatchNorm (the
+        UNet's; HRNet's convs have no bias)."""
+        if self.donor != "unet":
+            return set()
+        return {n for n, _ in self.pm.named_parameters()
+                if n.startswith("backbone.")
+                and n.endswith((".conv0.bias", ".conv1.bias"))}
 
     def check_state(self):
         want = flat(self.jstate.params, self.jstate.batch_stats)
