@@ -26,10 +26,12 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    parameters, AdamW at lr 0.018 -- one eval step, one warm-up step (the
    running statistics checked against the closed form with D = 2) and 5
    timed steps, each with its launches of the three BatchNorm kernels
-   counted, then one step under the profiler;
+   counted (the BN backward: one cooperative launch per call), then one
+   step under the profiler;
 8. train kernels: the batch-statistics, BN-backward and scale-bias-act
-   kernels against their plain versions at every shape of the train step,
-   timed beside their bounds, the plain versions and a library call;
+   kernels against their plain versions at every shape of the train step
+   (the BN backward also run twice and held bit for bit to itself), timed
+   beside their bounds, the plain versions and a library call;
 9. UNet slice: phase 4 for the hierarchical UNet at 352 px (18 BN modules,
    every BN input checked to be channels_last, so no copy precedes a BN
    kernel), its bf16 forward under the profiler, then one HTTP request to
@@ -41,9 +43,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     (16, 352, 352, 64), 1,982,464 rows);
 13. conv + BN + ReLU: the tool ``tools/conv_bn_experiment.py`` on the card
     at its full shapes (the fused kernel's main path, its launches
-    counted), the kernel against its plain version at four shapes (TF32
-    off), and its time beside its bound, the plain version's and one cuBLAS
-    ``torch.matmul``.
+    counted), the kernel (a persistent wgmma/TMA GEMM) against its plain
+    version at four shapes (TF32 off), and its time beside its bound, the
+    plain version's and one cuBLAS ``torch.matmul``.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 the ``{"ok": true, "device": ...}`` JSON line. Imports no jax.
@@ -618,7 +620,7 @@ TRAIN_LR = 0.018
 # bench.py's level weights for the default tree (the reference recipe)
 LEVEL_WEIGHTS = [[0.0297, 1.577, 0.9619, 0.1770],
                  [1.5432, 0.2638, 1.0413, 3.9722]]
-TRAIN_COUNTS = ("bn_stats", "bn_bwd_reduce", "bn_bwd_dx", "scale_bias_act")
+TRAIN_COUNTS = ("bn_stats", "bn_backward", "scale_bias_act")
 # f32 train step, card against CPU (see phase_train_parity)
 PARITY_LOSS_RTOL = 1e-4
 PARITY_GRAD_MEDIAN = 1e-4
@@ -853,7 +855,7 @@ def classify_kernel(name: str):
         return "scale_bias_act"
     if "StatsOp" in name or "StatsFin" in name:
         return "bn_stats"
-    if "ReduceOp" in name or "ReduceFin" in name or "bn_backward_dx" in name:
+    if "bn_backward_fused" in name:
         return "bn_backward"
     return None
 
@@ -1071,11 +1073,11 @@ def _backward_err(got, want) -> float:
 
 
 def measure_train_kernels(shape, dtype, act, gen, device) -> dict:
-    """Kernels 1 and 3 against their plain versions on one seeded input,
-    then their times (inputs from device memory: ``ms``; from L2:
-    ``ms_l2``), the plain versions', one library call's and the bounds:
-    bn_stats reads x once; the BN backward reads x and g once and writes
-    dx once (its two passes move 5 such tensors)."""
+    """Kernels 1 and 3 against their plain versions on one seeded input
+    (the BN backward run twice: no float atomics, so the same bits), then
+    their times (inputs from device memory: ``ms``; from L2: ``ms_l2``),
+    the plain versions', one library call's and the bounds: bn_stats reads
+    x once; the BN backward reads x and g once and writes dx once."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -1095,7 +1097,10 @@ def measure_train_kernels(shape, dtype, act, gen, device) -> dict:
 
     stats_err = _stats_err(fba.bn_stats(x), (mean, var))
     got = fba.bn_act_backward(x, g, *vecs, act)
+    again = fba.bn_act_backward(x, g, *vecs, act)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        f"bn_backward not run-to-run bit-identical at {shape}"
     want = fba._bn_backward_ref(x.reshape(-1, c), g.reshape(-1, c), *vecs,
                                 act)
     bwd_err = _backward_err((got[0].reshape(-1, c), got[1], got[2]), want)
@@ -1403,15 +1408,16 @@ def main() -> int:
         **unet("bn_stats")),
         kernel_entry(
         "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
-        train["counts"]["bn_bwd_reduce"], ttot["bn_backward"],
-        step_work + "; both passes (launches: pass A; launches_dx: pass B);"
-        " library_ms is one aten native_batch_norm_backward(train=True) per "
-        "launch, which computes act 'none' (relu needs its mask on top)"
-        + unet_work,
-        launches_dx=train["counts"]["bn_bwd_dx"],
+        train["counts"]["bn_backward"], ttot["bn_backward"],
+        step_work + "; one cooperative launch per call; library_ms is one "
+        "aten native_batch_norm_backward(train=True) per launch, which "
+        "computes act 'none' (relu needs its mask on top)" + unet_work,
+        design="one cooperative pass: phase A into shared memory and "
+        "per-thread cp.async rings, two grid barriers around a double "
+        "combine, phase B re-reading on chip, evict-first dx (previously "
+        "three launches: column partials, combine, dx)",
         grad_copies=train["grad_copies"][0],
-        unet_launches=utrain["counts"]["bn_bwd_reduce"],
-        unet_launches_dx=utrain["counts"]["bn_bwd_dx"],
+        unet_launches=utrain["counts"]["bn_backward"],
         unet_grad_copies=utrain["grad_copies"][0], **unet("bn_backward")),
         kernel_entry(
         "conv1x1_bn_relu", "conv_bn_relu.cu", CONV_BN_REPLACES,
@@ -1420,6 +1426,10 @@ def main() -> int:
         "from device memory (ms_l2: the same input each call); launches: "
         "the tool's run on the card (tools/conv_bn_experiment.py); "
         "library_ms is one cuBLAS bf16 torch.matmul(x, w)",
+        design="persistent warp-specialised wgmma.m64n240k16 GEMM fed by "
+        "TMA: one producer thread, a 3-stage mbarrier ring, two consumer "
+        "warpgroups, the epilogue stored under the next tile's wgmmas "
+        "(previously a tiled mma.sync.m16n8k16 GEMM with cp.async)",
         bound_by=conv["bound_by"], tool=conv["tool"])]
     for k in kernels:
         assert k["launches"] >= 1, k["name"]

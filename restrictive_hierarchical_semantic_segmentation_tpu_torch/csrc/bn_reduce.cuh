@@ -41,21 +41,29 @@ struct Geometry {
   int64_t rows_per_block;  // a multiple of ty
 };
 
-// A function of (rows, channels) only. row_blocks <= want <= kTargetBlocks:
-// with per = ceil(rows / want), ceil(rows / per) <= want.
-inline Geometry geometry(int64_t rows, int channels) {
-  Geometry g;
-  const int c_vec = channels / kVec;
-  g.tx = c_vec < 32 ? c_vec : 32;
-  g.ty = kThreads / g.tx;
-  g.col_blocks = (c_vec + g.tx - 1) / g.tx;
-  int64_t want = kTargetBlocks / g.col_blocks;
+// Splits rows >= 1 into contiguous strips of a multiple of ty rows, at
+// least ty each, for `blocks` blocks over col_blocks column groups: sets
+// rows_per_block and row_blocks <= max(1, blocks / col_blocks) (with per =
+// ceil(rows / want), ceil(rows / per) <= want). bn_stats and the BN backward
+// both split this way.
+inline void split_rows(Geometry& g, int64_t rows, int blocks) {
+  int64_t want = blocks / g.col_blocks;
   if (want < 1) want = 1;
   const int64_t most = (rows + g.ty - 1) / g.ty;  // >= ty rows per strip
   if (want > most) want = most;
   const int64_t per = (rows + want - 1) / want;
   g.rows_per_block = (per + g.ty - 1) / g.ty * g.ty;
   g.row_blocks = (int)((rows + g.rows_per_block - 1) / g.rows_per_block);
+}
+
+// A function of (rows, channels) only: row_blocks <= kTargetBlocks.
+inline Geometry geometry(int64_t rows, int channels) {
+  Geometry g;
+  const int c_vec = channels / kVec;
+  g.tx = c_vec < 32 ? c_vec : 32;
+  g.ty = kThreads / g.tx;
+  g.col_blocks = (c_vec + g.tx - 1) / g.tx;
+  split_rows(g, rows, kTargetBlocks);
   return g;
 }
 
@@ -176,44 +184,59 @@ column_partials(Op op, int64_t rows, int channels, int64_t rows_per_block,
   }
 }
 
-// Pass 2: the strips' partials of each channel, in double. A block owns
-// kCombineX neighbouring channels (neighbouring threads read neighbouring
-// words); its kCombineY row lanes each add every kCombineY-th strip, and
-// the lanes are then added in shared memory in a fixed tree order, so the
-// result does not depend on scheduling. One thread per channel would add
-// ~500 strips as a chain of dependent loads.
+// Pass 2: the strips' partials of each channel, in double. A group of
+// kCombineX * kCombineY threads owns kCombineX neighbouring channels
+// (neighbouring threads read neighbouring words); its kCombineY row lanes
+// each add every kCombineY-th strip, and the lanes are then added in shared
+// memory in a fixed tree order, so the result does not depend on
+// scheduling. One thread per channel would add ~500 strips as a chain of
+// dependent loads.
 // Fin: void operator()(int c, double sum0, double sum1).
 constexpr int kCombineX = 32;
 constexpr int kCombineY = 16;
+
+// Channels [grp * kCombineX, + kCombineX) by the block's threads, all of
+// which call it (lane = thread index < kCombineX * kCombineY); sa and sb:
+// kCombineX * kCombineY doubles of shared memory each, free again on
+// return. The partials may have been written earlier in the same launch, so
+// they are read through L2 (__ldcg).
+template <typename Fin>
+__device__ __forceinline__ void combine_group(const float* partial,
+                                              int row_blocks, int channels,
+                                              int grp, int lane, double* sa,
+                                              double* sb, const Fin& fin) {
+  const int cx = lane % kCombineX, cy = lane / kCombineX;
+  const int c = grp * kCombineX + cx;
+  double a = 0.0, b = 0.0;
+  if (c < channels) {
+#pragma unroll 4
+    for (int i = cy; i < row_blocks; i += kCombineY) {
+      a += __ldcg(partial + (int64_t)i * channels + c);
+      b += __ldcg(partial + ((int64_t)row_blocks + i) * channels + c);
+    }
+  }
+  sa[lane] = a;
+  sb[lane] = b;
+  __syncthreads();
+  for (int half = kCombineY / 2; half > 0; half >>= 1) {
+    if (cy < half) {
+      sa[lane] += sa[lane + half * kCombineX];
+      sb[lane] += sb[lane + half * kCombineX];
+    }
+    __syncthreads();
+  }
+  if (cy == 0 && c < channels) fin(c, sa[lane], sb[lane]);
+  __syncthreads();
+}
 
 template <typename Fin>
 __global__ void __launch_bounds__(kCombineX * kCombineY)
 combine_partials(const float* __restrict__ partial, int row_blocks,
                  int channels, Fin fin) {
-  const int c = blockIdx.x * kCombineX + threadIdx.x;
-  double a = 0.0, b = 0.0;
-  if (c < channels) {
-#pragma unroll 4
-    for (int i = threadIdx.y; i < row_blocks; i += kCombineY) {
-      a += partial[(int64_t)i * channels + c];
-      b += partial[((int64_t)row_blocks + i) * channels + c];
-    }
-  }
-  __shared__ double sa[kCombineY][kCombineX];
-  __shared__ double sb[kCombineY][kCombineX];
-  sa[threadIdx.y][threadIdx.x] = a;
-  sb[threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  for (int half = kCombineY / 2; half > 0; half >>= 1) {
-    if (threadIdx.y < half) {
-      sa[threadIdx.y][threadIdx.x] += sa[threadIdx.y + half][threadIdx.x];
-      sb[threadIdx.y][threadIdx.x] += sb[threadIdx.y + half][threadIdx.x];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.y == 0 && c < channels) {
-    fin(c, sa[0][threadIdx.x], sb[0][threadIdx.x]);
-  }
+  __shared__ double sa[kCombineY * kCombineX];
+  __shared__ double sb[kCombineY * kCombineX];
+  combine_group(partial, row_blocks, channels, blockIdx.x,
+                threadIdx.y * kCombineX + threadIdx.x, sa, sb, fin);
 }
 
 // Launch both passes on `stream`; returns cudaGetLastError() after them.

@@ -27,4 +27,33 @@ inline int grid_for(int64_t n_vec) {
   return (int)(need < max_blocks ? need : max_blocks);
 }
 
+// One kernel's set-up on each device it runs on, done once per device (the
+// attributes a launch must ask for, such as dynamic shared memory above 48
+// KB), and the device's SM count. A launcher keeps one static DeviceOnce.
+struct DeviceOnce {
+  static constexpr int kMaxDevices = 64;
+  bool configured[kMaxDevices] = {};
+  int sms[kMaxDevices] = {};
+
+  // *sms_out = the current device's SM count, after setup() (returning a
+  // cudaError_t) has run on it once; returns a CUDA error code, 0 on success
+  template <typename Setup>
+  int get(int* sms_out, Setup setup) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!configured[dev]) {
+      err = setup();
+      if (err != cudaSuccess) return (int)err;
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+      if (err != cudaSuccess) return (int)err;
+      configured[dev] = true;
+    }
+    *sms_out = sms[dev];
+    return (int)cudaSuccess;
+  }
+};
+
 }  // namespace rhss

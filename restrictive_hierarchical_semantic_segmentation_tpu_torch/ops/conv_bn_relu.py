@@ -5,9 +5,12 @@ Counterpart of the Pallas ``kernel`` of the JAX package's tool
 ``tools/pallas_conv_bn_experiment.py`` (``pallas_fused``): the HRNet shared
 head's 720 -> 720 1x1 conv followed by its folded BatchNorm and ReLU, with
 the pixels of an NHWC activation as the rows of ``x``. The kernel is
-``csrc/conv_bn_relu.cu`` (a tiled ``mma.sync`` bf16 GEMM for Hopper, built
-with ``nvcc`` at first use and called through ``ctypes``); its plain PyTorch
-version is :func:`_conv1x1_bn_relu_ref`.
+``csrc/conv_bn_relu.cu`` (a warp-specialised, persistent ``wgmma`` bf16 GEMM
+fed by TMA, for ``sm_90a``, built with ``nvcc`` at first use and called
+through ``ctypes``); its plain PyTorch version is
+:func:`_conv1x1_bn_relu_ref`. The kernel reads w K-major: the wrapper copies
+``w`` (C_in, C_out) to (C_out, C_in) on every call (:func:`_k_major`), so a
+weight changed in place is never read stale.
 
 The wrapper picks by where ``x`` lies: a CPU tensor goes through the plain
 version, a CUDA tensor through the kernel (or the call raises). ``LAUNCHES``
@@ -77,11 +80,18 @@ def _check(x, w, a, b) -> None:
             raise ValueError(f"conv1x1_bn_relu needs {name} 16-byte aligned")
 
 
+def _k_major(w: torch.Tensor) -> torch.Tensor:
+    """w (C_in, C_out) as the (C_out, C_in) contiguous matrix the kernel's
+    TMA loads read K-major (a fresh copy, 16-byte aligned)."""
+    return w.t().contiguous()
+
+
 def _launch(x, w, a, b) -> torch.Tensor:
     global LAUNCHES
     c_in, c_out = w.shape
+    wt = _k_major(w)
     y = torch.empty(x.shape[0], c_out, dtype=torch.bfloat16, device=x.device)
-    _call(x, "conv1x1_bn_relu", _fn(), x.data_ptr(), w.data_ptr(),
+    _call(x, "conv1x1_bn_relu", _fn(), x.data_ptr(), wt.data_ptr(),
           a.data_ptr(), b.data_ptr(), y.data_ptr(), x.shape[0], c_in, c_out,
           _stream(x))
     LAUNCHES += 1

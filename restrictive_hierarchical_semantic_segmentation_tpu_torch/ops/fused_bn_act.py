@@ -12,7 +12,7 @@ Pallas kernel (JAX file)               CUDA source          plain version
 ``_scale_bias_act_kernel``             ``scale_bias_act.cu``  :func:`_scale_bias_act_ref`
 ``_stats_kernel`` (``bn_stats``)       ``bn_stats.cu``        :func:`_bn_stats_ref`
 ``_bwd_kernel`` + the tail of          ``bn_backward.cu``     :func:`_bn_backward_ref`
-``_fba_bwd`` that forms dx             (passes A and B)
+``_fba_bwd`` that forms dx             (one cooperative pass)
 =====================================  ===================  ==============================
 
 Every wrapper picks by where the tensor lies: a CPU tensor goes through the
@@ -25,7 +25,7 @@ copied into the contiguous ``(rows, C)`` layout first.
 :class:`FusedBNAct` is the train-mode ``act(gamma * (x - mean) * rstd +
 beta)`` as an autograd Function (the JAX ``fused_bn_act`` custom VJP): its
 forward is the scale-bias-act kernel, it saves only x and ``(C,)`` vectors,
-and its backward is the two-pass BN backward kernel.
+and its backward is the BN backward kernel (one launch per call).
 :func:`batch_norm_act` takes the statistics first, on ``x.detach()``.
 
 The kernels write new tensors (out of place): the eval-mode caller could
@@ -48,7 +48,7 @@ TRAIN_ACTS = ("none", "relu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
-TRAIN_LAUNCHES = {"bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+TRAIN_LAUNCHES = {"bn_stats": 0, "bn_backward": 0}
 GRAD_COPIES = 0
 
 
@@ -76,10 +76,8 @@ _SIGNATURES = {
     ("scale_bias_act", "rhss_scale_bias_act"):
         [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
     ("bn_stats", "rhss_bn_stats"): [_P, _I64, _I, _I, _P, _P, _P, _P],
-    ("bn_backward", "rhss_bn_backward_reduce"):
-        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    ("bn_backward", "rhss_bn_backward_dx"):
-        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    ("bn_backward", "rhss_bn_backward"):
+        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 _FNS = {}
 
@@ -184,7 +182,8 @@ def _bn_stats_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # the most strips a column reduction splits its rows into (kTargetBlocks in
-# csrc/bn_reduce.cuh)
+# csrc/bn_reduce.cuh); the BN backward keeps its edz / n and eydz / n in the
+# workspace's last rows and uses fewer strips
 _MAX_STRIPS = 528
 
 
@@ -264,20 +263,12 @@ def _launch_backward(x: torch.Tensor, g: torch.Tensor, scale, shift, mean,
         raise ValueError("bn_backward needs at least one row")
     sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
     edz, eydz = sums[0], sums[1]
-    ws = _workspace(x, c)
-    head = (x.data_ptr(), g.data_ptr(), rows, c, _DTYPES[x.dtype],
-            ACTS[act])
-    _call(x, "bn_backward (reduce)",
-          _fn("bn_backward", "rhss_bn_backward_reduce"), *head, *ptrs,
-          ws.data_ptr(), edz.data_ptr(), eydz.data_ptr(), _stream(x))
-    TRAIN_LAUNCHES["bn_bwd_reduce"] += 1
-    dx = None
-    if need_dx:
-        dx = torch.empty_like(x)
-        _call(x, "bn_backward (dx)", _fn("bn_backward", "rhss_bn_backward_dx"),
-              *head, *ptrs, edz.data_ptr(), eydz.data_ptr(), dx.data_ptr(),
-              _stream(x))
-        TRAIN_LAUNCHES["bn_bwd_dx"] += 1
+    dx = torch.empty_like(x) if need_dx else None
+    _call(x, "bn_backward", _fn("bn_backward", "rhss_bn_backward"),
+          x.data_ptr(), g.data_ptr(), rows, c, _DTYPES[x.dtype], ACTS[act],
+          *ptrs, _workspace(x, c).data_ptr(), edz.data_ptr(), eydz.data_ptr(),
+          dx.data_ptr() if need_dx else None, _stream(x))
+    TRAIN_LAUNCHES["bn_backward"] += 1
     return dx, eydz, edz
 
 

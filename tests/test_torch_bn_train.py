@@ -221,3 +221,30 @@ def test_step_gradients_against_float64():
         scale = g.abs().max().item()
         err = (g32[n].double() - g).abs().max().item()
         assert err <= 1e-4 * scale + 1e-7, (n, err, scale)
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_bn_backward_is_one_counted_entry(act):
+    """The BN backward is one C entry (one launch per call on the card) with
+    dx optional, counted under one name; on the CPU the plain version runs,
+    counts nothing, and gives the same dgamma, dbeta with or without dx."""
+    assert set(tfba.TRAIN_LAUNCHES) == {"bn_stats", "bn_backward"}
+    bwd = [k for k in tfba._SIGNATURES if k[0] == "bn_backward"]
+    assert bwd == [("bn_backward", "rhss_bn_backward")]
+    # x, g, rows, C, dtype, act, 4 vectors, workspace, edz, eydz, dx, stream
+    assert len(tfba._SIGNATURES[bwd[0]]) == 15
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((37, 24)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((37, 24)).astype(np.float32))
+    mean, var = tfba.bn_stats(x)
+    rstd = torch.rsqrt(var + 1e-5)
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, 24).astype(np.float32))
+    scale, shift = gamma * rstd, 0.1 - mean * gamma * rstd
+    before = dict(tfba.TRAIN_LAUNCHES)
+    dx, dg, db = tfba.bn_act_backward(x, g, scale, shift, mean, rstd, act)
+    none, dg2, db2 = tfba.bn_act_backward(x, g, scale, shift, mean, rstd,
+                                          act, need_dx=False)
+    assert tfba.TRAIN_LAUNCHES == before
+    assert none is None and dx.shape == x.shape
+    assert torch.equal(dg, dg2) and torch.equal(db, db2)
+

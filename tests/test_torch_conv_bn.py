@@ -137,3 +137,19 @@ def test_bound_at_the_tools_shape():
     assert bnd["flop"] == 99_798_220_800 and bnd["bytes"] == 278_259_840
     assert bnd["bound_by"] == "operations"
     assert abs(bnd["bound_ms"] - 0.1009) < 1e-4
+
+
+@pytest.mark.parametrize("shape", [(720, 720), (48, 64), (16, 248)])
+def test_k_major_copy_of_w(shape):
+    """The wrapper hands the kernel w (C_in, C_out) as a fresh contiguous
+    (C_out, C_in) copy, so its TMA loads read K-major rows and a weight
+    changed in place after a call cannot be read stale."""
+    w = torch.randn(shape).to(torch.bfloat16)
+    wt = k4._k_major(w)
+    assert wt.shape == shape[::-1] and wt.dtype == torch.bfloat16
+    assert wt.is_contiguous() and wt.data_ptr() % 16 == 0
+    assert torch.equal(wt, w.t())
+    assert wt.untyped_storage().data_ptr() != w.untyped_storage().data_ptr()
+    w.mul_(2)
+    assert not torch.equal(wt, w.t())
+

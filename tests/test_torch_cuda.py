@@ -92,6 +92,12 @@ def test_batchnorm_module_on_card_equals_cpu(cuda):
 # near a rounding boundary may round either way).
 TRAIN_SHAPES = [(16, 310, 310, 64), (16, 155, 155, 256), (16, 39, 39, 192),
                 (2, 20, 20, 384), (1001, 48), (3, 7, 720), (1, 8)]
+# the BN backward's single pass beyond TRAIN_SHAPES: W48 shapes whose x + g
+# exceed L2 (the re-read comes from device memory), the 720-channel head at
+# batch 2, C = 8 over many rows, one row of 720 channels (fewer rows than
+# the grid has blocks: one strip)
+BACKWARD_SHAPES = TRAIN_SHAPES + [(16, 155, 155, 48), (2, 155, 155, 720),
+                                  (4099, 8), (1, 720)]
 
 
 def _stats_ok(got, want):
@@ -143,25 +149,38 @@ def _sums_ok(got, ref):
 
 @pytest.mark.parametrize("act", ["none", "relu"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
 def test_bn_backward_kernel_equals_plain(cuda, shape, dtype, act):
     x, grad, *vecs = _train_inputs(shape, dtype, cuda)
     c = shape[-1]
-    before = dict(fba.TRAIN_LAUNCHES)
+    before = fba.TRAIN_LAUNCHES["bn_backward"]
     dx, dgamma, dbeta = fba.bn_act_backward(x, grad, *vecs, act)
     torch.cuda.synchronize()
-    assert fba.TRAIN_LAUNCHES["bn_bwd_reduce"] == before["bn_bwd_reduce"] + 1
-    assert fba.TRAIN_LAUNCHES["bn_bwd_dx"] == before["bn_bwd_dx"] + 1
+    assert fba.TRAIN_LAUNCHES["bn_backward"] == before + 1  # one launch
     rdx, rdg, rdb = fba._bn_backward_ref(x.reshape(-1, c), grad.reshape(-1, c),
                                          *vecs, act)
     _dx_ok(dx, rdx.reshape(shape))
     _sums_ok(dgamma, rdg)
     _sums_ok(dbeta, rdb)
-    # without dx only pass A runs
+    # without dx the same launch stops after the sums
     none, dg2, db2 = fba.bn_act_backward(x, grad, *vecs, act, need_dx=False)
     assert none is None
-    assert fba.TRAIN_LAUNCHES["bn_bwd_dx"] == before["bn_bwd_dx"] + 1
+    assert fba.TRAIN_LAUNCHES["bn_backward"] == before + 2
     assert torch.equal(dg2, dgamma) and torch.equal(db2, dbeta)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 155, 155, 48), (2, 155, 155, 720),
+                                   (1001, 48)])
+def test_bn_backward_kernel_is_deterministic(cuda, shape, dtype):
+    """No float atomics and sums in a fixed order: two calls on the same
+    inputs give the same bits in dx, dgamma and dbeta."""
+    x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=3)
+    first = fba.bn_act_backward(x, grad, *vecs, "relu")
+    second = fba.bn_act_backward(x, grad, *vecs, "relu")
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_bn_backward_copies_a_gradient_in_another_layout(cuda):
@@ -260,6 +279,13 @@ def test_fused_bn_act_under_bf16_autocast_keeps_vectors_f32(cuda):
 # K and N inside one tile.
 CONV_BN_SHAPES = [(96256, 720, 720), (96100, 720, 720), (77, 720, 720),
                   (1000, 48, 64)]
+# the wgmma kernel's edges: ragged M (one row, one short of and one past the
+# 128-row tile), the K tails of its 64-wide K step (16, 48, 720 = 11 x 64 +
+# 16, 736 = 11 x 64 + 32), and N against its 240-wide tile (8, 144, 240,
+# 720, and 248, one past)
+CONV_BN_EDGES = [(1, 720, 720), (127, 720, 720), (129, 720, 720),
+                 (1000, 16, 64), (1000, 736, 720), (300, 720, 8),
+                 (300, 720, 144), (300, 720, 240), (300, 64, 248)]
 
 
 def _conv_bn_inputs(shape, cuda, seed=0):
@@ -272,7 +298,7 @@ def _conv_bn_inputs(shape, cuda, seed=0):
     return x, w, a, b
 
 
-@pytest.mark.parametrize("shape", CONV_BN_SHAPES)
+@pytest.mark.parametrize("shape", CONV_BN_SHAPES + CONV_BN_EDGES)
 def test_conv_bn_relu_kernel_equals_plain(cuda, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w, a, b = _conv_bn_inputs(shape, cuda)
@@ -285,6 +311,21 @@ def test_conv_bn_relu_kernel_equals_plain(cuda, shape):
     err = (y.float() - ref.float()).abs()
     assert bool((err <= tool.tolerance(x, w, a, ref)).all()), \
         float(err.max())
+
+
+def test_conv_bn_relu_kernel_reads_w_as_it_is_now(cuda):
+    """w changed in place between two calls: the second call must use the
+    new values (the K-major copy of w is made anew on every call)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, a, b = _conv_bn_inputs((500, 720, 720), cuda, seed=1)
+    first = k4.conv1x1_bn_relu(x, w, a, b)
+    w.mul_(-1.5)
+    second = k4.conv1x1_bn_relu(x, w, a, b)
+    torch.cuda.synchronize()
+    ref = k4._conv1x1_bn_relu_ref(x, w, a, b)
+    err = (second.float() - ref.float()).abs()
+    assert bool((err <= tool.tolerance(x, w, a, ref)).all())
+    assert not torch.equal(first, second)
 
 
 def test_conv_bn_relu_kernel_rejects_what_it_does_not_take(cuda):
