@@ -26,12 +26,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    parameters, AdamW at lr 0.018 -- one eval step, one warm-up step (the
    running statistics checked against the closed form with D = 2) and 5
    timed steps, each with its launches of the three BatchNorm kernels
-   counted (the BN backward: one cooperative launch per call), then one
-   step under the profiler;
+   counted (the statistics and the BN backward: one launch per call), then
+   one step under the profiler, which must show one device kernel of
+   ``bn_stats.cu`` per BatchNorm;
 8. train kernels: the batch-statistics, BN-backward and scale-bias-act
    kernels against their plain versions at every shape of the train step
-   (the BN backward also run twice and held bit for bit to itself), timed
-   beside their bounds, the plain versions and a library call;
+   (the statistics and the BN backward also run twice and held bit for bit
+   to themselves), timed beside their bounds, the plain versions and a
+   library call;
 9. UNet slice: phase 4 for the hierarchical UNet at 352 px (18 BN modules,
    every BN input checked to be channels_last, so no copy precedes a BN
    kernel), its bf16 forward under the profiler, then one HTTP request to
@@ -853,46 +855,86 @@ def classify_kernel(name: str):
     """The port kernel a profiler event belongs to, or None."""
     if "scale_bias_act" in name:
         return "scale_bias_act"
-    if "StatsOp" in name or "StatsFin" in name:
+    if "bn_stats_one_pass" in name:
         return "bn_stats"
     if "bn_backward_fused" in name:
         return "bn_backward"
     return None
 
 
+PROFILE_MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+PROFILE_LEAD = 64  # marker kernels before the pause
+PROFILE_TRIES = 3
+PROFILE_RANGE = "chip_smoke.profiled_call"  # the host span of run()
+
+
 def profile_call(run, what: str, top: int = 10):
     """One ``run()`` under ``torch.profiler``: device busy time, the idle
     share of the call's wall time (host clock around it, ending with a
-    synchronize), the top kernels and each port kernel's share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    synchronize), the top kernels and each port kernel's share, with each
+    port kernel's count of device kernels, and the kernel launches the host
+    made inside ``run()``.
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    A trace can lack the first device events it should hold: on an H100 a
+    profiled UNet train step lacked its first kernels, the first
+    BatchNorm's among them, and later in a process most traces lacked their
+    first few, however long they waited before launching anything. So
+    ``PROFILE_LEAD`` marker kernels go first, then a pause, then one more
+    marker and ``run()``; a trace that holds a marker holds everything
+    launched after it. A trace without one is taken again, ``run()``
+    included, up to ``PROFILE_TRIES`` times. The markers are left out of
+    every figure."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            with record_function(PROFILE_RANGE):
+                run()
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+        markers = sum(e.count for e in kernels if PROFILE_MARKER in e.key)
+        if markers:
+            break
+        log(f"profile ({what}): the trace lost all {PROFILE_LEAD + 1} "
+            "markers, so maybe the call's first kernels; again")
+    else:
+        raise AssertionError(f"profile ({what}): every trace lost the markers")
+    kernels = [e for e in kernels if PROFILE_MARKER not in e.key
+               and e.key != PROFILE_RANGE]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     assert device_ms > 0, "the profiler saw no device time"
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    shares = {}
+    shares, counts = {}, {}
     for e in kernels:
         k = classify_kernel(e.key)
         if k:
             shares[k] = shares.get(k, 0.0) + e.self_device_time_total / 1e3
+            counts[k] = counts.get(k, 0) + e.count
     idle = max(0.0, 1 - device_ms / wall_ms)
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU
+                   and e.key != PROFILE_RANGE),
                   key=lambda e: -e.self_cpu_time_total)
-    launches = sum(e.count for e in host
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == PROFILE_RANGE
+                and e.device_type == DeviceType.CPU)
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                   and span.start <= e.time_range.start <= span.end)
     log(f"profile ({what}): wall {wall_ms:.3f} ms, device busy "
-        f"{device_ms:.3f} ms, idle share {idle * 100:.1f}%; port kernels: "
-        + ", ".join(f"{k} {v:.3f} ms ({v / device_ms * 100:.2f}%)"
-                    for k, v in sorted(shares.items()))
+        f"{device_ms:.3f} ms, idle share {idle * 100:.1f}%; {markers} of "
+        f"{PROFILE_LEAD + 1} markers kept; port kernels: "
+        + ", ".join(f"{k} {v:.3f} ms ({v / device_ms * 100:.2f}%, "
+                    f"{counts[k]} kernels)" for k, v in sorted(shares.items()))
         + f"; {launches} kernel launches from the host")
     for e in kernels[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
@@ -902,7 +944,8 @@ def profile_call(run, what: str, top: int = 10):
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:80]} (with callees {e.cpu_time_total / 1e3:.3f} ms)")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": idle,
-            "kernel_ms": shares, "host_launches": launches,
+            "kernel_ms": shares, "kernel_counts": counts,
+            "host_launches": launches, "markers_kept": markers,
             "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
                     for e in kernels[:top]],
             "host_top": [(e.key[:80], e.self_cpu_time_total / 1e3, e.count)
@@ -1032,6 +1075,9 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
         f"{moved}/{len(params)} parameter tensors moved")
     prof = profile_call(lambda: step(state, x, y, mask),
                         f"one {name} train step, bf16, batch {batch}")
+    # one device kernel of bn_stats.cu per BatchNorm: one launch per call
+    assert prof["kernel_counts"].get("bn_stats") == n_bn, \
+        prof["kernel_counts"]
 
     return {"shapes": shapes, "counts": counts[0], "step_ms": times,
             "images_per_s": batch / step_ms * 1e3, "peak_bytes": peak,
@@ -1074,7 +1120,8 @@ def _backward_err(got, want) -> float:
 
 def measure_train_kernels(shape, dtype, act, gen, device) -> dict:
     """Kernels 1 and 3 against their plain versions on one seeded input
-    (the BN backward run twice: no float atomics, so the same bits), then
+    (each run twice: no float atomics and sums in a fixed order, so the
+    same bits), then
     their times (inputs from device memory: ``ms``; from L2: ``ms_l2``),
     the plain versions', one library call's and the bounds: bn_stats reads
     x once; the BN backward reads x and g once and writes dx once."""
@@ -1095,7 +1142,12 @@ def measure_train_kernels(shape, dtype, act, gen, device) -> dict:
     vecs = (scale, shift, mean, rstd)
     nb = x.numel() * x.element_size()
 
-    stats_err = _stats_err(fba.bn_stats(x), (mean, var))
+    first = fba.bn_stats(x)
+    again = fba.bn_stats(x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+        f"bn_stats not run-to-run bit-identical at {shape}"
+    stats_err = _stats_err(first, (mean, var))
     got = fba.bn_act_backward(x, g, *vecs, act)
     again = fba.bn_act_backward(x, g, *vecs, act)
     torch.cuda.synchronize()
@@ -1152,6 +1204,7 @@ def phase_train_kernel_times(device, shapes) -> dict:
     keys = ("ms", "ms_l2", "plain_ms", "bound_ms", "library_ms", "bytes")
     tot = {k: dict.fromkeys(keys + ("max_abs_err",), 0.0)
            for k in ("bn_stats", "bn_backward", "scale_bias_act")}
+    by_res = {}  # bn_stats by input height (and the calls over 100 MB)
     for (shape, dtype, act), count in sorted(shapes.items(),
                                              key=lambda kv: str(kv[0])):
         rows = measure_train_kernels(shape, dtype, act, gen, device)
@@ -1164,6 +1217,14 @@ def phase_train_kernel_times(device, shapes) -> dict:
             t["max_abs_err"] = max(t["max_abs_err"], row["max_abs_err"])
             for k in keys:
                 t[k] += count * row[k]
+        key = ("over 100 MB" if rows["bn_stats"]["bytes"] > 1e8
+               else f"{shape[1]} px")
+        g = by_res.setdefault(key, {"calls": 0, "ms": 0.0, "bound_ms": 0.0})
+        g["calls"] += count
+        g["ms"] += count * rows["bn_stats"]["ms"]
+        g["bound_ms"] += count * rows["bn_stats"]["bound_ms"]
+    log("train-path bn_stats by input height (calls over 100 MB apart): "
+        + json.dumps(by_res))
     for name, t in tot.items():
         log(f"train-path {name} work: {sum(shapes.values())} launches over "
             f"{len(shapes)} shapes, {t['bytes'] / 1e6:.1f} MB, kernel "
@@ -1404,8 +1465,17 @@ def main() -> int:
         "bn_stats", "bn_stats.cu", f"{BN_FILE}:51",
         train["counts"]["bn_stats"], ttot["bn_stats"],
         step_work + "; library_ms is one torch.batch_norm_stats per launch"
-        + unet_work, unet_launches=utrain["counts"]["bn_stats"],
-        **unet("bn_stats")),
+        + unet_work,
+        design="one launch per call, grid sized by the call's bytes: strips "
+        "of one 128-byte round per thread, at most 2 blocks per SM, f32 "
+        "pairwise sums, the block's rows added by warp shuffles; the "
+        "strips' partials added in double in a fixed order on 4 row lanes "
+        "by the blocks that draw the last integer ticket, per chunk of 16 "
+        "strips and then per column group (previously two launches: column "
+        "partials over up to 528 strips, then a combine kernel)",
+        profiled_kernels=train["profile"]["kernel_counts"]["bn_stats"],
+        unet_profiled_kernels=utrain["profile"]["kernel_counts"]["bn_stats"],
+        unet_launches=utrain["counts"]["bn_stats"], **unet("bn_stats")),
         kernel_entry(
         "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
         train["counts"]["bn_backward"], ttot["bn_backward"],

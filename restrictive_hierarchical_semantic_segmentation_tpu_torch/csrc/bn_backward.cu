@@ -70,9 +70,10 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using rhss::kCombineX;  // the combine's lanes, as bn_stats' combine
+using rhss::kCombineX;  // combine_group's lanes
 using rhss::kCombineY;
 using rhss::kVec;
+using rhss::load8_cg;
 using rhss::Raw;
 
 constexpr int kThreads = 512;
@@ -125,15 +126,6 @@ struct Args {
 template <typename T>
 __host__ __device__ constexpr int words() {
   return (int)sizeof(Raw<T>) / 16;
-}
-
-// 8 f32 values written earlier in this launch, read past the non-coherent
-// read-only path: two 16-byte loads
-__device__ __forceinline__ void load8_cg(const float* p, float v[kVec]) {
-  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldcg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
 // 16 bytes global -> shared, asynchronously (L2 only)
@@ -313,8 +305,8 @@ bn_backward_fused(const Args<T> args) {
   grid.sync();
 
   // ----------------------------------------------------------- combine
-  // block i adds the strips' partials of channels [32 i, 32 i + 32) as
-  // bn_stats' combine does (bn_reduce.cuh)
+  // block i adds the strips' partials of channels [32 i, 32 i + 32)
+  // (bn_reduce.cuh: combine_group)
   float* scaled = args.partial + 2 * (int64_t)args.row_blocks * C;  // [2][C]
   {
     double* da = reinterpret_cast<double*>(smem);  // in the ring's bytes
@@ -381,7 +373,7 @@ struct Geometry : rhss::Geometry {
 };
 
 // A function of (rows, channels, dtype, SM count): at most one block per SM,
-// the rows split as bn_stats splits them.
+// the rows split by split_rows, as bn_stats splits them.
 Geometry geometry(int64_t rows, int channels, int elem_bytes, int sms) {
   Geometry g;
   const int c_vec = channels / kVec;

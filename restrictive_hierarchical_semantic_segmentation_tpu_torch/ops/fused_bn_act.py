@@ -11,6 +11,7 @@ Pallas kernel (JAX file)               CUDA source          plain version
 =====================================  ===================  ==============================
 ``_scale_bias_act_kernel``             ``scale_bias_act.cu``  :func:`_scale_bias_act_ref`
 ``_stats_kernel`` (``bn_stats``)       ``bn_stats.cu``        :func:`_bn_stats_ref`
+                                       (one launch per call)
 ``_bwd_kernel`` + the tail of          ``bn_backward.cu``     :func:`_bn_backward_ref`
 ``_fba_bwd`` that forms dx             (one cooperative pass)
 =====================================  ===================  ==============================
@@ -21,6 +22,18 @@ plain version, a CUDA tensor through the kernel (or the call raises).
 train-mode kernels', by name; both count kernel launches and nothing else.
 ``GRAD_COPIES`` counts backward launches whose incoming gradient had to be
 copied into the contiguous ``(rows, C)`` layout first.
+
+The statistics kernel is one launch per call: its blocks' partial sums are
+added by the blocks that draw the last ticket from integer counters (one
+per chunk of 16 strips, one per column group). Those counters must be 0
+before every launch, and every launch leaves them at 0 again. They live in
+one int32 buffer per device, made with ``torch.zeros`` at the first call on
+that device (which must not be inside CUDA graph capture) and never freed:
+one slot of ``_COUNTERS_PER_STREAM`` counters per stream, so calls on two
+streams never share a counter. A launch captured in a CUDA graph keeps the
+slot of the stream it was captured on, so do not replay a graph while calls
+run on that stream. A call that raises does so before its launch and
+leaves the counters as they were.
 
 :class:`FusedBNAct` is the train-mode ``act(gamma * (x - mean) * rstd +
 beta)`` as an autograd Function (the JAX ``fused_bn_act`` custom VJP): its
@@ -35,6 +48,7 @@ allocation from PyTorch's caching allocator, not device traffic.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -75,7 +89,7 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     ("scale_bias_act", "rhss_scale_bias_act"):
         [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    ("bn_stats", "rhss_bn_stats"): [_P, _I64, _I, _I, _P, _P, _P, _P],
+    ("bn_stats", "rhss_bn_stats"): [_P, _I64, _I, _I, _P, _P, _P, _P, _P],
     ("bn_backward", "rhss_bn_backward"):
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
@@ -182,8 +196,8 @@ def _bn_stats_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # the most strips a column reduction splits its rows into (kTargetBlocks in
-# csrc/bn_reduce.cuh); the BN backward keeps its edz / n and eydz / n in the
-# workspace's last rows and uses fewer strips
+# csrc/bn_reduce.cuh: the two must be equal); the BN backward keeps its edz /
+# n and eydz / n in the workspace's last rows and uses fewer strips
 _MAX_STRIPS = 528
 
 
@@ -194,16 +208,68 @@ def _workspace(x: torch.Tensor, c: int) -> torch.Tensor:
                        device=x.device)
 
 
+# the statistics kernel's ticket counters (csrc/bn_stats.cu): for each of at
+# most kMaxGroups = 64 column groups of 32 channel vectors (so C <= 8 * 32 *
+# 64), one for the group and one per chunk of 16 strips (at most 33); slots:
+# the streams of one device that may call it (torch's stream pools hold 32
+# per priority, plus the default stream and the graph capture stream)
+_STATS_GROUPS = 64
+_STATS_CHUNKS = -(-_MAX_STRIPS // 16)
+_COUNTERS_PER_STREAM = _STATS_GROUPS * (1 + _STATS_CHUNKS)
+_COUNTER_SLOTS = 256
+_COUNTERS = {}  # device index -> int32 (_COUNTER_SLOTS, _COUNTERS_PER_STREAM)
+_SLOTS = {}  # (device index, stream handle) -> slot
+_COUNTER_LOCK = threading.Lock()
+
+
+def _counters(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """The zeroed ticket counters of x's device and ``stream``."""
+    dev = x.device.index
+    with _COUNTER_LOCK:
+        buf = _COUNTERS.get(dev)
+        if buf is None:
+            with torch.cuda.device(x.device):
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        "bn_stats: call it once on this device outside CUDA "
+                        "graph capture first (its ticket counters are made "
+                        "then)")
+                buf = torch.zeros(_COUNTER_SLOTS, _COUNTERS_PER_STREAM,
+                                  dtype=torch.int32, device=x.device)
+                torch.cuda.synchronize()  # zero before any stream reads them
+            _COUNTERS[dev] = buf
+        slot = _SLOTS.get((dev, stream))
+        if slot is None:
+            slot = sum(d == dev for d, _ in _SLOTS)
+            if slot >= _COUNTER_SLOTS:
+                raise RuntimeError(f"bn_stats: more than {_COUNTER_SLOTS} "
+                                   f"streams on {x.device}")
+            _SLOTS[(dev, stream)] = slot
+        return buf[slot]
+
+
+def _stats_workspace(x: torch.Tensor, c: int) -> torch.Tensor:
+    """The column reduction's workspace, then two f64 sums per channel and
+    chunk of 16 strips (the statistics kernel's second level)."""
+    return torch.empty(2 * _MAX_STRIPS * c + 4 * _STATS_CHUNKS * c,
+                       dtype=torch.float32, device=x.device)
+
+
 def _launch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     c = _check_rows_c(x, "bn_stats")
     rows = x.numel() // c
     if rows == 0:
         raise ValueError("bn_stats needs at least one row")
+    if c > 8 * 32 * _STATS_GROUPS:
+        raise ValueError(f"bn_stats takes C <= {8 * 32 * _STATS_GROUPS}, "
+                         f"got C = {c}")
+    stream = _stream(x)
+    counters = _counters(x, stream)
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
-    ws = _workspace(x, c)
+    ws = _stats_workspace(x, c)
     _call(x, "bn_stats", _fn("bn_stats", "rhss_bn_stats"), x.data_ptr(),
-          rows, c, _DTYPES[x.dtype], ws.data_ptr(), out[0].data_ptr(),
-          out[1].data_ptr(), _stream(x))
+          rows, c, _DTYPES[x.dtype], ws.data_ptr(), counters.data_ptr(),
+          out[0].data_ptr(), out[1].data_ptr(), stream)
     TRAIN_LAUNCHES["bn_stats"] += 1
     return out[0], out[1]
 

@@ -54,9 +54,10 @@ def _close(got, want, rel=1e-5):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2050, 48), (3, 500, 720), (1, 8),
-                                   (2, 7, 9, 64)],
+                                   (2, 7, 9, 64), (20000, 720), (4099, 8)],
                          ids=["ragged_tiles", "multi_tile_720", "one_row",
-                              "nhwc"])
+                              "nhwc", "three_column_groups_720",
+                              "narrow_many_rows"])
 def test_bn_stats_matches_pallas(shape, dtype):
     rng = np.random.default_rng(sum(shape))
     x = (rng.standard_normal(shape) * 1.5 + 0.7).astype(np.float32)

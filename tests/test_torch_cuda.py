@@ -6,6 +6,8 @@ so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import threading
+
 import pytest
 import torch
 
@@ -98,6 +100,14 @@ TRAIN_SHAPES = [(16, 310, 310, 64), (16, 155, 155, 256), (16, 39, 39, 192),
 # the grid has blocks: one strip)
 BACKWARD_SHAPES = TRAIN_SHAPES + [(16, 155, 155, 48), (2, 155, 155, 720),
                                   (4099, 8), (1, 720)]
+# the statistics kernel's geometry beyond TRAIN_SHAPES: both stems (UNet
+# 1,982,464 rows; W48's (16, 310, 310, 64) is in TRAIN_SHAPES), the 720-channel
+# head at batch 2 (3 column groups), C = 8 over many rows, ragged strips
+# (97,343 and 1,001 rows), fewer rows than a block's row lanes (5 rows of 48
+# channels: 32 lanes), one row (one strip), the smallest W48 call
+STATS_SHAPES = TRAIN_SHAPES + [(16, 352, 352, 64), (2, 155, 155, 720),
+                               (200003, 8), (4099, 8), (97343, 96), (5, 48),
+                               (1, 720), (16, 20, 20, 48)]
 
 
 def _stats_ok(got, want):
@@ -122,8 +132,14 @@ def _train_inputs(shape, dtype, cuda, seed=0):
     return x, grad, scale, shift, mean, rstd
 
 
+def _counters_zero(device):
+    """Every ticket counter of the statistics kernel is back at 0."""
+    torch.cuda.synchronize()
+    assert not bool(fba._COUNTERS[device.index or 0].any())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("shape", STATS_SHAPES)
 def test_bn_stats_kernel_equals_plain(cuda, shape, dtype):
     x = _train_inputs(shape, dtype, cuda)[0]
     before = fba.TRAIN_LAUNCHES["bn_stats"]
@@ -131,6 +147,91 @@ def test_bn_stats_kernel_equals_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert fba.TRAIN_LAUNCHES["bn_stats"] == before + 1
     _stats_ok(got, fba._bn_stats_ref(x))
+    _counters_zero(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 155, 155, 48), (2, 155, 155, 720),
+                                   (16, 352, 352, 64), (1001, 48)])
+def test_bn_stats_kernel_is_deterministic(cuda, shape, dtype):
+    """The combine adds in a fixed order whichever block does it, and
+    there are no float atomics: two calls give the same bits."""
+    x = _train_inputs(shape, dtype, cuda, seed=5)[0]
+    first = fba.bn_stats(x)
+    second = fba.bn_stats(x)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bn_stats_kernel_in_a_cuda_graph(cuda):
+    """Three calls captured in a CUDA graph and replayed twice give the
+    eager calls' bits: every launch leaves its counters at 0."""
+    xs = [_train_inputs(shape, torch.bfloat16, cuda, seed=i)[0] for i, shape
+          in enumerate([(16, 78, 78, 48), (2, 155, 155, 720), (1001, 48)])]
+    eager = [fba.bn_stats(x) for x in xs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        [fba.bn_stats(x) for x in xs]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [fba.bn_stats(x) for x in xs]
+    for _ in range(2):
+        for (m, v) in captured:
+            m.zero_()
+            v.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for (m, v), (em, ev) in zip(captured, eager):
+            assert torch.equal(m, em) and torch.equal(v, ev)
+    _counters_zero(cuda)
+
+
+def test_bn_stats_kernel_on_two_streams(cuda):
+    """Calls on two streams at once, from two threads, take separate
+    counters and each gives the eager bits."""
+    xs = [_train_inputs((16, 155, 155, 64), torch.bfloat16, cuda, seed=i)[0]
+          for i in range(2)]
+    eager = [fba.bn_stats(x) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    got = [[], []]
+    torch.cuda.synchronize()
+
+    def calls(i):
+        with torch.cuda.stream(streams[i]):
+            for _ in range(8):
+                got[i].append(fba.bn_stats(xs[i]))
+
+    threads = [threading.Thread(target=calls, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    for outs, (em, ev) in zip(got, eager):
+        assert len(outs) == 8
+        for m, v in outs:
+            assert torch.equal(m, em) and torch.equal(v, ev)
+    slots = {fba._SLOTS[(cuda.index or 0, st.cuda_stream)] for st in streams}
+    assert len(slots) == 2
+    _counters_zero(cuda)
+
+
+def test_bn_stats_kernel_refuses_before_launching(cuda):
+    """A call that raises launches nothing and leaves the counters at 0."""
+    fba.bn_stats(torch.ones(4, 16, device=cuda))
+    before = fba.TRAIN_LAUNCHES["bn_stats"]
+    with pytest.raises(ValueError, match="C <= 16384"):
+        fba.bn_stats(torch.ones(2, 16392, device=cuda))
+    with pytest.raises(ValueError, match="at least one row"):
+        fba.bn_stats(torch.ones(0, 16, device=cuda))
+    assert fba.TRAIN_LAUNCHES["bn_stats"] == before
+    _counters_zero(cuda)
+    x = _train_inputs((3, 7, 720), torch.float32, cuda)[0]
+    _stats_ok(fba.bn_stats(x), fba._bn_stats_ref(x))
 
 
 def _dx_ok(dx, ref):
