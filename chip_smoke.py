@@ -2,8 +2,9 @@
 H100): builds the port's CUDA kernels from ``csrc/``, holds each against its
 plain PyTorch version, serves the hierarchical HRNet-W48 segmenter at 620 px
 and the UNet (the default model) at 352 px through the port's ``Predictor``
-and its HTTP server, trains both for a few steps at batch 16, runs the fused
-1x1 conv + BN + ReLU tool, and checks what comes out.
+and its HTTP server, trains both for a few steps at batch 16, trains the
+UNet through the train CLI for 2 + 1 epochs, runs the fused 1x1 conv + BN +
+ReLU tool, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -43,7 +44,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 11. UNet train: phase 7 for the UNet at 352 px, batch 16;
 12. UNet train kernels: phase 8 at the UNet's train shapes (the largest is
     (16, 352, 352, 64), 1,982,464 rows);
-13. conv + BN + ReLU: the tool ``tools/conv_bn_experiment.py`` on the card
+13. train CLI: the port's ``cli/train.py`` ``main`` on the card -- the
+    hierarchical UNet at the JAX CLI's defaults (352 px, batch 16, val
+    batch 1) in bf16 at lr 0.018 with bench.py's level weights, on 64 + 16
+    synthetic radiographs written under ``build/chip_smoke/``: 2 epochs,
+    then a resume from ``last.ckpt`` to 3. Checks metrics.csv (header, rows
+    kept by the resume, finite losses), best/last checkpoints, the launches
+    of kernels 1-3 (18 per step, and 18 of scale_bias_act per validation
+    forward; no plain version runs), ``best.ckpt`` served by the
+    ``Predictor``; times epoch 2 and the host loader alone;
+14. conv + BN + ReLU: the tool ``tools/conv_bn_experiment.py`` on the card
     at its full shapes (the fused kernel's main path, its launches
     counted), the kernel (a persistent wgmma/TMA GEMM) against its plain
     version at four shapes (TF32 off), and its time beside its bound, the
@@ -1234,6 +1244,182 @@ def phase_train_kernel_times(device, shapes) -> dict:
     return tot
 
 
+# ------------------------------------------------------------ the train CLI
+CLI_TRAIN_IMAGES = 64  # write_synth_dataset adds n // 4 = 16 val images
+CLI_ROOT = "build/chip_smoke/train_cli"
+
+
+def _plain_counters():
+    """Wrap the plain versions of kernels 1-3 so that a call is counted;
+    returns (counts, undo)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    names = ("_bn_stats_ref", "_bn_backward_ref", "_scale_bias_act_ref")
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(fba, n) for n in names}
+
+    def wrap(name):
+        def counted(*a, **k):
+            counts[name] += 1
+            return saved[name](*a, **k)
+        return counted
+
+    for n in names:
+        setattr(fba, n, wrap(n))
+
+    def undo():
+        for n, f in saved.items():
+            setattr(fba, n, f)
+    return counts, undo
+
+
+def _read_csv(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def phase_train_cli(n_bn: int, bare_step_ms: float, card: str) -> dict:
+    """The port's train CLI (``cli/train.py:main``) on the card: the
+    hierarchical UNet at the JAX CLI's defaults (352 px, batch 16, val
+    batch 1), bf16, lr 0.018, bench.py's level weights, one fold of 64
+    train and 16 val synthetic radiographs (4 steps and 16 validation
+    forwards an epoch). Two epochs, then ``--epochs 3 --model-weights
+    .../last.ckpt``. Each run's launches of kernels 1-3 are counted (counts
+    set to 0 just before ``main``, read just after) and no plain version
+    may run. Then ``best.ckpt`` is served by the ``Predictor`` (one forward
+    on the card), and the train loader alone is timed over one epoch."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        train as cli,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .synthetic import write_synth_dataset
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .loop import CSV_HEADER, make_loaders
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .serving import Predictor
+
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    data, out = f"{CLI_ROOT}/data", f"{CLI_ROOT}/run"
+    t0 = time.perf_counter()
+    write_synth_dataset(data, CLI_TRAIN_IMAGES, size=352, seed=SEED, folds=1)
+    data_s = time.perf_counter() - t0
+    tree_files = ["--tree-root", "assets/class_tree_tl.json",
+                  "--class-map", "assets/class_map.csv"]
+    argv = (["--save-path", out, "--data-root", data, "--model-type", "1",
+             "--folds", "1", "--compute-dtype", "bfloat16",
+             "--learning-rate", "[0.018]",
+             "--level-weights", json.dumps(LEVEL_WEIGHTS)] + tree_files)
+    args = cli.get_args(argv + ["--epochs", "2"])
+    assert (args.model_select, args.img_size, args.batch_size, args.val_batch,
+            args.device) == (0, 352, 16, 1, "cuda"), args
+    fold = f"{out}/fold_1"
+    steps = CLI_TRAIN_IMAGES // TRAIN_BATCH
+    val = max(2, CLI_TRAIN_IMAGES // 4)
+    plain, undo = _plain_counters()
+    runs = []
+    try:
+        for epochs, extra in ((2, []), (3, ["--model-weights",
+                                            f"{fold}/last.ckpt"])):
+            set_counts_to_zero()  # the main path: counts 0 just before ...
+            t0 = time.perf_counter()
+            cli.main(argv + ["--epochs", str(epochs)] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()  # ... and read just after
+            runs.append({"epochs": epochs, "wall_s": wall, "counts": counts,
+                         "rows": _read_csv(f"{fold}/metrics.csv")})
+    finally:
+        undo()
+    assert all(v == 0 for v in plain.values()), plain
+    for run, n_ep in zip(runs, (2, 1)):
+        c = run["counts"]
+        assert c["bn_stats"] == c["bn_backward"] == n_bn * steps * n_ep, c
+        assert c["scale_bias_act"] == n_bn * (steps + val) * n_ep, c
+    first, resumed = runs[0]["rows"], runs[1]["rows"]
+    assert first[0] == CSV_HEADER and resumed[0] == CSV_HEADER
+    assert [r[0] for r in resumed[1:]] == ["1", "2", "3"], resumed
+    assert resumed[:3] == first, "the resume changed rows 1-2"
+    col = {k: CSV_HEADER.index(k) for k in ("Train Loss", "Val Loss")}
+    losses = [[float(r[col["Train Loss"]]), float(r[col["Val Loss"]])]
+              for r in resumed[1:]]
+    assert np.isfinite(losses).all(), losses
+    for name in ("best.ckpt", "last.ckpt"):
+        assert os.path.isfile(f"{fold}/{name}/state.pt"), name
+        assert os.path.isfile(f"{fold}/{name}/rhss_meta.json"), name
+    with open(f"{fold}/last.ckpt/rhss_meta.json") as f:
+        assert json.load(f)["epoch"] == 3
+    with open(f"{fold}/logs/metrics.jsonl") as f:
+        epoch_s = {r["step"]: r["train/sec_per_epoch"]
+                   for r in map(json.loads, f) if "train/sec_per_epoch" in r}
+    e2_s = epoch_s[2]
+    e2_ips = steps * TRAIN_BATCH / e2_s
+
+    # best.ckpt served on the card
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    cfg = RunConfig(tree_root="assets/class_tree_tl.json",
+                    class_map="assets/class_map.csv", img_size=352,
+                    model_select=0, model_type=1, compute_dtype="bfloat16")
+    pred = Predictor(cfg, f"{fold}/best.ckpt", tree=tree, device="cuda")
+    set_counts_to_zero()
+    res = pred(gray_images(1, 352, SEED + 5))  # uint8, normalized on the card
+    pred_launches = read_counts()["scale_bias_act"]
+    assert pred_launches == n_bn, pred_launches
+    for lg, c in zip(res["logits"], tree.classes_per_level):
+        assert lg.shape == (1, 352, 352, c) and np.isfinite(lg).all()
+    del pred
+
+    # the host loader alone, over one epoch of the same train loader
+    lcfg = cli.config_from_args(args)
+    train_loader, val_loader = make_loaders(
+        lcfg, tree, f"{data}/fold_1/train", f"{data}/fold_1/val")
+    loader_ms = {}
+    try:
+        for epoch in (1, 2):  # 1 decodes every file; 2 reads the cache
+            train_loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            n_b = sum(1 for _ in train_loader)
+            loader_ms[epoch] = (time.perf_counter() - t0) * 1e3 / n_b
+    finally:
+        train_loader.close()
+        val_loader.close()
+    ratio = loader_ms[2] / bare_step_ms
+    total = {k: runs[0]["counts"][k] + runs[1]["counts"][k]
+             for k in TRAIN_COUNTS}
+    log(f"train CLI on {card}: 64 + 16 images at 352 px written in "
+        f"{data_s:.2f} s; 2 epochs in {runs[0]['wall_s']:.2f} s, the resume "
+        f"to 3 in {runs[1]['wall_s']:.2f} s of wall time (model build, "
+        f"validation and checkpoints included); metrics.csv rows "
+        f"{[[round(v, 5) for v in l] for l in losses]} (train, val loss); "
+        f"launches {runs[0]['counts']} then {runs[1]['counts']}; plain "
+        f"calls {plain}")
+    log(f"train CLI epoch 2 on {card}: {e2_s:.3f} s for {steps} steps, "
+        f"{e2_ips:.2f} images/s (the trainer's host clock, the epoch's "
+        "loader and one fetch of its results included)")
+    log(f"host loader on {card}: {loader_ms[2]:.3f} ms per batch of "
+        f"{TRAIN_BATCH} at 352 px (epoch 2 of the train loader alone, "
+        f"{lcfg.num_workers} threads; epoch 1, which decodes the files, "
+        f"{loader_ms[1]:.3f} ms), {ratio:.3f} x phase 11's bare step "
+        f"({bare_step_ms:.3f} ms)")
+    return {"runs": [{k: v for k, v in r.items() if k != "rows"}
+                     for r in runs],
+            "launches": total, "epoch2_s": e2_s, "epoch2_images_per_s": e2_ips,
+            "epoch_s": epoch_s, "loader_ms_per_batch": loader_ms,
+            "loader_to_step": ratio, "losses": losses, "data_s": data_s,
+            "predictor_launches": pred_launches}
+
+
 # kernel 4 against its plain version: the tool's shape, the same rows
 # unpadded (ragged: 96100 is not a multiple of the 128-row block tile), a
 # block's worth and less, and a narrow shape whose K and N fit in one tile
@@ -1418,6 +1604,9 @@ def main() -> int:
     utot = phase_train_kernel_times(device, utrain["shapes"])
     del usd
     torch.cuda.empty_cache()
+    cli = phase_train_cli(uresult["n_bn"], float(np.mean(utrain["step_ms"])),
+                          card)
+    torch.cuda.empty_cache()
 
     conv = phase_conv_bn(device)
 
@@ -1425,7 +1614,8 @@ def main() -> int:
                  f"{train['batch']}, {IMG} px), inputs read from device "
                  "memory (ms_l2: from L2)")
     unet_work = (f"; unet_*: the same over one bf16 UNet train step (batch "
-                 f"{utrain['batch']}, {uimg} px)")
+                 f"{utrain['batch']}, {uimg} px); cli_launches: the train "
+                 "CLI's 2 epochs and its resume to 3 (phase 13)")
 
     def unet(name):
         return {f"unet_{k}": utot[name][k] for k in TOTAL_KEYS}
@@ -1440,6 +1630,7 @@ def main() -> int:
         "train_launches": train["counts"]["scale_bias_act"],
         "unet_serve_launches": uresult["launches"],
         "unet_launches": utrain["counts"]["scale_bias_act"],
+        "cli_launches": cli["launches"]["scale_bias_act"],
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
                             utot["scale_bias_act"]["max_abs_err"]]
@@ -1475,7 +1666,8 @@ def main() -> int:
         "partials over up to 528 strips, then a combine kernel)",
         profiled_kernels=train["profile"]["kernel_counts"]["bn_stats"],
         unet_profiled_kernels=utrain["profile"]["kernel_counts"]["bn_stats"],
-        unet_launches=utrain["counts"]["bn_stats"], **unet("bn_stats")),
+        unet_launches=utrain["counts"]["bn_stats"],
+        cli_launches=cli["launches"]["bn_stats"], **unet("bn_stats")),
         kernel_entry(
         "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
         train["counts"]["bn_backward"], ttot["bn_backward"],
@@ -1488,7 +1680,8 @@ def main() -> int:
         "three launches: column partials, combine, dx)",
         grad_copies=train["grad_copies"][0],
         unet_launches=utrain["counts"]["bn_backward"],
-        unet_grad_copies=utrain["grad_copies"][0], **unet("bn_backward")),
+        unet_grad_copies=utrain["grad_copies"][0],
+        cli_launches=cli["launches"]["bn_backward"], **unet("bn_backward")),
         kernel_entry(
         "conv1x1_bn_relu", "conv_bn_relu.cu", CONV_BN_REPLACES,
         conv["launches"], conv,
@@ -1511,7 +1704,7 @@ def main() -> int:
                     "unet_profile": uprof, "unet_serve_cli": ucli,
                     "unet_train_parity": uparity, "unet_train": {
                         k: v for k, v in utrain.items() if k != "shapes"},
-                    "conv_bn_cases": conv["cases"]},
+                    "train_cli": cli, "conv_bn_cases": conv["cases"]},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -37,7 +37,8 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(
         description="Serve a trained model over HTTP (PyTorch port)")
     p.add_argument("--model-weights", type=str, required=True,
-                   help="the port's .pt state_dict")
+                   help="the port's .pt state_dict, or a <name>.ckpt "
+                        "directory written by its train CLI")
     p.add_argument("--tree-root", type=str, required=True)
     p.add_argument("--class-map", type=str, required=True)
     p.add_argument("--img-size", type=int, default=352)

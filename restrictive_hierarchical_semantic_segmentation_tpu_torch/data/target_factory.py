@@ -70,6 +70,6 @@ def ternary_encode(binary: np.ndarray, tree: ClassTree) -> np.ndarray:
         parents = binary[..., pa:pb][..., tree.parent_index[L]]  # (..., C_L)
         child = binary[..., a:b]
         out[..., a:b] = np.where(
-            child > 0, 1.0, np.where(parents > 0, 0.0, -1.0)
-        ).astype(np.float32)
+            child > 0, np.float32(1.0),
+            np.where(parents > 0, np.float32(0.0), np.float32(-1.0)))
     return out

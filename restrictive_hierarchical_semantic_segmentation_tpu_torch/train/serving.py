@@ -9,12 +9,15 @@ and composed probabilities (NHWC float32) and the first-max argmax class
 maps of the logits, as numpy arrays.
 
 Weights are the port's own ``state_dict``: a ``.pt`` file written with
-``torch.save`` or a dict in memory (``bridge.state_dict_from_flax`` makes
+``torch.save``, a ``<name>.ckpt`` directory written by the port's trainer
+(its ``state.pt``; the counterpart of the JAX Predictor reading its orbax
+checkpoints), or a dict in memory (``bridge.state_dict_from_flax`` makes
 one from JAX variables). Fold ensembles, int8 quantization, TTA, meshes and
-loading orbax ``.ckpt`` or donor ``.pth`` files are later slices.
+loading JAX orbax checkpoints or donor ``.pth`` files are later slices.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -33,11 +36,17 @@ _OUTPUTS = ("logits", "probs", "class_maps")
 def _state_dict(weights) -> Mapping[str, torch.Tensor]:
     if isinstance(weights, Mapping):
         return weights
-    path = str(weights)
+    path = str(weights).rstrip("/")
+    if os.path.isdir(path) and path.endswith(".ckpt"):
+        # a checkpoint of the port's trainer (train/checkpoint.py)
+        from .checkpoint import load_state
+
+        return load_state(path)["model"]
     if not path.endswith(".pt"):
         raise NotImplementedError(
-            f"{path}: the port loads its own .pt state_dict; orbax .ckpt and "
-            "donor .pth loading are a later slice (convert JAX variables "
+            f"{path}: the port loads its own .pt state_dict or a <name>.ckpt "
+            "directory written by its trainer; JAX orbax checkpoints and "
+            "donor .pth loading are later slices (convert JAX variables "
             "with bridge.state_dict_from_flax and torch.save them)")
     return torch.load(path, map_location="cpu", weights_only=True)
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the BatchNorm module on the card against itself on the CPU, and the fused
-1x1 conv + BN + ReLU kernel and its tool. Marked
+the BatchNorm module on the card against itself on the CPU, the fused
+1x1 conv + BN + ReLU kernel and its tool, and the train data path's device
+prefetch and checkpoint snapshots. Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -454,3 +455,61 @@ def test_conv_bn_tool_on_card(cuda):
     assert k4.LAUNCHES >= before + 1
     assert row["within_tolerance"] and row["device"] == "cuda"
     assert row["kernel_ms"] > 0 and row["library_ms"] > 0 and row["card"]
+
+
+# ------------------------------------------------------------ train data path
+def test_prefetch_to_device_copies_pinned_batches_to_the_card(cuda):
+    import numpy as np
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.loader import (  # noqa: E501
+        prefetch_to_device,
+    )
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.random((4, 64, 64, 1), dtype=np.float32),
+                rng.integers(-1, 2, (4, 64, 64, 8)).astype(np.int8))
+               for _ in range(6)]
+    got = list(prefetch_to_device(iter(batches), 2, cuda))
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for (x, y), (tx, ty) in zip(batches, got):
+        assert tx.is_cuda and ty.is_cuda and ty.dtype == torch.int8
+        assert torch.equal(tx.cpu(), torch.from_numpy(x))
+        assert torch.equal(ty.cpu(), torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("best_save", ["every", "end"])
+def test_checkpoint_of_a_card_state_is_unaffected_by_a_later_step(
+        cuda, tmp_path, best_save):
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        checkpoint as ck,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import (  # noqa: E501
+        create_train_state,
+    )
+
+    torch.manual_seed(0)
+    model = torch.nn.Linear(64, 64).to(cuda)
+    state = create_train_state(model, 1e-2)
+
+    def step():
+        state.optimizer.zero_grad()
+        model(torch.randn(8, 64, device=cuda)).square().mean().backward()
+        state.optimizer.step()
+        state.step += 1
+
+    step()
+    want = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    moments = state.optimizer.state_dict()["state"][0]["exp_avg"].cpu()
+    mgr = ck.CheckpointManager(str(tmp_path), best_save=best_save,
+                               ckpt_every=100)
+    mgr.update(state, 1, 0.0, 0.5, 0.0)
+    for _ in range(3):  # in-place updates of the live card tensors
+        step()
+    mgr.finalize()
+    snap = ck.load_state(mgr.best_path)
+    assert snap["step"] == 1
+    for k, v in want.items():
+        assert torch.equal(snap["model"][k], v), k
+    assert torch.equal(snap["optimizer"]["state"][0]["exp_avg"], moments)
+    assert not torch.equal(model.weight.detach().cpu(), want["weight"])

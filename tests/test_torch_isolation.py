@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: importing it (and its serve CLI) pulls in
-neither jax nor any module of the JAX package, no source file of the port
-imports them, and ``chip_smoke.py`` refuses to run without a CUDA device
-or outside the repository."""
+"""The PyTorch port stands alone: importing it (and its serve and train
+CLIs) pulls in neither jax nor any module of the JAX package, and the train
+path loads no cv2, sklearn, orbax or tensorflow (the card's machine has
+none of them); no source file of the port imports them at module level,
+and ``chip_smoke.py`` refuses to run without a CUDA device or outside the
+repository."""
 import json
 import os
 import pathlib
@@ -63,6 +65,43 @@ def test_train_path_data_imports_no_cv2():
                           f"import {PORT}.data.target_factory")
     assert f"{PORT}.data.synthetic" in mods
     assert [m for m in mods if m == "cv2" or m.startswith("cv2.")] == []
+
+
+# absent on the card's machine: the training path must not need them
+_TRAIN_PATH_FORBIDDEN = ("cv2", "sklearn", "orbax", "tensorflow")
+
+
+def _forbidden_on_train_path(name: str) -> bool:
+    return _forbidden(name) or any(
+        name == top or name.startswith(top + ".")
+        for top in _TRAIN_PATH_FORBIDDEN)
+
+
+def test_train_cli_path_imports_no_cv2_sklearn_orbax_or_jax():
+    mods = _modules_after(
+        f"import {PORT}.cli.train, {PORT}.train.loop\n"
+        f"import {PORT}.train.checkpoint, {PORT}.train.plateau\n"
+        f"import {PORT}.data.loader, {PORT}.data.dataset\n"
+        f"import {PORT}.data.transforms, {PORT}.utils.logging")
+    assert f"{PORT}.train.loop" in mods and f"{PORT}.data.loader" in mods
+    assert [m for m in mods if _forbidden_on_train_path(m)] == []
+
+
+def test_port_sources_import_no_cv2_sklearn_orbax_at_module_level():
+    # cv2 is imported only inside the decoders' fallback for formats other
+    # than PNG (data/dataset.py:_decode_cv2); tensorflow only inside
+    # MetricsLogger when TensorBoard is asked for
+    late = {"cv2": {"dataset.py"}, "tensorflow": {"logging.py"}}
+    files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        text = path.read_text()
+        for name in _IMPORT.findall(text):
+            top = name.split(".")[0]
+            if top in _TRAIN_PATH_FORBIDDEN:
+                assert path.name in late.get(top, ()), f"{path}: {name}"
+        for name in re.findall(r"^(?:import|from)\s+([\w.]+)", text, re.M):
+            assert name.split(".")[0] not in _TRAIN_PATH_FORBIDDEN, \
+                f"{path}: imports {name} at module level"
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
