@@ -4,7 +4,8 @@ plain PyTorch version, serves the hierarchical HRNet-W48 segmenter at 620 px
 and the UNet (the default model) at 352 px through the port's ``Predictor``
 and its HTTP server, trains both for a few steps at batch 16, trains the
 UNet through the train CLI for 2 + 1 epochs, runs the fused 1x1 conv + BN +
-ReLU tool, and checks what comes out.
+ReLU tool, evaluates the trained UNet through the predict_eval CLI, and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -57,7 +58,21 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     at its full shapes (the fused kernel's main path, its launches
     counted), the kernel (a persistent wgmma/TMA GEMM) against its plain
     version at four shapes (TF32 off), and its time beside its bound, the
-    plain version's and one cuBLAS ``torch.matmul``.
+    plain version's and one cuBLAS ``torch.matmul``;
+15. offline eval: the port's ``cli/predict_eval.py`` ``main`` on the card
+    over phase 13's trained fold and 16 validation images, at the JAX
+    CLI's defaults (hierarchical UNet, 352 px, f32, images saved) under
+    PyTorch's TF32 defaults (the Evaluator's f32 convolutions stay f32),
+    then --val-batch 3, --val-batch 4 --tta True, --val-batch 4 in bf16 and
+    a flat UNet. Checks metrics.csv and the 8 x 16 PNG dumps, 18 launches
+    of scale_bias_act per forward and none of kernels 1 and 3 or of a
+    plain version, --val-batch 3 against 1 and the card against the CPU
+    over 4 images within the stated bounds; prints images per second, the
+    loader's share and peak device memory; the kernel is held and timed at
+    every shape the phase launched it with.
+
+The serving profiles (phases 4 and 9) go through ``profile_call``, whose
+marker kernels keep a trace from losing the call's first device events.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
 the ``{"ok": true, "device": ...}`` JSON line. Imports no jax.
@@ -464,50 +479,30 @@ def phase_path_kernel_times(device, shapes):
 
 
 def phase_profile(pred, images: np.ndarray, top: int = 8):
-    """One bf16 Predictor call under ``torch.profiler``: device time by
-    kernel, the scale_bias_act share, the device's idle share of the call's
-    wall time (host clock around the call), and the ``aten::copy_`` calls
-    by the shape of what they copy (the input's copy to the card,
-    autocast's bf16 copies of the weights, the outputs' copies to the host,
-    and any layout copy)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One bf16 Predictor call under ``torch.profiler``, through
+    :func:`profile_call` (its marker kernels keep the trace from losing
+    the call's first device events): device time by kernel, the
+    scale_bias_act share, the device's idle share of the call's wall time
+    (host clock around the call), and the ``aten::copy_`` calls by the
+    shape of what they copy (the input's copy to the card, autocast's bf16
+    copies of the weights, the outputs' copies to the host, and any layout
+    copy)."""
     pred(images)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        pred(images)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    copy_shapes = {}
-    for e in prof.key_averages(group_by_input_shape=True):
-        if e.device_type == DeviceType.CPU and e.key == "aten::copy_":
-            shape = str(e.input_shapes[0] if e.input_shapes else "?")
-            copy_shapes[shape] = copy_shapes.get(shape, 0) + e.count
-    if device_ms == 0:
-        log("profile: the profiler saw no device time")
-        return None
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    bn_ms = sum(e.self_device_time_total for e in kernels
-                if "scale_bias_act" in e.key) / 1e3
+    prof = profile_call(lambda: pred(images),
+                        f"bf16 Predictor call, batch {images.shape[0]}",
+                        top=top, record_shapes=True)
+    copy_shapes = prof["copy_shapes"]
+    bn_ms = prof["kernel_ms"].get("scale_bias_act", 0.0)
     copies = sum(copy_shapes.values())
-    log(f"profile (bf16, batch {images.shape[0]}): wall {wall_ms:.3f} ms, "
-        f"device busy {device_ms:.3f} ms, idle share "
-        f"{max(0.0, 1 - device_ms / wall_ms) * 100:.1f}%, scale_bias_act "
-        f"{bn_ms:.3f} ms ({bn_ms / device_ms * 100:.2f}% of device time), "
-        f"{copies} aten::copy_ calls")
-    for e in kernels[:top]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-            f"{e.key[:110]}")
-    log("  aten::copy_ by the shape copied: " + json.dumps(
-        dict(sorted(copy_shapes.items(), key=lambda kv: -kv[1]))))
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "bn_ms": bn_ms,
-            "copies": copies, "copy_shapes": copy_shapes}
+    share = bn_ms / prof["device_ms"] * 100
+    log(f"  scale_bias_act {bn_ms:.3f} ms ({share:.2f}% of device time), "
+        f"{copies} aten::copy_ calls; by the shape copied: " + json.dumps(
+            dict(sorted(copy_shapes.items(), key=lambda kv: -kv[1]))))
+    return {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+            "idle_share": prof["idle_share"], "bn_ms": bn_ms,
+            "copies": copies, "copy_shapes": copy_shapes,
+            "markers_kept": prof["markers_kept"]}
 
 
 def phase_serve(pred, tree, pngs, n_bn: int, size: int = IMG):
@@ -878,12 +873,14 @@ PROFILE_TRIES = 3
 PROFILE_RANGE = "chip_smoke.profiled_call"  # the host span of run()
 
 
-def profile_call(run, what: str, top: int = 10):
+def profile_call(run, what: str, top: int = 10,
+                 record_shapes: bool = False):
     """One ``run()`` under ``torch.profiler``: device busy time, the idle
     share of the call's wall time (host clock around it, ending with a
     synchronize), the top kernels and each port kernel's share, with each
     port kernel's count of device kernels, and the kernel launches the host
-    made inside ``run()``.
+    made inside ``run()``; with ``record_shapes``, also the ``aten::copy_``
+    calls by the shape of their first input (``copy_shapes``).
 
     A trace can lack the first device events it should hold: on an H100 a
     profiled UNet train step lacked its first kernels, the first
@@ -899,7 +896,8 @@ def profile_call(run, what: str, top: int = 10):
 
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
             for _ in range(PROFILE_LEAD):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
@@ -953,13 +951,21 @@ def profile_call(run, what: str, top: int = 10):
     for e in host[:6]:
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:80]} (with callees {e.cpu_time_total / 1e3:.3f} ms)")
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": idle,
-            "kernel_ms": shares, "kernel_counts": counts,
-            "host_launches": launches, "markers_kept": markers,
-            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
-                    for e in kernels[:top]],
-            "host_top": [(e.key[:80], e.self_cpu_time_total / 1e3, e.count)
-                         for e in host[:6]]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": idle,
+           "kernel_ms": shares, "kernel_counts": counts,
+           "host_launches": launches, "markers_kept": markers,
+           "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                   for e in kernels[:top]],
+           "host_top": [(e.key[:80], e.self_cpu_time_total / 1e3, e.count)
+                        for e in host[:6]]}
+    if record_shapes:
+        copy_shapes = {}
+        for e in prof.key_averages(group_by_input_shape=True):
+            if e.device_type == DeviceType.CPU and e.key == "aten::copy_":
+                shape = str(e.input_shapes[0] if e.input_shapes else "?")
+                copy_shapes[shape] = copy_shapes.get(shape, 0) + e.count
+        out["copy_shapes"] = copy_shapes
+    return out
 
 
 def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
@@ -1510,6 +1516,247 @@ def phase_conv_bn(device) -> dict:
     return row
 
 
+# ------------------------------------------------------------ offline eval
+EVAL_ROOT = "build/chip_smoke/predict_eval"
+EVAL_CPU_IMAGES = 4
+# Bounds set from a probe run of this script on an H100 (PERF.md,
+# Findings): the card's f32 metrics.csv at --val-batch 3 against
+# --val-batch 1 (1e-5 of the 15,859,712 dumped pixels may differ), and
+# against the CPU's over 4 images. A value of metrics.csv is a mean over
+# images of per-image ratios of pixel counts, so each pixel whose argmax
+# moves (a near-tie that another cuDNN algorithm rounds the other way)
+# shifts some values by about 1e-7 to 1e-6. With cuDNN's TF32 (PyTorch's
+# default for float32 convolutions) a later run put the card 1.29e-4 (186
+# pixels) from the CPU, so the Evaluator computes its f32 convolutions in
+# f32 (train/evaluate.py:_float32_convs); without TF32 both runs read 0.
+EVAL_BATCH_ATOL = 1e-4
+EVAL_BATCH_PIXELS = 160
+EVAL_CPU_ATOL = 1e-5
+
+
+def _metrics_numbers(path) -> np.ndarray:
+    rows = _read_csv(path)
+    assert rows[0] == ["Type", "Class", "Accuracy", "IoU", "Dice",
+                       "Precision", "Recall"], rows[0]
+    assert [r[:2] for r in rows[1:]] == [["Average", "All"]] + [
+        ["Class", str(c)] for c in range(8)], rows
+    vals = np.asarray([[float(v) for v in r[2:]] for r in rows[1:]])
+    assert np.isfinite(vals).all() and (vals >= 0).all() and (
+        vals <= 1).all(), vals
+    return vals
+
+
+def _dumps(fold_dir, names) -> dict:
+    """Every per-class PNG of one run, decoded: {(class, name): pixels}."""
+    import os
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.png \
+        import decode_png
+
+    out = {}
+    for c in range(8):
+        d = os.path.join(fold_dir, str(c))
+        assert sorted(os.listdir(d)) == names, (c, sorted(os.listdir(d)))
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                px = decode_png(f.read())
+            assert px.shape == (352, 352) and px.dtype == np.uint8, px.shape
+            assert set(np.unique(px).tolist()) <= {0, 255}
+            out[(c, n)] = px
+    return out
+
+
+def _pixels_differing(a: dict, b: dict) -> int:
+    assert a.keys() == b.keys()
+    return int(sum(int((a[k] != b[k]).sum()) for k in a))
+
+
+def phase_predict_eval(n_bn: int, card: str, tf32_defaults) -> dict:
+    """The port's predict_eval CLI (``cli/predict_eval.py:main``) on the
+    card over phase 13's trained fold and its 16 validation images, at the
+    JAX CLI's defaults (hierarchical UNet, 352 px, full width, f32, images
+    saved) with ``--model-type 1 --folds 1 --inc-cross-val True``, under
+    PyTorch's TF32 defaults (``tf32_defaults``, read at the start of the
+    script: what a user of the CLI gets). Then ``--val-batch 3``,
+    ``--val-batch 4 --tta True``, ``--val-batch 4 --compute-dtype
+    bfloat16``, and the flat UNet (``--model-type 0``) from a port
+    checkpoint of ``random_state_dict``; the Evaluator computes its f32
+    convolutions in f32 whatever the TF32 flags, and must leave the flags
+    as it found them. Each run's launches are counted (set to 0 just
+    before ``main``, read just after): 18 of kernel 2 per forward (TTA: one
+    forward of 2B images), none of kernels 1 and 3, no plain version.
+    Checks metrics.csv and the 8 x 16 PNG dumps, holds --val-batch 3 to
+    --val-batch 1 and the card to the CPU (over a 4-image copy of the
+    validation set) to the stated bounds; prints images per second (host
+    clock around ``main``), the loader's share of the run and peak device
+    memory."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        predict_eval as cli,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .checkpoint import save_checkpoint
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .state import create_train_state
+
+    root = os.path.abspath(EVAL_ROOT)
+    data = os.path.abspath(f"{CLI_ROOT}/data")
+    trained = os.path.abspath(f"{CLI_ROOT}/run")
+    tree_files = ["--tree-root", os.path.abspath("assets/class_tree_tl.json"),
+                  "--class-map", os.path.abspath("assets/class_map.csv")]
+    defaults = cli.get_args(["--save-loc", "x", "--model-weights", "w"]
+                            + tree_files)
+    assert (defaults.model_select, defaults.model_type, defaults.img_size,
+            defaults.compute_dtype, defaults.save_images, defaults.val_batch,
+            defaults.tta, defaults.eval_inflight, defaults.device) == (
+        0, 0, 352, "float32", "True", 1, "False", 4, "cuda"), defaults
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    flat = build_model(tree, 0, 0)
+    flat.load_state_dict(random_state_dict(flat, SEED,
+                                           MODELS[0]["conv_gain"]))
+    save_checkpoint(f"{root}/flat_run/fold_1/best.ckpt",
+                    create_train_state(flat, 0.0), epoch=1)
+    del flat
+    val = f"{data}/fold_1/val"
+    names = sorted(os.listdir(f"{val}/labels"))
+    n_val = len(names)
+    assert n_val == CLI_TRAIN_IMAGES // 4, n_val
+    # the first 4 validation images, for the CPU comparison
+    for sub in ("images", "labels"):
+        os.makedirs(f"{root}/cpu4/fold_1/val/{sub}")
+        for n in sorted(os.listdir(f"{val}/{sub}"))[:EVAL_CPU_IMAGES]:
+            shutil.copy(f"{val}/{sub}/{n}", f"{root}/cpu4/fold_1/val/{sub}")
+
+    hier = ["--full-ds", data, "--model-weights", trained, "--model-type",
+            "1", "--folds", "1", "--inc-cross-val", "True"] + tree_files
+    flat_args = ["--full-ds", data, "--model-weights", f"{root}/flat_run",
+                 "--model-type", "0", "--folds", "1"] + tree_files
+    cpu4 = ["--full-ds", f"{root}/cpu4", "--model-weights", trained,
+            "--model-type", "1", "--folds", "1"] + tree_files
+    # (save-loc, argv, forwards)
+    plan = [("f32_b1", hier, n_val),
+            ("f32_b3", hier + ["--val-batch", "3"], -(-n_val // 3)),
+            ("f32_b4_tta", hier + ["--val-batch", "4", "--tta", "True"],
+             -(-n_val // 4)),
+            ("bf16_b4", hier + ["--val-batch", "4", "--compute-dtype",
+                                "bfloat16"], -(-n_val // 4)),
+            ("flat_f32_b1", flat_args, n_val),
+            ("cpu4_card", cpu4, EVAL_CPU_IMAGES)]
+    log(f"predict_eval: every run starts from PyTorch's TF32 defaults, "
+        f"cudnn.allow_tf32={tf32_defaults[0]}, "
+        f"cuda.matmul.allow_tf32={tf32_defaults[1]}; the Evaluator turns "
+        "TF32 off for its f32 runs on the card")
+    shapes = {}
+    real_launch = fba._launch
+
+    def recorded(x, scale, shift, act):  # the kernel's launches by shape
+        key = (tuple(x.shape), x.dtype, act)
+        shapes[key] = shapes.get(key, 0) + 1
+        return real_launch(x, scale, shift, act)
+
+    runs = {}
+    cwd = os.getcwd()
+    plain, undo = _plain_counters()
+    fba._launch = recorded
+    os.chdir(root)  # the CLI writes ./Predictions/<save-loc>
+    try:
+        torch.backends.cudnn.allow_tf32 = tf32_defaults[0]
+        torch.backends.cuda.matmul.allow_tf32 = tf32_defaults[1]
+        for loc, argv, forwards in plan:
+            torch.cuda.reset_peak_memory_stats()
+            set_counts_to_zero()  # the main path: counts 0 just before ...
+            t0 = time.perf_counter()
+            res = cli.main(["--save-loc", loc] + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()  # ... and read just after
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == tf32_defaults
+            n_img = EVAL_CPU_IMAGES if loc.startswith("cpu4") else n_val
+            runs[loc] = {"wall_s": wall, "images": n_img,
+                         "images_per_s": n_img / wall,
+                         "run_s": res[0]["seconds"]["total"],
+                         "loader_wait_s": res[0]["seconds"]["loader_wait"],
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "counts": counts, "forwards": forwards}
+            assert counts["scale_bias_act"] == n_bn * forwards, (loc, counts)
+            assert counts["bn_stats"] == counts["bn_backward"] == 0, counts
+    finally:
+        undo()
+        fba._launch = real_launch
+        torch.backends.cudnn.allow_tf32 = tf32_defaults[0]
+        torch.backends.cuda.matmul.allow_tf32 = tf32_defaults[1]
+        os.chdir(cwd)
+    assert all(v == 0 for v in plain.values()), plain
+    os.chdir(root)
+    try:  # the same CLI on the CPU (the kernels' plain versions)
+        t0 = time.perf_counter()
+        cli.main(["--save-loc", "cpu4_cpu", "--device", "cpu"] + cpu4)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    assert sum(shapes.values()) == sum(r["counts"]["scale_bias_act"]
+                                       for r in runs.values())
+
+    out = f"{root}/Predictions"
+    metrics = {loc: _metrics_numbers(f"{out}/{loc}/fold_1/metrics.csv")
+               for loc in list(runs) + ["cpu4_cpu"]}
+    dumps = {loc: _dumps(f"{out}/{loc}/fold_1",
+                         names[:EVAL_CPU_IMAGES] if loc.startswith("cpu4")
+                         else names)
+             for loc in ("f32_b1", "f32_b3", "cpu4_card", "cpu4_cpu")}
+    for loc in ("f32_b4_tta", "bf16_b4", "flat_f32_b1"):
+        _dumps(f"{out}/{loc}/fold_1", names)  # decodable 0/255, 8 x 16
+
+    def diff(a, b):
+        return {"metric_max_abs": float(np.abs(metrics[a] - metrics[b])
+                                        .max()),
+                "pixels_differing": _pixels_differing(dumps[a], dumps[b]),
+                "pixels": sum(p.size for p in dumps[a].values())}
+
+    batch = diff("f32_b3", "f32_b1")
+    vs_cpu = diff("cpu4_card", "cpu4_cpu")
+    tta_moved = float(np.abs(metrics["f32_b4_tta"] - metrics["f32_b1"]).max())
+    bf16_moved = float(np.abs(metrics["bf16_b4"] - metrics["f32_b1"]).max())
+    for loc, r in runs.items():
+        r["loader_share"] = r["loader_wait_s"] / r["run_s"]
+        log(f"predict_eval {loc} on {card}: {r['images']} images in "
+            f"{r['wall_s']:.3f} s, {r['images_per_s']:.2f} images/s (host "
+            f"clock around main: model build, loader, dumps included); the "
+            f"Evaluator's run {r['run_s']:.3f} s, of which "
+            f"{r['loader_wait_s']:.3f} s ({r['loader_share'] * 100:.1f}%) "
+            f"waiting for the loader; peak device memory "
+            f"{r['peak_bytes'] / 2 ** 30:.3f} GiB (--eval-inflight 4); "
+            f"{r['counts']['scale_bias_act']} scale_bias_act launches over "
+            f"{r['forwards']} forwards")
+    log(f"predict_eval on {card}: --val-batch 3 against 1 (f32): "
+        f"{json.dumps(batch)}; card against CPU over {EVAL_CPU_IMAGES} "
+        f"images (f32): {json.dumps(vs_cpu)}; the CPU run {cpu_s:.2f} s; "
+        f"metrics moved by TTA {tta_moved:.6f}, by bf16 {bf16_moved:.6f} "
+        "(max abs)")
+    assert batch["metric_max_abs"] <= EVAL_BATCH_ATOL, batch
+    assert batch["pixels_differing"] <= EVAL_BATCH_PIXELS, batch
+    assert vs_cpu["metric_max_abs"] <= EVAL_CPU_ATOL, vs_cpu
+    launches = sum(r["counts"]["scale_bias_act"] for r in runs.values())
+    return {"runs": runs, "batch_invariance": batch, "vs_cpu": vs_cpu,
+            "cpu_s": cpu_s,
+            "tta_metric_moved": tta_moved, "bf16_metric_moved": bf16_moved,
+            "launches": launches, "shapes": shapes,
+            "tf32_defaults": list(tf32_defaults)}
+
+
 def kernel_entry(name, source, replaces, launches, tot, work,
                  bound_by="bytes", **extra):
     """One row of the kernels line; ``source`` is a file of ``csrc/``,
@@ -1541,6 +1788,10 @@ def main() -> int:
     )
 
     device = torch.device("cuda")
+    # PyTorch's TF32 settings before any phase changes them: what a user of
+    # the CLIs gets (phase 15 runs under them)
+    tf32_defaults = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1609,6 +1860,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     conv = phase_conv_bn(device)
+    torch.cuda.empty_cache()
+
+    ev = phase_predict_eval(uresult["n_bn"], card, tf32_defaults)
+    torch.cuda.empty_cache()
+    epath = phase_path_kernel_times(device, ev["shapes"])
 
     step_work = (f"all launches of one bf16 train step (W48, batch "
                  f"{train['batch']}, {IMG} px), inputs read from device "
@@ -1631,7 +1887,9 @@ def main() -> int:
         "unet_serve_launches": uresult["launches"],
         "unet_launches": utrain["counts"]["scale_bias_act"],
         "cli_launches": cli["launches"]["scale_bias_act"],
+        "eval_launches": ev["launches"],
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
+                            epath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
                             utot["scale_bias_act"]["max_abs_err"]]
                            + [c["max_abs_err"] for c in cases]),
@@ -1648,9 +1906,13 @@ def main() -> int:
                 "would need a second call); train_*: the same over the "
                 "train_launches of one train step (" + step_work + ")"
                 "; unet_serve_*: over one bf16 UNet forward at batch "
-                f"{uresult['bf16_batch']}, {uimg} px" + unet_work,
+                f"{uresult['bf16_batch']}, {uimg} px" + unet_work
+                + "; eval_*: over the eval_launches of the predict_eval "
+                "CLI's card runs (phase 15: the UNet at 352 px, f32 at "
+                "batches 1, 3 and 8 (TTA of 4), bf16 at batch 4)",
         **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
+        **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
         **unet("scale_bias_act"),
     }, kernel_entry(
         "bn_stats", "bn_stats.cu", f"{BN_FILE}:51",
@@ -1704,7 +1966,9 @@ def main() -> int:
                     "unet_profile": uprof, "unet_serve_cli": ucli,
                     "unet_train_parity": uparity, "unet_train": {
                         k: v for k, v in utrain.items() if k != "shapes"},
-                    "train_cli": cli, "conv_bn_cases": conv["cases"]},
+                    "train_cli": cli, "conv_bn_cases": conv["cases"],
+                    "predict_eval": {k: v for k, v in ev.items()
+                                     if k != "shapes"}},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ import torch
 
 from .dataset import ByteCappedCache, SegDataset
 
-__all__ = ["split_ids", "BatchLoader", "prefetch_to_device"]
+__all__ = ["split_ids", "BatchLoader", "to_device", "prefetch_to_device"]
 
 _WORKER_DS = None
 
@@ -191,29 +191,30 @@ class BatchLoader:
             yield xs, ys
 
 
-def prefetch_to_device(iterator, size: int = 2, device=None):
-    """Yield the batches of ``iterator`` (tuples of numpy arrays) as tensors
-    on ``device``, keeping ``size`` batches in flight. On a CUDA device each
-    array is copied into pinned host memory and sent with
+def to_device(batch, device: torch.device) -> tuple:
+    """A tuple of numpy arrays as tensors on ``device``. On a CUDA device
+    each array is copied into pinned host memory and sent with
     ``non_blocking=True``, so the copy overlaps the host's next batch and
     the card's work; on the CPU the tensors share the arrays' memory."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
+    if device.type == "cpu":
+        return tuple(ts)
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in ts)
+
+
+def prefetch_to_device(iterator, size: int = 2, device=None):
+    """Yield the batches of ``iterator`` (tuples of numpy arrays) as tensors
+    on ``device`` (:func:`to_device`), keeping ``size`` batches in
+    flight."""
     device = torch.device("cpu" if device is None else device)
     queue = collections.deque()
-
-    def put(batch):
-        ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
-        if device.type == "cpu":
-            return tuple(ts)
-        return tuple(t.pin_memory().to(device, non_blocking=True)
-                     for t in ts)
-
     it = iter(iterator)
     for batch in it:
-        queue.append(put(batch))
+        queue.append(to_device(batch, device))
         if len(queue) >= size:
             break
     while queue:
         yield queue.popleft()
         for batch in it:
-            queue.append(put(batch))
+            queue.append(to_device(batch, device))
             break

@@ -84,9 +84,20 @@ def read_meta(path: str) -> Dict[str, Any]:
 
 def load_state(path: str) -> Dict:
     """The :func:`snapshot` saved in the checkpoint directory ``path``, on
-    the host."""
-    return torch.load(os.path.join(os.path.abspath(path), _STATE),
-                      map_location="cpu", weights_only=True)
+    the host. A directory without ``state.pt`` is refused: under the same
+    ``<name>.ckpt`` names the JAX package writes orbax checkpoints, which
+    the port does not read."""
+    path = os.path.abspath(path)
+    state = os.path.join(path, _STATE)
+    if os.path.isdir(path) and not os.path.isfile(state):
+        raise NotImplementedError(
+            f"{path} holds no {_STATE}, so it is not a checkpoint of the "
+            "port's trainer: a <name>.ckpt directory without it is the JAX "
+            "package's orbax checkpoint, which the port does not read "
+            "(orbax needs jax). Load its variables with jax, convert them "
+            "with bridge.state_dict_from_flax and save them with the port's "
+            "train/checkpoint.py, or train with the port")
+    return torch.load(state, map_location="cpu", weights_only=True)
 
 
 def load_checkpoint(path: str, state: TrainState

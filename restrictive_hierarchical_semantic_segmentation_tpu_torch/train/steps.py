@@ -204,12 +204,18 @@ def make_eval_step(model, tree: ClassTree, hierarchical: bool,
                    dice_smooth: float = 0.0, ohem=None,
                    return_outputs: bool = False,
                    per_image_metrics: bool = False,
-                   compute_dtype: str = "float32") -> Callable:
+                   compute_dtype: str = "float32",
+                   apply_fn: Optional[Callable] = None) -> Callable:
     """``eval_step(images, targets) -> {loss, per_level, confmats[,
     outputs]}`` with the running BN statistics (the model in eval mode for
     the call). ``per_image_metrics`` gives (B, C', C') confusion matrices;
-    ``outputs`` are the per-level logits whose argmax is scored."""
+    ``outputs`` are the per-level logits whose argmax is scored.
+
+    ``apply_fn(images) -> SegmenterOutput`` stands in for ``model(images)``
+    (the test-time augmentation of ``train/evaluate.py:tta_apply``); it runs
+    inside the same eval mode, inference mode and autocast."""
     dtype = _compute_dtype(compute_dtype)
+    forward = apply_fn or model
 
     def step(images, targets):
         was_training = model.training
@@ -219,7 +225,7 @@ def make_eval_step(model, tree: ClassTree, hierarchical: bool,
                     images.device.type, dtype=dtype,
                     enabled=dtype != torch.float32):
                 images, targets = _device_decode(images, targets)
-                out = model(images)
+                out = forward(images)
                 tgt = split_targets(tree, targets, hierarchical)
                 total, per_level = hierarchical_loss(
                     out.logits_per_level, tgt, level_weights,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the BatchNorm module on the card against itself on the CPU, the fused
-1x1 conv + BN + ReLU kernel and its tool, and the train data path's device
-prefetch and checkpoint snapshots. Marked
+1x1 conv + BN + ReLU kernel and its tool, the train data path's device
+prefetch and checkpoint snapshots, and the offline Evaluator (card against
+CPU, kernel launches per forward). Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -513,3 +514,141 @@ def test_checkpoint_of_a_card_state_is_unaffected_by_a_later_step(
         assert torch.equal(snap["model"][k], v), k
     assert torch.equal(snap["optimizer"]["state"][0]["exp_avg"], moments)
     assert not torch.equal(model.weight.detach().cpu(), want["weight"])
+
+
+# ------------------------------------------------------------ offline eval
+EVAL_IMAGES = 5
+EVAL_IMG = 48
+
+
+def _tiny_eval(tmp_path, monkeypatch, model_type):
+    """5 synthetic files at 48 px and a port checkpoint of a seeded UNet of
+    base width 8 (18 BatchNorms, as at full width), patched into the
+    Evaluator; returns (data root, checkpoint, config kwargs)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.synthetic import (  # noqa: E501
+        write_synth_dataset,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (  # noqa: E501
+        ClassTree,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models import (
+        hierarchical as H,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models.backbones.unet import (  # noqa: E501
+        UNetBackbone,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        checkpoint as ck,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        evaluate as ev,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import (  # noqa: E501
+        create_train_state,
+    )
+
+    def small(tree, model_select, mt, *a, **k):
+        return H.HierarchicalSegmenter(tree=tree,
+                                       backbone=UNetBackbone(base_ch=8),
+                                       hierarchical=mt == 1)
+
+    monkeypatch.setattr(ev, "build_model", small)
+    files = dict(tree_root="assets/class_tree_tl.json",
+                 class_map="assets/class_map.csv")
+    tree = ClassTree.from_json(files["tree_root"], files["class_map"])
+    data = str(tmp_path / "data")
+    write_synth_dataset(data, EVAL_IMAGES, size=EVAL_IMG, seed=0)
+    torch.manual_seed(0)
+    model = small(tree, 0, model_type)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormAct):
+                m.running_mean.normal_(0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    ckpt = str(tmp_path / "best.ckpt")
+    ck.save_checkpoint(ckpt, create_train_state(model, 0.0), epoch=1)
+    return data, ckpt, dict(files, model_select=0, model_type=model_type,
+                            img_size=EVAL_IMG, num_workers=2)
+
+
+@pytest.mark.parametrize("model_type", [1, 0])
+def test_evaluator_on_card_equals_cpu(cuda, tmp_path, monkeypatch,
+                                      model_type):
+    """The tiny Evaluator in f32 on the card and on the CPU, with TF32
+    allowed as PyTorch allows it by default (the Evaluator computes its f32
+    convolutions in f32 and restores the flags): metrics.csv within 1e-6
+    and the PNG dumps' pixels equal on at least 99.9 % (argmax near-ties
+    may move)."""
+    import csv
+    import os
+
+    import numpy as np
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run import (  # noqa: E501
+        RunConfig,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.png import (  # noqa: E501
+        decode_png,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        evaluate as ev,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    data, ckpt, kw = _tiny_eval(tmp_path, monkeypatch, model_type)
+    cfg = RunConfig(val_batch=2, **kw)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ev.predict_eval(cfg, [ckpt], [data], str(tmp_path / dev), device=dev)
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        with open(tmp_path / dev / "fold_1" / "metrics.csv") as f:
+            out[dev] = np.asarray([[float(v) for v in r[2:]]
+                                   for r in list(csv.reader(f))[1:]])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-6)
+    same = total = 0
+    for c in range(8):
+        d = tmp_path / "cpu" / "fold_1" / str(c)
+        for n in os.listdir(d):
+            with open(d / n, "rb") as a, open(
+                    tmp_path / "cuda" / "fold_1" / str(c) / n, "rb") as b:
+                pa, pb = decode_png(a.read()), decode_png(b.read())
+            same += int((pa == pb).sum())
+            total += pa.size
+    assert total == 8 * EVAL_IMAGES * EVAL_IMG ** 2
+    assert same >= 0.999 * total
+
+
+@pytest.mark.parametrize("tta", [False, True])
+@pytest.mark.parametrize("val_batch", [1, 2])
+def test_evaluator_launches_kernel_2_per_forward(cuda, tmp_path, monkeypatch,
+                                                 tta, val_batch):
+    """18 scale_bias_act launches per forward (one per BatchNorm), with TTA
+    too (both views ride one forward of 2B images); no BN kernel of the
+    train step and no plain version runs."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run import (  # noqa: E501
+        RunConfig,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        evaluate as ev,
+    )
+
+    plain = []
+    for name in ("_bn_stats_ref", "_bn_backward_ref", "_scale_bias_act_ref"):
+        def counted(*a, _n=name, _f=getattr(fba, name), **k):
+            plain.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(fba, name, counted)
+    data, ckpt, kw = _tiny_eval(tmp_path, monkeypatch, 1)
+    cfg = RunConfig(val_batch=val_batch, tta=tta, **kw)
+    before = fba.LAUNCHES
+    train_before = dict(fba.TRAIN_LAUNCHES)
+    res = ev.predict_eval(cfg, [ckpt], [data], str(tmp_path / "out"),
+                          device="cuda")
+    torch.cuda.synchronize()
+    forwards = -(-EVAL_IMAGES // val_batch)
+    assert fba.LAUNCHES - before == 18 * forwards
+    assert fba.TRAIN_LAUNCHES == train_before
+    assert plain == []
+    assert 0.0 <= res[0]["overall"]["dice"] <= 1.0

@@ -1,9 +1,9 @@
-"""The PyTorch port stands alone: importing it (and its serve and train
-CLIs) pulls in neither jax nor any module of the JAX package, and the train
-path loads no cv2, sklearn, orbax or tensorflow (the card's machine has
-none of them); no source file of the port imports them at module level,
-and ``chip_smoke.py`` refuses to run without a CUDA device or outside the
-repository."""
+"""The PyTorch port stands alone: importing it (and its serve, train and
+predict_eval CLIs) pulls in neither jax nor any module of the JAX package,
+and the train and offline-eval paths load no cv2, sklearn, orbax or
+tensorflow (the card's machine has none of them); no source file of the
+port imports them at module level, and ``chip_smoke.py`` refuses to run
+without a CUDA device or outside the repository."""
 import json
 import os
 import pathlib
@@ -84,6 +84,14 @@ def test_train_cli_path_imports_no_cv2_sklearn_orbax_or_jax():
         f"import {PORT}.data.loader, {PORT}.data.dataset\n"
         f"import {PORT}.data.transforms, {PORT}.utils.logging")
     assert f"{PORT}.train.loop" in mods and f"{PORT}.data.loader" in mods
+    assert [m for m in mods if _forbidden_on_train_path(m)] == []
+
+
+def test_predict_eval_path_imports_no_cv2_sklearn_orbax_or_jax():
+    mods = _modules_after(f"import {PORT}.cli.predict_eval\n"
+                          f"import {PORT}.train.evaluate")
+    assert f"{PORT}.cli.predict_eval" in mods
+    assert f"{PORT}.train.evaluate" in mods
     assert [m for m in mods if _forbidden_on_train_path(m)] == []
 
 
