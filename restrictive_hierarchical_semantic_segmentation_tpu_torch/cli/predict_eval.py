@@ -13,8 +13,10 @@ Cross-val mode expands ``--full-ds`` and ``--model-weights`` into per-fold
         --model-type 1 --folds 5 --val-batch 4
 
 Weights are the port trainer's ``<name>.ckpt`` directories. ``--quantize
-True`` and donor ``.pt``/``.pth`` weights raise (ROADMAP.md queue 1, item
-7), and so does a JAX orbax checkpoint.
+True`` runs the forward's convs in int8 (calibrated on the first
+``--calib-batches`` validation batches), also under ``--tta True``. Donor
+``.pt``/``.pth`` weights raise (ROADMAP.md queue 1, item 7), and so does a
+JAX orbax checkpoint.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ def get_args(argv=None):
                         "logits/probs)")
     p.add_argument("--quantize", type=str, default="False",
                    help="int8 post-training quantization of the eval forward "
-                        "(not in the PyTorch port yet: True raises)")
+                        "(train/quantize.py)")
     p.add_argument("--calib-batches", type=int, default=4,
                    help="val batches used for --quantize activation-scale "
                         "calibration (running amax)")

@@ -19,8 +19,10 @@ Preprocessing is the eval pipeline's: decode -> [0,1] -> bilinear resize to
 img_size -> normalize(0.5, 0.5) -> grayscale broadcast to 3 channels.
 
 The predictor is one in-process instance guarded by a lock; the card runs
-one forward at a time anyway. The JAX CLI's ``--quantize``, ``--ensemble``
-and ``--tta`` come with their slices; ``--device`` is new (default cuda).
+one forward at a time anyway. ``--ensemble best|last`` serves the fold
+ensemble of a train run directory, ``--tta True`` adds the flip TTA and
+``--quantize True`` runs the convs in int8, as in the JAX CLI;
+``--device`` is new (default cuda).
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ def get_args(argv=None):
         description="Serve a trained model over HTTP (PyTorch port)")
     p.add_argument("--model-weights", type=str, required=True,
                    help="the port's .pt state_dict, or a <name>.ckpt "
-                        "directory written by its train CLI")
+                        "directory written by its train CLI, or a train "
+                        "run dir (fold_N/ layout) with --ensemble")
     p.add_argument("--tree-root", type=str, required=True)
     p.add_argument("--class-map", type=str, required=True)
     p.add_argument("--img-size", type=int, default=352)
@@ -46,6 +49,14 @@ def get_args(argv=None):
     p.add_argument("--model-select", type=int, default=0, choices=[0, 1])
     p.add_argument("--config", type=str, default="")
     p.add_argument("--compute-dtype", type=str, default="bfloat16")
+    p.add_argument("--quantize", type=str, default="False",
+                   help="int8 PTQ of the serving forward (train/quantize.py)")
+    p.add_argument("--ensemble", type=str, default="",
+                   help="'best' or 'last': treat --model-weights as a run "
+                        "dir and fold-ensemble every fold_N/<which>.ckpt")
+    p.add_argument("--tta", type=str, default="False",
+                   help="hflip test-time augmentation inside the forward "
+                        "(2x compute per request)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8600)
     p.add_argument("--max-body-mb", type=int, default=64,
@@ -225,9 +236,12 @@ def build_server(args) -> ThreadingHTTPServer:
     # u8 class maps whenever the tree allows (the PNG reply is u8 anyway)
     cm_dtype = ("uint8" if all(len(l) <= 256 for l in tree.levels)
                 else "int32")
-    predictor = Predictor(cfg, args.model_weights, tree=tree,
+    weights = (Predictor.fold_checkpoints(args.model_weights, args.ensemble)
+               if args.ensemble else args.model_weights)
+    predictor = Predictor(cfg, weights, tree=tree,
+                          quantize=_bool(args.quantize),
                           outputs=("class_maps",), class_map_dtype=cm_dtype,
-                          device=args.device)
+                          tta=_bool(args.tta), device=args.device)
     if _bool(args.warmup):
         print("warming up (batch-1 forward)...", flush=True)
         predictor.warmup(

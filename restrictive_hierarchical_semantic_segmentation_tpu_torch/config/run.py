@@ -43,7 +43,7 @@ class RunConfig:
     batch_size: int = 16
     val_batch: int = 1
     # int8 post-training quantization for the offline-eval forward
-    # (train/quantize.py; measured 1.27x at 620px, tools/serving_bench.py)
+    # (train/quantize.py)
     quantize: bool = False
     # activation-scale calibration batches for --quantize (per-tensor amax
     # over the first N val batches; one batch can clip the rest of the set)

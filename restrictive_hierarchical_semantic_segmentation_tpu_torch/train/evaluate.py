@@ -14,10 +14,13 @@ port's scale-bias-act kernel. Under ``compute_dtype="float32"`` the card's
 convolutions and matmuls compute in float32 for the run: PyTorch lets
 cuDNN round float32 convolutions to TF32 by default, which moves the
 argmax of near-tie pixels against the CPU and between batch sizes.
-Weights are a ``<name>.ckpt`` directory written by the port's trainer. The
-JAX Evaluator's int8 quantization and its donor ``.pt``/``.pth`` import
-are not in the port yet and raise (ROADMAP.md queue 1, item 7), as does a
-JAX orbax checkpoint (``train/checkpoint.py:load_state``).
+``quantize`` runs the forward's convs in int8 (``train/quantize.py``),
+with activation scales calibrated on the first ``calib_batches``
+validation batches; ``tta`` wraps it in the flip TTA. Weights are a
+``<name>.ckpt`` directory written by the port's trainer. The JAX
+Evaluator's donor ``.pt``/``.pth`` import is not in the port yet and
+raises (ROADMAP.md queue 1, item 7), as does a JAX orbax checkpoint
+(``train/checkpoint.py:load_state``).
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from ..models.hierarchical import SegmenterOutput, build_model
 from ..utils.device import resolve_device
 from .checkpoint import load_state
 from .loop import list_pairs
-from .steps import make_eval_step
+from .steps import _compute_dtype, make_eval_step
 
 __all__ = ["reconstruct_levels_from_leaves", "tta_apply", "Evaluator",
            "predict_eval"]
@@ -116,12 +119,7 @@ def _float32_convs(enabled: bool):
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
-def _refuse(cfg: RunConfig, weights_path: str) -> None:
-    if cfg.quantize:
-        raise NotImplementedError(
-            "--quantize True: int8 post-training quantization is not in the "
-            "PyTorch port yet (ROADMAP.md queue 1, item 7); its convolutions "
-            "need an int8 kernel of their own on the card")
+def _refuse(weights_path: str) -> None:
     if weights_path.rstrip("/").endswith((".pt", ".pth")):
         raise NotImplementedError(
             f"{weights_path}: the JAX Evaluator reads .pt/.pth files as donor "
@@ -136,7 +134,7 @@ class Evaluator:
     def __init__(self, cfg: RunConfig, tree: ClassTree, data_root: str,
                  weights_path: str, save_dir: Optional[str] = None,
                  save_images: bool = True, device=None):
-        _refuse(cfg, weights_path)
+        _refuse(weights_path)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tree = tree
@@ -167,16 +165,8 @@ class Evaluator:
                                      memory_format=torch.channels_last)
         self.num_classes_per_level = list(tree.classes_per_level)
 
-        # Flat mode needs full outputs on the host (the hierarchy
-        # reconstruction is a host/numpy concern), the hierarchical path
-        # only when dumping PNGs.
-        self._need_outputs = self.save_images or not hier
-        self.eval_step = make_eval_step(
-            self.model, tree, hier, return_outputs=self._need_outputs,
-            per_image_metrics=True, compute_dtype=cfg.compute_dtype,
-            apply_fn=tta_apply(self.model) if cfg.tta else None,
-        )
-        # data last: close() releases the loader's workers
+        # the data before the eval step: quantization calibrates on its
+        # first batches; run() closes the loader, or a failure here does
         self.loader = BatchLoader(
             SegDataset(imgs, labs, tree, cfg.img_size, hier, augment=False,
                        target_dtype=np.int8 if cfg.host_compact else np.float32,
@@ -184,6 +174,59 @@ class Evaluator:
             batch_size=self.batch, shuffle=False, drop_last=False,
             num_workers=cfg.num_workers,
         )
+        apply_fn = None
+        if cfg.quantize:
+            try:
+                apply_fn = self._quantized_apply()
+            except BaseException:
+                self.loader.close()
+                raise
+        if cfg.tta:
+            # composes with quantize: both views run the int8 convs
+            apply_fn = tta_apply(apply_fn or self.model)
+        # Flat mode needs full outputs on the host (the hierarchy
+        # reconstruction is a host/numpy concern), the hierarchical path
+        # only when dumping PNGs.
+        self._need_outputs = self.save_images or not hier
+        self.eval_step = make_eval_step(
+            self.model, tree, hier, return_outputs=self._need_outputs,
+            per_image_metrics=True, compute_dtype=cfg.compute_dtype,
+            apply_fn=apply_fn,
+        )
+
+    def _f32_on_card(self) -> bool:
+        return (self.device.type == "cuda"
+                and self.cfg.compute_dtype == "float32")
+
+    def _quantized_apply(self):
+        """Calibrate the activation scales as a running amax over the first
+        ``cfg.calib_batches`` validation batches (one image's scales can
+        clip the rest of the set), decoded as the eval step decodes them,
+        in its compute dtype; a ragged last batch is padded by repeating
+        its last image, which leaves the running amax unchanged."""
+        from .quantize import calibrate, quantized_apply
+
+        calib = []
+        for xb, _ in self.loader:
+            if xb.shape[0] < self.batch:
+                pad = self.batch - xb.shape[0]
+                xb = np.concatenate([xb, np.repeat(xb[-1:], pad, axis=0)])
+            x = torch.from_numpy(xb).to(self.device)
+            if x.shape[-1] == 1:  # train/steps.py:_device_decode
+                x = x.expand(*x.shape[:-1], 3).contiguous()
+            calib.append(x)
+            if len(calib) >= self.cfg.calib_batches:
+                break
+        dtype = _compute_dtype(self.cfg.compute_dtype)
+
+        def forward(x):
+            with torch.autocast(self.device.type, dtype=dtype,
+                                enabled=dtype != torch.float32):
+                return self.model(x)
+
+        with _float32_convs(self._f32_on_card()):
+            self.act_scales = calibrate(self.model, calib, apply_fn=forward)
+        return quantized_apply(self.model, self.act_scales)
 
     def run(self) -> dict:
         """Score every image; returns ``{overall, per_class, measure,
@@ -206,9 +249,7 @@ class Evaluator:
         t0 = time.perf_counter()
         wait = 0.0
         batches = iter(self.loader)
-        f32 = (self.device.type == "cuda"
-               and self.cfg.compute_dtype == "float32")
-        with _float32_convs(f32):
+        with _float32_convs(self._f32_on_card()):
             try:
                 while True:
                     t_wait = time.perf_counter()

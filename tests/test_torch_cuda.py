@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the BatchNorm module on the card against itself on the CPU, the fused
 1x1 conv + BN + ReLU kernel and its tool, the train data path's device
-prefetch and checkpoint snapshots, and the offline Evaluator (card against
-CPU, kernel launches per forward). Marked
+prefetch and checkpoint snapshots, the offline Evaluator (card against
+CPU, kernel launches per forward), the int8 conv's card path (cuBLASLt's
+int8 GEMM through ``torch._int_mm``) against its plain version at the
+shapes its rules make it pad, fold ensembles and the quantized Predictor.
+Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -652,3 +655,160 @@ def test_evaluator_launches_kernel_2_per_forward(cuda, tmp_path, monkeypatch,
     assert fba.TRAIN_LAUNCHES == train_before
     assert plain == []
     assert 0.0 <= res[0]["overall"]["dice"] <= 1.0
+
+
+# (batch, H, W, C_in, kernel, C_out, stride, padding): the padded cases of
+# torch._int_mm's rules, and the largest UNet and W48 shapes' geometry
+INT8_SHAPES = [
+    (1, 352, 352, 3, 3, 64, 1, 1),    # the UNet's first conv: K = 27
+    (1, 620, 620, 3, 3, 64, 2, 1),    # the W48 stem: K = 27, stride 2
+    (2, 64, 64, 7, 3, 64, 1, 1),      # concat_prev_probs: K = 63
+    (1, 40, 40, 12, 3, 32, 1, 1),     # K = 108: C not a multiple of 8
+    (1, 3, 3, 16, 3, 32, 2, 1),       # 4 rows: padded to 17
+    (1, 155, 155, 256, 1, 64, 1, 0),  # a 1x1: the input as it is
+    (1, 78, 78, 48, 1, 96, 2, 0),     # a strided 1x1
+    (1, 44, 44, 1024, 3, 256, 1, 1),  # the UNet's widest conv
+]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_conv_card_equals_plain(cuda, shape):
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        int8_conv,
+    )
+
+    b, h, w, c, k, o, s, p = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xq = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda,
+                       dtype=torch.int8)
+    kq = torch.randint(-127, 128, (k, k, c, o), generator=g, device=cuda,
+                       dtype=torch.int8)
+    before = int8_conv.CALLS
+    acc = int8_conv.int8_conv2d(xq, kq, (s, s), (p, p))
+    torch.cuda.synchronize()
+    assert int8_conv.CALLS == before + 1
+    assert acc.dtype == torch.int32 and acc.is_cuda
+    # the plain version on the card and on the CPU: exact in float64
+    assert torch.equal(acc, int8_conv._int8_conv_ref(xq, kq, (s, s), (p, p)))
+    assert torch.equal(acc.cpu(), int8_conv.int8_conv2d(xq.cpu(), kq.cpu(),
+                                                        (s, s), (p, p)))
+
+
+def test_int8_conv_card_refuses_what_it_does_not_take(cuda):
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        int8_conv,
+    )
+
+    xq = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="C_out % 8"):
+        int8_conv.int8_conv2d(xq, torch.zeros((1, 1, 16, 12),
+                                              dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="is on"):
+        int8_conv.int8_conv2d(xq, torch.zeros((1, 1, 16, 8),
+                                              dtype=torch.int8))
+
+
+
+
+def _tiny_unets(monkeypatch, folds: int):
+    """Seeded state_dicts of the hierarchical UNet at base width 8, one per
+    fold, with that model patched into the Predictor; returns (serving
+    module, a 48 px f32 config, state_dicts)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run import (  # noqa: E501
+        RunConfig,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (  # noqa: E501
+        ClassTree,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models import (
+        hierarchical as H,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models.backbones.unet import (  # noqa: E501
+        UNetBackbone,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        serving,
+    )
+
+    def small(tree, *a, **k):
+        return H.HierarchicalSegmenter(tree=tree,
+                                       backbone=UNetBackbone(base_ch=8))
+
+    monkeypatch.setattr(serving, "build_model", small)
+    cfg = RunConfig(tree_root="assets/class_tree_tl.json",
+                    class_map="assets/class_map.csv", model_type=1,
+                    img_size=EVAL_IMG)
+    tree = ClassTree.from_json(cfg.tree_root, cfg.class_map)
+    sds = []
+    for f in range(folds):
+        torch.manual_seed(f)
+        model = small(tree)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNormAct):
+                    m.running_mean.normal_(0, 0.1)
+                    m.running_var.uniform_(0.5, 1.5)
+        sds.append(model.state_dict())
+    return serving, cfg, sds
+
+
+def test_one_fold_ensemble_is_the_single_predictor_on_card(cuda,
+                                                           monkeypatch):
+    """A list of one fold's weights serves as the single Predictor, bit for
+    bit; two folds give the f32 mean of the two Predictors' probabilities
+    (within 1e-6) and its argmax, with 18 scale_bias_act launches per fold
+    and forward."""
+    import numpy as np
+
+    serving, cfg, sds = _tiny_unets(monkeypatch, 2)
+    x = np.random.default_rng(0).uniform(
+        -1, 1, (2, EVAL_IMG, EVAL_IMG, 3)).astype(np.float32)
+    single = [serving.Predictor(cfg, sd, device="cuda") for sd in sds]
+    one = serving.Predictor(cfg, sds[:1], device="cuda")
+    got, want = one(x), single[0](x)
+    for k in ("logits", "probs", "class_maps"):
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_array_equal(g, w)
+    ens = serving.Predictor(cfg, sds, device="cuda")
+    before = fba.LAUNCHES
+    out = ens(x)
+    assert fba.LAUNCHES - before == 2 * 18
+    assert out["logits"] is None
+    outs = [p(x) for p in single]
+    for L, p in enumerate(out["probs"]):
+        mean = np.stack([o["probs"][L] for o in outs]).mean(0)
+        np.testing.assert_allclose(p, mean, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(out["class_maps"][L], mean.argmax(-1))
+
+
+def test_quantized_predictor_on_card_against_cpu(cuda, monkeypatch):
+    """The quantized forward with the same weights and scales on the card
+    (the int8 GEMM) and the CPU (its plain version): class maps equal on at
+    least 99.5 % of pixels (an f32 difference upstream of a round() may
+    move an int8 value by one step)."""
+    import numpy as np
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        int8_conv,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        quantize as q,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    serving, cfg, sds = _tiny_unets(monkeypatch, 1)
+    pred = serving.Predictor(cfg, sds[0], quantize=True, device="cuda")
+    assert pred.act_scales and min(pred.act_scales.values()) > 0
+    x = np.random.default_rng(1).uniform(
+        -1, 1, (4, EVAL_IMG, EVAL_IMG, 3)).astype(np.float32)
+    before = int8_conv.CALLS
+    card = pred(x)
+    assert int8_conv.CALLS - before == 18  # the heads stay float
+    model = serving.build_model(pred.tree)
+    model.load_state_dict(sds[0])
+    model = model.eval().to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        out = q.quantized_apply(model, pred.act_scales)(torch.from_numpy(x))
+    for L, z in enumerate(out.logits_per_level):
+        agree = (card["class_maps"][L] == z.argmax(-1).numpy()).mean()
+        assert agree >= 0.995, (L, agree)

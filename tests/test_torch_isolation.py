@@ -51,8 +51,10 @@ def test_port_and_serve_cli_import_no_jax():
         f"import {PORT}.losses.hierarchical, {PORT}.metrics.segmentation\n"
         f"import {PORT}.data.synthetic, {PORT}.data.target_factory\n"
         f"import {PORT}.models.backbones.unet, {PORT}.ops.conv_bn_relu\n"
-        f"import {PORT}.tools.conv_bn_experiment")
+        f"import {PORT}.tools.conv_bn_experiment\n"
+        f"import {PORT}.train.quantize, {PORT}.ops.int8_conv")
     assert PORT in mods and f"{PORT}.train.steps" in mods
+    assert f"{PORT}.train.quantize" in mods and f"{PORT}.ops.int8_conv" in mods
     assert f"{PORT}.models.backbones.unet" in mods
     assert f"{PORT}.tools.conv_bn_experiment" in mods
     assert [m for m in mods if _forbidden(m)] == []
@@ -89,7 +91,8 @@ def test_train_cli_path_imports_no_cv2_sklearn_orbax_or_jax():
 
 def test_predict_eval_path_imports_no_cv2_sklearn_orbax_or_jax():
     mods = _modules_after(f"import {PORT}.cli.predict_eval\n"
-                          f"import {PORT}.train.evaluate")
+                          f"import {PORT}.train.evaluate\n"
+                          f"import {PORT}.train.quantize")
     assert f"{PORT}.cli.predict_eval" in mods
     assert f"{PORT}.train.evaluate" in mods
     assert [m for m in mods if _forbidden_on_train_path(m)] == []

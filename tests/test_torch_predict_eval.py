@@ -2,8 +2,11 @@
 contracts of its ``Evaluator`` on the CPU: flag parity with the JAX CLI,
 the cross-validation fold expansion, the output under
 ``./Predictions/<save-loc>``, the printed parameter count against the JAX
-model's, the refusals (``--quantize True``, donor ``.pt``/``.pth`` weights,
-a JAX orbax checkpoint), ``--val-batch 3`` (a padded ragged tail) against
+model's, the refusals (donor ``.pt``/``.pth`` weights, also under
+``--quantize True``, and a JAX orbax checkpoint), ``--quantize True``
+(with and without ``--tta``) against the JAX CLI's quantized run on the
+same weights within the JAX test's 0.05 Dice
+(``tests/test_quantize.py:222``), ``--val-batch 3`` (a padded ragged tail) against
 ``--val-batch 1`` at the JAX test's rtol 1e-6, the bounded in-flight
 window (``eval_inflight=1``), and the context that keeps the card's f32
 convolutions out of TF32."""
@@ -166,8 +169,12 @@ def test_cli_refusals(case, weights, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     jax_ckpt, port_ckpt = weights[1]
     if case == "quantize":
-        argv, match = (_refusal_argv(port_ckpt) + ["--quantize", "True"],
-                       r"--quantize True.*queue 1, item 7")
+        # int8 quantization runs (test_cli_quantize_against_jax); it lifts
+        # no refusal of the weights it is given
+        donor = tmp_path / "donor.pt"
+        torch.save({}, donor)
+        argv, match = (_refusal_argv(str(donor)) + ["--quantize", "True"],
+                       r"donor weights.*item 7")
     elif case == "orbax":
         # the JAX trainer's fold_N/best.ckpt name, through the fold expansion
         os.makedirs(tmp_path / "run" / "fold_1")
@@ -184,6 +191,35 @@ def test_cli_refusals(case, weights, tmp_path, monkeypatch):
         argv, match = _refusal_argv(str(donor)), r"donor weights.*item 7"
     with pytest.raises(NotImplementedError, match=match):
         pcli.main(argv)
+
+
+@pytest.mark.parametrize("tta", ["False", "True"])
+def test_cli_quantize_against_jax(tta, data_root, weights, tmp_path,
+                                  monkeypatch):
+    """--quantize True through both CLIs on the same weights and files, at
+    --val-batch 2: calibration on the first --calib-batches 4 batches,
+    whose ragged third is padded. Per-class Dice within 0.05 of the JAX
+    CLI's, as the JAX test holds the quantized run to the float one."""
+    small_models(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    jax_ckpt, port_ckpt = weights[1]
+    common = ["--full-ds", data_root, "--inc-cross-val", "False",
+              "--model-type", "1", "--img-size", str(IMG), "--val-batch",
+              "2", "--quantize", "True", "--tta", tta] + TREE_ARGS
+    jres = jcli.main(["--save-loc", "jax", "--model-weights", jax_ckpt]
+                     + common)
+    pres = pcli.main(["--save-loc", "port", "--model-weights", port_ckpt,
+                      "--device", "cpu"] + common)
+    jd = np.array([c["dice"] for c in jres[0]["per_class"]])
+    pd = np.array([c["dice"] for c in pres[0]["per_class"]])
+    assert len(pd) == len(jd) == 8
+    assert np.abs(pd - jd).max() < 0.05, (pd, jd)
+    fold = tmp_path / "Predictions" / "port" / "fold_1"
+    rows = read_csv(fold / "metrics.csv")
+    assert len(rows) == 1 + 1 + 8 and np.isfinite(csv_numbers(rows)).all()
+    # the scoring pass, after calibration, starts from the first image
+    assert sorted(os.listdir(fold / "7")) == sorted(
+        os.listdir(os.path.join(data_root, "labels")))
 
 
 def _run(cfg_kw, data_root, weights_path, save_root):
