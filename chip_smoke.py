@@ -5,7 +5,8 @@ and the UNet (the default model) at 352 px through the port's ``Predictor``
 and its HTTP server, trains both for a few steps at batch 16, trains the
 UNet through the train CLI for 2 + 1 epochs, runs the fused 1x1 conv + BN +
 ReLU tool, evaluates the trained UNet through the predict_eval CLI, serves
-fold ensembles, TTA and int8 quantization, and checks what comes out.
+fold ensembles, TTA and int8 quantization, exports and loads deployment
+artifacts, imports donor checkpoints, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -84,6 +85,25 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     beside cuDNN's bf16 conv; the quantized UNet on the card against the
     CPU; the serve CLI's server with ``--ensemble best --tta True`` and
     with ``--quantize True``; forward times on the host clock.
+17. deployment: ``torch.export`` artifacts written by the export CLI
+    (``cli/export.py:main``) under ``build/chip_smoke/export/`` and loaded
+    with ``load_exported``, each held to the eager ``Predictor`` on the same
+    weights (probabilities within 1e-6, class maps on 99.99 % of pixels;
+    the probe read 0 and 100 %) with its kernel-2 launches counted: the
+    hierarchical UNet from phase 13's ``best.ckpt`` (352 px, bf16,
+    symbolic batch) at batch 1 and 4 (18 per forward), phase 16's 5-fold
+    run with ``--tta True`` (90), an int8 UNet (18, and 18 int8 convs),
+    W48 from a donor ``.pth`` (620 px, bf16, batch 1: 306); an f32 UNet
+    exported for ``cuda,cpu`` loaded on the CPU against the card; a
+    full-coverage W48 donor ``.pth`` under the reference's names served by
+    the ``Predictor`` bit for bit against the same weights as a
+    state_dict; a milesial-named UNet donor seeding one epoch of the train
+    CLI (coverage line, launches); the W48 ``sum`` head
+    (``RHSS_HRNET_HEAD=sum``) against ``concat`` at bf16 batch 4 and both
+    timed; the eager W48 bf16 batch-4 forward with kernel 2 called
+    directly and through its ``torch.library`` operator, in turns; export
+    and load seconds, artifact MB and forward ms loaded against eager
+    (host clock).
 
 The serving profiles (phases 4 and 9) go through ``profile_call``, whose
 marker kernels keep a trace from losing the call's first device events.
@@ -2318,6 +2338,372 @@ def phase_serving_options(card: str, device: str = "cuda") -> dict:
     return out
 
 
+EXPORT_ROOT = "build/chip_smoke/export"
+EXPORT_IMAGES = 4
+# a loaded artifact against the eager Predictor on the same weights and
+# input: the program runs the same kernels and cuDNN calls in the same
+# order, and a probe run on an H100 read 0.0 for every probability and
+# 100 % of class-map pixels (W48 bf16 batch 1; UNet bf16 and f32 at batch
+# 1 and 4); the bounds leave room for a cuDNN algorithm picked anew
+EXPORT_PROB_ATOL = 1e-6
+EXPORT_CLASS_AGREE = 0.9999
+# an f32 artifact loaded on the CPU against the card: phase 9's bounds for
+# the f32 forward on the card against the CPU (TF32 off)
+EXPORT_CPU_PROB_ATOL = 1e-4
+EXPORT_CPU_AGREE = 0.999
+# the HRNet sum head against concat on the same weights, bf16 batch 4:
+# the same function with the bf16 roundings at other places, so pixels
+# whose two largest logits are within bf16's rounding may change class
+SUM_HEAD_AGREE = 0.99
+
+
+def _agree(got: dict, want: dict, atol: float, agree: float) -> dict:
+    """Probabilities within ``atol`` and class maps equal on at least the
+    share ``agree`` of pixels, per level; returns the worst of each."""
+    errs, shares = [], []
+    for k in ("probs", "logits"):
+        for g, w in zip(got.get(k) or (), want.get(k) or ()):
+            assert g.shape == w.shape and np.isfinite(g).all(), k
+            errs.append(float(np.abs(g - w).max()))
+    for g, w in zip(got["class_maps"], want["class_maps"]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        shares.append(float((g == w).mean()))
+    assert max(errs) <= atol and min(shares) >= agree, (errs, shares)
+    return {"max_abs_err": max(errs), "class_map_agree": min(shares)}
+
+
+def _donor_file(sd: dict, model_select: int, path: str) -> int:
+    """Write ``sd`` (a port state_dict) as a donor ``.pth`` under the
+    reference's names: every leaf under its first ``translate_flax_path``
+    candidate (its dotted flax path where there is none: the heads and
+    FiLM, which the importer's suffix fallback matches), conv weights
+    OIHW. Returns the number of leaves."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.bridge \
+        import flax_from_state_dict
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .torch_import import _flatten, translate_flax_path
+
+    params, stats = flax_from_state_dict(sd)
+    out = {}
+    for coll, tree in (("params", params), ("batch_stats", stats)):
+        for leaf_path, arr in _flatten(tree).items():
+            cands = translate_flax_path(leaf_path, coll, model_select)
+            name = cands[0] if cands else ".".join(leaf_path)
+            if leaf_path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            assert name not in out, name
+            out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    torch.save(out, path)
+    return len(out)
+
+
+def phase_deployment(card: str, device: str = "cuda") -> dict:
+    """Phase 17: the deployment slice on the card at full width, after
+    phases 13 and 16, whose trained fold and 5-fold run directory it
+    exports. Artifacts through the export CLI (``cli/export.py:main``),
+    loaded with ``train/export.py:load_exported`` and held to the eager
+    ``Predictor``: the hierarchical UNet (352 px, bf16, symbolic batch) at
+    batch 1 and 4, a 5-fold UNet ensemble with TTA, an int8 UNet, an f32
+    UNet loaded on the card and on the CPU, HRNet-W48 (620 px, bf16,
+    batch 1) from a donor ``.pth``; the donor served by the ``Predictor``
+    bit for bit against the same weights as a state_dict; a milesial-named
+    UNet donor seeding one epoch of the train CLI; the W48 sum head
+    against concat; the eager W48 forward with kernel 2 called directly
+    and through its ``torch.library`` operator. Every count is set to 0
+    just before a run and read just after; no plain version may run."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        export as export_cli,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        train as train_cli,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run \
+        import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model, norm
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        int8_conv,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .export import load_exported
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .serving import Predictor
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    n_unet, n_w48 = MODELS[0]["n_bn"], MODELS[1]["n_bn"]
+    usize, wsize = MODELS[0]["img"], MODELS[1]["img"]
+    root = os.path.abspath(EXPORT_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    trained = os.path.abspath(f"{CLI_ROOT}/run/fold_1/best.ckpt")
+    run5 = os.path.abspath(f"{OPT_ROOT}/unet_run")
+    tree_files = ["--tree-root", "assets/class_tree_tl.json",
+                  "--class-map", "assets/class_map.csv"]
+    ux = np.concatenate([((im[..., None].repeat(3, -1) / 255.0 - 0.5) / 0.5)
+                         .astype(np.float32)[None]
+                         for im in gray_images(EXPORT_IMAGES, usize,
+                                               SEED + 9)])
+    wx = np.concatenate([((im[..., None].repeat(3, -1) / 255.0 - 0.5) / 0.5)
+                         .astype(np.float32)[None]
+                         for im in gray_images(EXPORT_IMAGES, wsize,
+                                               SEED + 9)])
+    out = {"launches": 0, "artifacts": {}, "times_ms": {}}
+    plain, undo_plain = _plain_counters()
+
+    def export(name, argv):
+        path = f"{root}/{name}.pt2"
+        t0 = time.perf_counter()
+        export_cli.main(["--out", path, "--device", device] + tree_files
+                        + argv)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_exported(path)
+        load_s = time.perf_counter() - t0
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        row = {"export_s": export_s, "load_s": load_s,
+               "mb": os.path.getsize(path) / 1e6, "meta_batch": meta["batch"],
+               "platforms": meta["platforms"]}
+        out["artifacts"][name] = row
+        return path, loaded, row
+
+    def held(name, loaded, eager, x, batches, n_bn, int8_calls=0):
+        row = out["artifacts"][name]
+        for b in batches:
+            int8_conv.CALLS = 0
+            got, counts = _counted(lambda: loaded(x[:b]))
+            assert counts["scale_bias_act"] == n_bn, (name, b, counts)
+            assert counts["bn_stats"] == counts["bn_backward"] == 0, counts
+            assert int8_conv.CALLS == int8_calls, (name, int8_conv.CALLS)
+            out["launches"] += counts["scale_bias_act"]
+            row[f"b{b}"] = _agree(got, eager(x[:b]), EXPORT_PROB_ATOL,
+                                  EXPORT_CLASS_AGREE)
+            row[f"b{b}_launches"] = counts["scale_bias_act"]
+        b = batches[-1]
+        row["loaded_ms"] = _host_ms(lambda: loaded(x[:b]))
+        row["eager_ms"] = _host_ms(lambda: eager(x[:b]))
+        out["times_ms"][f"{name}_b{b}_loaded"] = row["loaded_ms"]
+        out["times_ms"][f"{name}_b{b}_eager"] = row["eager_ms"]
+        log(f"artifact {name} on {card}: {json.dumps(row)}")
+
+    try:
+        # the hierarchical UNet, bf16, symbolic batch, from phase 13's fold
+        ucfg = {dt: RunConfig(model_select=0, model_type=1, img_size=usize,
+                              compute_dtype=dt)
+                for dt in ("float32", "bfloat16")}
+        _, loaded, row = export("unet_bf16", [
+            "--model-weights", trained, "--model-type", "1",
+            "--img-size", str(usize),
+            "--compute-dtype", "bfloat16",
+            "--outputs", "logits,probs,class_maps"])
+        assert row["meta_batch"] == "symbolic"
+        eager = Predictor(ucfg["bfloat16"], trained, tree=tree,
+                          device=device)
+        held("unet_bf16", loaded, eager, ux, (1, EXPORT_IMAGES), n_unet)
+        del loaded, eager
+
+        # the 5-fold ensemble of phase 16 with TTA, bf16
+        _, loaded, row = export("unet_5fold_tta", [
+            "--model-weights", run5, "--ensemble", "best", "--tta", "True",
+            "--model-type", "1", "--img-size", str(usize),
+            "--compute-dtype", "bfloat16"])
+        eager = Predictor(ucfg["bfloat16"],
+                          Predictor.fold_checkpoints(run5, "best"),
+                          tree=tree, tta=True, outputs=("probs",
+                                                        "class_maps"),
+                          device=device)
+        held("unet_5fold_tta", loaded, eager, ux, (EXPORT_IMAGES,),
+             OPT_FOLDS * n_unet)
+        del loaded, eager
+
+        # int8 (the default calibration batch), f32 compute
+        _, loaded, row = export("unet_int8", [
+            "--model-weights", trained, "--model-type", "1",
+            "--img-size", str(usize),
+            "--quantize", "True"])
+        eager = Predictor(ucfg["float32"], trained, tree=tree, quantize=True,
+                          outputs=("probs", "class_maps"), device=device)
+        held("unet_int8", loaded, eager, ux, (1,), n_unet,
+             int8_calls=n_unet)
+        del loaded, eager
+
+        # f32, exported on the card for the card and the CPU
+        path, loaded, row = export("unet_f32_cuda_cpu", [
+            "--model-weights", trained, "--model-type", "1",
+            "--img-size", str(usize),
+            "--platforms", "cuda,cpu"])
+        assert sorted(row["platforms"]) == ["cpu", "cuda"], row
+        assert row["platforms"][0] == device, row  # the exporter first
+        card_out, counts = _counted(lambda: loaded(ux[:1]))
+        assert counts["scale_bias_act"] == n_unet, counts
+        out["launches"] += counts["scale_bias_act"]
+        cpu_artifact = (path, card_out, row)  # loaded on the CPU below
+        del loaded
+
+        # HRNet-W48: phase 4's seeded weights, as a state_dict and as a
+        # donor .pth under the reference's names
+        wmodel = build_model(tree, 1, 1)
+        wsd = random_state_dict(wmodel, SEED, MODELS[1]["conv_gain"])
+        del wmodel
+        donor = f"{root}/w48_donor.pth"
+        n_leaves = _donor_file(wsd, 1, donor)
+        wcfg = RunConfig(model_select=1, model_type=1, img_size=wsize,
+                         compute_dtype="bfloat16")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            from_donor = Predictor(wcfg, donor, tree=tree, device=device)
+        donor_s = time.perf_counter() - t0
+        assert f"Loaded {n_leaves} / {n_leaves} layers." in buf.getvalue()
+        os.environ.pop("RHSS_HRNET_HEAD", None)
+        concat = Predictor(wcfg, wsd, tree=tree, device=device)
+        assert concat.model.backbone.shared_head_conv.mode == "concat"
+        got, counts = _counted(lambda: from_donor(wx))
+        assert counts["scale_bias_act"] == n_w48, counts
+        out["launches"] += counts["scale_bias_act"]
+        want = concat(wx)
+        for k in ("logits", "probs", "class_maps"):
+            for g, w in zip(got[k], want[k]):
+                assert np.array_equal(g, w), f"donor W48 {k} differs"
+        out["donor_w48"] = {"leaves": n_leaves, "predictor_s": donor_s,
+                            "bit_equal": True}
+        log(f"donor W48 on {card}: {n_leaves} leaves under the reference's "
+            f"names, Predictor built in {donor_s:.2f} s, outputs bit-equal "
+            "to the same weights as a state_dict")
+        del from_donor
+
+        # kernel 2 in the eager forward: called directly (the port's
+        # design) and through torch.ops.rhss.scale_bias_act, in turns
+        xt = torch.from_numpy(wx).to(device)
+
+        def via_op(x, a, b, act):
+            return torch.ops.rhss.scale_bias_act(x, a, b, act)
+
+        direct = norm.fused_scale_bias_act
+        eager_op = {"direct": [], "op": []}
+        try:
+            for which in ("direct", "op", "op", "direct", "direct", "op",
+                          "op", "direct"):
+                norm.fused_scale_bias_act = (direct if which == "direct"
+                                             else via_op)
+                eager_op[which].append(_host_ms(lambda: concat.forward(xt),
+                                                reps=10))
+        finally:
+            norm.fused_scale_bias_act = direct
+        out["eager_op_ms"] = eager_op
+        log(f"eager W48 bf16 batch {EXPORT_IMAGES} forward on {card} (ms, "
+            f"host clock, 10 calls each, in turns): {json.dumps(eager_op)}")
+
+        # the sum head on the same weights
+        os.environ["RHSS_HRNET_HEAD"] = "sum"
+        try:
+            head_sum = Predictor(wcfg, wsd, tree=tree, device=device)
+        finally:
+            del os.environ["RHSS_HRNET_HEAD"]
+        assert head_sum.model.backbone.shared_head_conv.mode == "sum"
+        got, counts = _counted(lambda: head_sum(wx))
+        assert counts["scale_bias_act"] == n_w48, counts
+        shares = [float((g == w).mean())
+                  for g, w in zip(got["class_maps"], want["class_maps"])]
+        perr = max(float(np.abs(g - w).max())
+                   for g, w in zip(got["probs"], want["probs"]))
+        assert min(shares) >= SUM_HEAD_AGREE, shares
+        out["sum_head"] = {"class_map_agree": shares, "probs_max_abs": perr,
+                           "sum_ms": _host_ms(lambda: head_sum.forward(xt),
+                                              reps=5),
+                           "concat_ms": _host_ms(lambda: concat.forward(xt),
+                                                 reps=5)}
+        log(f"W48 sum head against concat on {card}, bf16 batch "
+            f"{EXPORT_IMAGES}: {json.dumps(out['sum_head'])}")
+        del head_sum
+
+        # W48 from the donor .pth through the export CLI, bf16 batch 1
+        _, loaded, row = export("w48_bf16_b1", [
+            "--model-weights", donor, "--model-type", "1",
+            "--model-select", "1", "--img-size", str(wsize),
+            "--compute-dtype", "bfloat16", "--batch", "1"])
+        assert row["meta_batch"] == 1
+        held("w48_bf16_b1", loaded, concat, wx, (1,), n_w48)
+        # where the loaded program's time goes, against the eager forward
+        x1 = xt[:1]
+        for name, fn in (("loaded", lambda: loaded.forward(x1)),
+                         ("eager", lambda: concat.forward(x1))):
+            prof = profile_call(fn, f"W48 bf16 batch 1, {name}")
+            assert prof["kernel_counts"]["scale_bias_act"] == n_w48, prof
+            row[f"profile_{name}"] = {
+                k: prof[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                     "host_launches", "kernel_counts")}
+        del loaded, concat
+        torch.cuda.empty_cache()
+
+        # a milesial-named UNet donor seeds one epoch of the train CLI
+        umodel = build_model(tree, 0, 1)
+        usd = random_state_dict(umodel, SEED + 3, MODELS[0]["conv_gain"])
+        del umodel
+        udonor = f"{root}/unet_milesial.pth"
+        n_uleaves = _donor_file(usd, 0, udonor)
+        argv = ["--save-path", f"{root}/train_from_donor",
+                "--data-root", f"{CLI_ROOT}/data", "--model-type", "1",
+                "--folds", "1", "--compute-dtype", "bfloat16",
+                "--learning-rate", "[0.018]", "--epochs", "1",
+                "--img-size", str(usize), "--device", device,
+                "--level-weights", json.dumps(LEVEL_WEIGHTS),
+                "--model-weights", udonor] + tree_files
+        buf = io.StringIO()
+        set_counts_to_zero()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        text = buf.getvalue()
+        assert f"Loaded {n_uleaves} / {n_uleaves} layers." in text, text[-2000:]
+        assert "Resumed" not in text
+        steps = CLI_TRAIN_IMAGES // TRAIN_BATCH
+        val = max(2, CLI_TRAIN_IMAGES // 4)
+        assert counts["bn_stats"] == counts["bn_backward"] == n_unet * steps
+        assert counts["scale_bias_act"] == n_unet * (steps + val), counts
+        rows = _read_csv(f"{root}/train_from_donor/fold_1/metrics.csv")
+        assert [r[0] for r in rows[1:]] == ["1"], rows
+        out["train_from_donor"] = {"leaves": n_uleaves, "wall_s": wall,
+                                   "counts": counts}
+        log(f"train CLI from a milesial-named UNet donor on {card}: "
+            f"{n_uleaves} / {n_uleaves} leaves loaded, 1 epoch in "
+            f"{wall:.2f} s, launches {counts}")
+    finally:
+        undo_plain()
+    assert all(v == 0 for v in plain.values()), plain
+
+    # the f32 artifact on the CPU, where the operator runs the plain version
+    path, card_out, row = cpu_artifact
+    t0 = time.perf_counter()
+    cpu = load_exported(path, device="cpu")
+    row["cpu_load_s"] = time.perf_counter() - t0
+    assert cpu.device.type == "cpu"
+    row["cpu_vs_card"] = _agree(cpu(ux[:1]), card_out, EXPORT_CPU_PROB_ATOL,
+                                EXPORT_CPU_AGREE)
+    log(f"artifact unet_f32_cuda_cpu on {card} and the CPU: "
+        f"{json.dumps(row)}")
+    del cpu
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"deployment on {card}: {out['launches']} scale_bias_act launches "
+        f"in the loaded artifacts' counted runs, no plain call; the phase "
+        f"took {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, tot, work,
                  bound_by="bytes", **extra):
     """One row of the kernels line; ``source`` is a file of ``csrc/``,
@@ -2430,6 +2816,9 @@ def main() -> int:
     opt = phase_serving_options(card)
     torch.cuda.empty_cache()
 
+    dep = phase_deployment(card)
+    torch.cuda.empty_cache()
+
     step_work = (f"all launches of one bf16 train step (W48, batch "
                  f"{train['batch']}, {IMG} px), inputs read from device "
                  "memory (ms_l2: from L2)")
@@ -2453,6 +2842,7 @@ def main() -> int:
         "cli_launches": cli["launches"]["scale_bias_act"],
         "eval_launches": ev["launches"],
         "options_launches": opt["launches"],
+        "export_launches": dep["launches"],
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             epath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
@@ -2476,7 +2866,9 @@ def main() -> int:
                 "CLI's card runs (phase 15: the UNet at 352 px, f32 at "
                 "batches 1, 3 and 8 (TTA of 4), bf16 at batch 4); "
                 "options_launches: phase 16's counted runs (fold ensembles, "
-                "TTA, int8 quantization)",
+                "TTA, int8 quantization); export_launches: phase 17's "
+                "counted runs of loaded torch.export artifacts (the kernel "
+                "as the operator torch.ops.rhss.scale_bias_act)",
         **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
         **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
@@ -2536,7 +2928,7 @@ def main() -> int:
                     "train_cli": cli, "conv_bn_cases": conv["cases"],
                     "predict_eval": {k: v for k, v in ev.items()
                                      if k != "shapes"},
-                    "serving_options": opt},
+                    "serving_options": opt, "deployment": dep},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -12,11 +12,13 @@ Cross-val mode expands ``--full-ds`` and ``--model-weights`` into per-fold
         --tree-root assets/class_tree_tl.json --class-map assets/class_map.csv \\
         --model-type 1 --folds 5 --val-batch 4
 
-Weights are the port trainer's ``<name>.ckpt`` directories. ``--quantize
-True`` runs the forward's convs in int8 (calibrated on the first
-``--calib-batches`` validation batches), also under ``--tta True``. Donor
-``.pt``/``.pth`` weights raise (ROADMAP.md queue 1, item 7), and so does a
-JAX orbax checkpoint.
+Weights are read by the rule of ``train/torch_import.py:load_model_weights``:
+the port trainer's ``<name>.ckpt`` directories, the port's own
+``.pt``/``.pth`` state_dict files, or donor ``.pt``/``.pth`` checkpoints (the
+published HRNet and milesial-UNet names, as the JAX CLI reads them). A JAX
+orbax checkpoint is refused. ``--quantize True`` runs the forward's convs in
+int8 (calibrated on the first ``--calib-batches`` validation batches), also
+under ``--tta True``.
 """
 from __future__ import annotations
 

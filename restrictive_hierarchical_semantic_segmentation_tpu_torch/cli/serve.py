@@ -22,7 +22,10 @@ The predictor is one in-process instance guarded by a lock; the card runs
 one forward at a time anyway. ``--ensemble best|last`` serves the fold
 ensemble of a train run directory, ``--tta True`` adds the flip TTA and
 ``--quantize True`` runs the convs in int8, as in the JAX CLI;
-``--device`` is new (default cuda).
+``--device`` is new (default cuda). ``--model-weights`` is read by the
+rule of ``train/torch_import.py:load_model_weights``: a ``<name>.ckpt``
+directory of the port's trainer, the port's own ``.pt``/``.pth``
+state_dict, or a donor ``.pt``/``.pth`` checkpoint.
 """
 from __future__ import annotations
 
@@ -39,9 +42,9 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(
         description="Serve a trained model over HTTP (PyTorch port)")
     p.add_argument("--model-weights", type=str, required=True,
-                   help="the port's .pt state_dict, or a <name>.ckpt "
-                        "directory written by its train CLI, or a train "
-                        "run dir (fold_N/ layout) with --ensemble")
+                   help="checkpoint path (.ckpt, the port's .pt "
+                        "state_dict or a donor .pth), or a train run dir "
+                        "(fold_N/ layout) with --ensemble")
     p.add_argument("--tree-root", type=str, required=True)
     p.add_argument("--class-map", type=str, required=True)
     p.add_argument("--img-size", type=int, default=352)

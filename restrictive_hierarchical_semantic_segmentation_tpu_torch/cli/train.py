@@ -13,11 +13,15 @@ Example (reference README.md:71-91, adapted):
         --inc-cross-val True --compute-dtype bfloat16 \\
         --level-weights "[[0.0297,1.577,0.9619,0.1770],[1.5432,0.2638,1.0413,3.9722]]"
 
+``--model-weights``: a ``<name>.ckpt`` directory of the port's trainer
+resumes; a ``.pt``/``.pth`` file seeds the model's weights (the port's own
+state_dict, or a donor checkpoint under the published HRNet or
+milesial-UNet names, as the JAX CLI reads it; ``train/torch_import.py``).
+
 Options of the JAX trainer that the port does not have yet raise and name
 their ROADMAP item: ``--loader grain``, ``--device-data True``,
 ``--fold-parallel True`` over several folds, ``--n-space`` above 1,
-``--dist-coordinator``, ``--remat`` other than False, ``--profile-dir``,
-and donor ``.pt``/``.pth`` weights in ``--model-weights``.
+``--dist-coordinator``, ``--remat`` other than False and ``--profile-dir``.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 
 Stride-4 stem, Bottleneck stage 1, multi-resolution stages 2-4 built from
 ``HighResolutionModule`` (parallel branches + full exchange), transition
-layers, and the final upsample-concat of all branches (48+96+192+384 = 720
-channels for W48) through a shared 1x1 conv-BN-ReLU head.
+layers, and the final fusion of all branches (48+96+192+384 = 720
+channels for W48) through a shared 1x1 conv-BN-ReLU head (its ``concat``
+or ``sum`` dataflow, :class:`SharedHead1x1`).
 
 Modules take and return NCHW tensors, which the port keeps in
 ``torch.channels_last`` memory format, so every BatchNorm input is already
@@ -16,9 +17,11 @@ bridge (``bridge.py``) is a mechanical rename. Every conv is followed by a
 """
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...config.hrnet import HRNetConfig, HRNetStage
@@ -88,28 +91,69 @@ class Bottleneck(nn.Module):
 _BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
 
+HEAD_MODES = ("concat", "sum")
+
+
 class SharedHead1x1(nn.Conv2d):
-    """The shared 1x1 conv head (models.py:613-617), ``concat`` dataflow:
-    upsample every branch to the highest resolution, concatenate, one 1x1
-    conv with bias. A ``Conv2d`` itself, so its weights are the flax
-    ``shared_head_conv`` kernel and bias. The JAX module's ``sum``
-    decomposition is not ported; the port raises for it and for unknown
-    modes (the JAX module treats an unknown mode as ``sum``)."""
+    """The shared 1x1 conv head (models.py:613-617) in the JAX module's two
+    formulations, which compute the same function (JAX
+    ``SharedHead1x1``):
+
+    * ``concat``: upsample every branch to the highest resolution,
+      concatenate, one 1x1 conv with bias;
+    * ``sum``: a 1x1 conv is linear over channels and the bilinear resize
+      over space, so they commute: ``conv(concat_i up(b_i)) = sum_i
+      up(conv_i(b_i))`` with ``conv_i`` the i-th channel slice of the same
+      weight. A branch already at the target size takes its conv alone;
+      each other branch runs conv-then-resize or resize-then-conv,
+      whichever the JAX FLOP estimate (:meth:`_resize_flops`) finds
+      cheaper. The terms are added in branch order and the bias last.
+
+    A ``Conv2d`` itself in both modes, so its weights are the flax
+    ``shared_head_conv`` kernel and bias under the same names: checkpoints,
+    donor imports and exported artifacts interchange between the modes.
+    An unknown mode raises ``ValueError``; the JAX module computes ``sum``
+    for any mode other than ``concat``."""
 
     def __init__(self, in_ch: int, out_ch: int, align_corners: bool,
                  mode: str = "concat"):
-        if mode == "sum":
-            raise NotImplementedError(
-                "HRNet head_mode 'sum': not ported; use 'concat'")
-        if mode != "concat":
-            raise ValueError(f"unknown HRNet head_mode {mode!r}")
+        if mode not in HEAD_MODES:
+            raise ValueError(f"unknown HRNet head_mode {mode!r}; expected "
+                             f"one of {HEAD_MODES} or 'auto'")
         super().__init__(in_ch, out_ch, 1, bias=True)
         self.align_corners = align_corners
+        self.mode = mode
+
+    @staticmethod
+    def _resize_flops(ch: int, src_hw, dst_hw) -> int:
+        """The JAX estimate of a matmul resize: rows pass, then columns."""
+        (h, w), (big_h, big_w) = src_hw, dst_hw
+        return ch * (big_h * w * h + big_h * big_w * w)
 
     def forward(self, xs: List[torch.Tensor], target_hw) -> torch.Tensor:
-        outs = [xs[0]] + [resize_nchw(b, target_hw, self.align_corners)
-                          for b in xs[1:]]
-        return super().forward(torch.cat(outs, dim=1))
+        ac = self.align_corners
+        if self.mode == "concat":
+            outs = [xs[0]] + [resize_nchw(b, target_hw, ac) for b in xs[1:]]
+            return super().forward(torch.cat(outs, dim=1))
+        big_h, big_w = (int(v) for v in target_hw)
+        out_ch = self.out_channels
+        y = None
+        lo = 0
+        for b in xs:
+            ch = b.shape[1]
+            w = self.weight[:, lo:lo + ch]
+            lo += ch
+            src_hw = tuple(int(v) for v in b.shape[-2:])
+            if src_hw == (big_h, big_w):
+                t = F.conv2d(b, w)
+            elif (ch * src_hw[0] * src_hw[1] * out_ch
+                  + self._resize_flops(out_ch, src_hw, (big_h, big_w))
+                  < ch * big_h * big_w * out_ch):
+                t = resize_nchw(F.conv2d(b, w), (big_h, big_w), ac)
+            else:
+                t = F.conv2d(resize_nchw(b, (big_h, big_w), ac), w)
+            y = t if y is None else y + t
+        return y + self.bias.to(y.dtype)[:, None, None]
 
 
 class Branch(nn.Module):
@@ -250,13 +294,14 @@ class HRNetBackbone(nn.Module):
 
     ``use_pallas_bn`` is kept for the JAX signature: in eval mode both BN
     flavours of the JAX package compute the same function, and the port
-    runs its kernel for either. ``head_mode``: "concat" ("auto" resolves to
-    it); "sum" and unknown modes raise."""
+    runs its kernel for either. ``head_mode``: "concat", "sum" or "auto"
+    (the default: ``$RHSS_HRNET_HEAD``, else "concat", read when the
+    backbone is built); an unknown mode raises (see :class:`SharedHead1x1`)."""
 
     feature_stride = 4
 
     def __init__(self, config: HRNetConfig, in_channels: int = 3,
-                 use_pallas_bn: bool = False, head_mode: str = "concat"):
+                 use_pallas_bn: bool = False, head_mode: str = "auto"):
         super().__init__()
         self.config = config
         self.use_pallas_bn = use_pallas_bn
@@ -282,9 +327,10 @@ class HRNetBackbone(nn.Module):
             self.stage_modules.append((si, stage.num_modules))
             prev = cur
 
+        if head_mode == "auto":  # as the JAX HRNetBackbone resolves it
+            head_mode = os.environ.get("RHSS_HRNET_HEAD", "concat")
         self.shared_head_conv = SharedHead1x1(
-            sum(prev), config.last_channels, ac,
-            "concat" if head_mode == "auto" else head_mode)
+            sum(prev), config.last_channels, ac, head_mode)
         self.shared_head_bn = BatchNormAct(config.last_channels, "relu")
 
     @property

@@ -32,6 +32,12 @@ statistics are those of the local batch. Train mode takes act "none" or
 "relu": the JAX backward treats every other act as the identity, which is
 wrong for ``leaky_relu``, so the port raises for it instead.
 
+Export: the ``folded()`` cache is keyed on storage addresses and version
+counters, which the tensors ``torch.export`` traces with do not have, so
+under ``torch.compiler.is_exporting()`` the forward computes ``(a, b)``
+from the parameters and buffers in the graph (the same f32 formula) and
+the exported program folds them on every call.
+
 Parameters ``weight``/``bias`` and buffers ``running_mean``/``running_var``
 are the flax ``scale``/``bias`` and ``mean``/``var`` (see ``bridge.py``);
 eps is 1e-5.
@@ -79,11 +85,14 @@ class BatchNormAct(nn.Module):
             # no_grad, and normal tensors even under inference_mode: an
             # eval-mode forward with autograd on may save them later
             with torch.inference_mode(False), torch.no_grad():
-                a = self.weight.float() * torch.rsqrt(
-                    self.running_var.float() + self.eps)
-                b = self.bias.float() - self.running_mean.float() * a
-            self._folded, self._folded_key = (a, b), key
+                self._folded = self._fold()
+            self._folded_key = key
         return self._folded
+
+    def _fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+        a = self.weight.float() * torch.rsqrt(self.running_var.float()
+                                              + self.eps)
+        return a, self.bias.float() - self.running_mean.float() * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # channels_last NCHW viewed as NHWC is the contiguous (rows, C)
@@ -92,7 +101,8 @@ class BatchNormAct(nn.Module):
         if self.training:
             y = self._train(xn)
         else:
-            a, b = self.folded()
+            a, b = (self._fold() if torch.compiler.is_exporting()
+                    else self.folded())
             y = fused_scale_bias_act(xn, a, b, self.act)
         return y.permute(0, 3, 1, 2)
 

@@ -44,6 +44,18 @@ and its backward is the BN backward kernel (one launch per call).
 The kernels write new tensors (out of place): the eval-mode caller could
 let scale-bias-act overwrite the dead conv output, but the saving is one
 allocation from PyTorch's caching allocator, not device traffic.
+
+Export: ``torch.export`` traces with tensors that hold no data, so it
+cannot see a ``ctypes`` launch. The scale-bias-act kernel is therefore also
+the operator ``torch.ops.rhss.scale_bias_act`` (``torch.library``): its
+CUDA implementation is :func:`_launch` (checks, the kernel, ``LAUNCHES``),
+its CPU implementation the plain version, and its fake implementation
+gives the output's shape and dtype from the inputs'. Under
+``torch.compiler.is_exporting()`` :func:`fused_scale_bias_act` calls the
+operator, so an exported program holds one node per launch and runs the
+kernel (or, on the CPU, the plain version) when it is called. Eager calls
+go to :func:`_launch` directly: the operator's dispatch would add host
+time to every call of a host-bound forward (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -123,8 +135,9 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_rows_c(x: torch.Tensor, what: str) -> int:
-    """The (rows, C) checks every kernel shares; returns C."""
+def _check_layout(x: torch.Tensor, what: str) -> int:
+    """The (rows, C) checks that read no data (a fake tensor passes them
+    too); returns C."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
     if x.dim() < 1 or not x.is_contiguous():
@@ -134,9 +147,20 @@ def _check_rows_c(x: torch.Tensor, what: str) -> int:
     if c % 8:
         raise ValueError(f"{what} needs C % 8 == 0 (16-byte vectors of "
                          f"bf16); got C = {c}")
+    return c
+
+
+def _check_rows_c(x: torch.Tensor, what: str) -> int:
+    """The (rows, C) checks every kernel shares; returns C."""
+    c = _check_layout(x, what)
     if x.data_ptr() % 16:
         raise ValueError(f"{what} needs x 16-byte aligned")
     return c
+
+
+def _check_vector(t: torch.Tensor, c: int, what: str) -> None:
+    if t.shape != (c,):
+        raise ValueError(f"{what} must have shape ({c},), got {tuple(t.shape)}")
 
 
 def _device_of(x: torch.Tensor, what: str) -> str:
@@ -146,8 +170,7 @@ def _device_of(x: torch.Tensor, what: str) -> str:
 
 
 def _per_channel(t: torch.Tensor, c: int, device, what: str) -> torch.Tensor:
-    if t.shape != (c,):
-        raise ValueError(f"{what} must have shape ({c},), got {tuple(t.shape)}")
+    _check_vector(t, c, what)
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, x on {device}")
     t = t.to(torch.float32).contiguous()
@@ -170,16 +193,41 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return y
 
 
+@torch.library.custom_op("rhss::scale_bias_act", mutates_args=(),
+                         device_types="cuda")
+def _scale_bias_act_op(x: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor, act: str) -> torch.Tensor:
+    """``torch.ops.rhss.scale_bias_act``: the kernel on a CUDA tensor."""
+    return _launch(x, scale, shift, act)
+
+
+@_scale_bias_act_op.register_kernel("cpu")
+def _scale_bias_act_op_cpu(x, scale, shift, act):
+    return _scale_bias_act_ref(x, scale, shift, act)
+
+
+@_scale_bias_act_op.register_fake
+def _scale_bias_act_op_fake(x, scale, shift, act):
+    c = _check_layout(x, "scale_bias_act")
+    _check_vector(scale, c, "scale")
+    _check_vector(shift, c, "shift")
+    return torch.empty_like(x)
+
+
 def fused_scale_bias_act(x: torch.Tensor, scale: torch.Tensor,
                          shift: torch.Tensor,
                          act: str = "relu") -> torch.Tensor:
     """``act(x * scale + shift)`` over the last (channel) axis of ``x``.
 
     ``scale`` and ``shift`` are ``(C,)`` and taken as f32; the result has
-    x's dtype and shape. ``act``: "none" | "relu" | "leaky_relu" (0.01)."""
+    x's dtype and shape. ``act``: "none" | "relu" | "leaky_relu" (0.01).
+    Under ``torch.export`` the call is the operator
+    ``torch.ops.rhss.scale_bias_act``."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected one of "
                          f"{sorted(ACTS)}")
+    if torch.compiler.is_exporting():
+        return torch.ops.rhss.scale_bias_act(x, scale, shift, act)
     if _device_of(x, "scale_bias_act") == "cpu":
         return _scale_bias_act_ref(x, scale, shift, act)
     return _launch(x, scale, shift, act)

@@ -47,9 +47,8 @@ def _linear_indices_weights(in_size: int, out_size: int,
     return lo, hi, w
 
 
-@functools.lru_cache(maxsize=512)
-def _tables(in_size: int, out_size: int, align_corners: bool,
-            device: torch.device):
+def _make_tables(in_size: int, out_size: int, align_corners: bool,
+                 device: torch.device):
     lo, hi, w = _linear_indices_weights(in_size, out_size, align_corners)
     # normal tensors even when first asked for under inference_mode (an
     # eval step): a later train step saves them for its backward
@@ -59,12 +58,18 @@ def _tables(in_size: int, out_size: int, align_corners: bool,
                 torch.from_numpy(w).to(device))
 
 
+_tables = functools.lru_cache(maxsize=512)(_make_tables)
+
+
 def _resize_axis(x: torch.Tensor, dim: int, out_size: int,
                  align_corners: bool) -> torch.Tensor:
     in_size = x.shape[dim]
     if in_size == out_size:
         return x
-    lo, hi, w = _tables(in_size, out_size, align_corners, x.device)
+    # torch.export traces with tensors that hold no data: tables made then
+    # are the program's constants and must not enter the cache
+    tables = _make_tables if torch.compiler.is_exporting() else _tables
+    lo, hi, w = tables(in_size, out_size, align_corners, x.device)
     shape = [1] * x.dim()
     shape[dim] = out_size
     x_lo = x.index_select(dim, lo)

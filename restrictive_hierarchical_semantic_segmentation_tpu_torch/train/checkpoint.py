@@ -94,8 +94,10 @@ def load_state(path: str) -> Dict:
             f"{path} holds no {_STATE}, so it is not a checkpoint of the "
             "port's trainer: a <name>.ckpt directory without it is the JAX "
             "package's orbax checkpoint, which the port does not read "
-            "(orbax needs jax). Load its variables with jax, convert them "
-            "with bridge.state_dict_from_flax and save them with the port's "
+            "(orbax needs jax; a converter outside both packages, built on "
+            "bridge.py, stays out of the port: ROADMAP.md queue 1, item 7). "
+            "Load its variables with jax, convert them with "
+            "bridge.state_dict_from_flax and save them with the port's "
             "train/checkpoint.py, or train with the port")
     return torch.load(state, map_location="cpu", weights_only=True)
 

@@ -16,10 +16,12 @@ cuDNN round float32 convolutions to TF32 by default, which moves the
 argmax of near-tie pixels against the CPU and between batch sizes.
 ``quantize`` runs the forward's convs in int8 (``train/quantize.py``),
 with activation scales calibrated on the first ``calib_batches``
-validation batches; ``tta`` wraps it in the flip TTA. Weights are a
-``<name>.ckpt`` directory written by the port's trainer. The JAX
-Evaluator's donor ``.pt``/``.pth`` import is not in the port yet and
-raises (ROADMAP.md queue 1, item 7), as does a JAX orbax checkpoint
+validation batches; ``tta`` wraps it in the flip TTA. Weights are read by
+the rule of ``train/torch_import.py:load_model_weights``: a ``<name>.ckpt``
+directory written by the port's trainer, the port's own ``.pt``/``.pth``
+``state_dict`` file, or a donor ``.pt``/``.pth`` checkpoint (imported as
+the JAX Evaluator imports it; unmatched leaves keep the initialization
+drawn from seed 0). A JAX orbax checkpoint is refused
 (``train/checkpoint.py:load_state``).
 """
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ..hierarchy.tree import ClassTree
 from ..metrics.segmentation import MetricAccumulator, level_confusion_matrices
 from ..models.hierarchical import SegmenterOutput, build_model
 from ..utils.device import resolve_device
-from .checkpoint import load_state
+from .torch_import import load_model_weights
 from .loop import list_pairs
 from .steps import _compute_dtype, make_eval_step
 
@@ -119,22 +121,12 @@ def _float32_convs(enabled: bool):
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
-def _refuse(weights_path: str) -> None:
-    if weights_path.rstrip("/").endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{weights_path}: the JAX Evaluator reads .pt/.pth files as donor "
-            "weights (train/torch_import.py), which are not in the PyTorch "
-            "port yet (ROADMAP.md queue 1, item 7); pass a <name>.ckpt "
-            "directory written by the port's trainer")
-
-
 class Evaluator:
     """One fold's offline eval: forward -> (reconstruct) -> metrics -> dumps."""
 
     def __init__(self, cfg: RunConfig, tree: ClassTree, data_root: str,
                  weights_path: str, save_dir: Optional[str] = None,
                  save_images: bool = True, device=None):
-        _refuse(weights_path)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tree = tree
@@ -156,11 +148,14 @@ class Evaluator:
             from ..config.hrnet import resolve_hrnet_config
 
             hrnet_cfg = resolve_hrnet_config(cfg.hrnet_yaml)
-        model = build_model(tree, cfg.model_select, cfg.model_type, hrnet_cfg,
-                            concat_prev_probs=cfg.concat_prev_probs)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)  # the init a donor leaves unmatched
+            model = build_model(tree, cfg.model_select, cfg.model_type,
+                                hrnet_cfg,
+                                concat_prev_probs=cfg.concat_prev_probs)
         n_params = sum(p.numel() for p in model.parameters())
         print("Number of model parameters: ", n_params)  # predictEval.py:259
-        model.load_state_dict(load_state(weights_path)["model"], strict=True)
+        load_model_weights(model, weights_path, cfg.model_select)
         self.model = model.eval().to(self.device,
                                      memory_format=torch.channels_last)
         self.num_classes_per_level = list(tree.classes_per_level)

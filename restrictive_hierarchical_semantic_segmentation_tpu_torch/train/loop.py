@@ -10,6 +10,13 @@ One device, no mesh: the model lives on ``device`` (``cuda`` unless the
 caller asks for the CPU) in ``torch.channels_last``, where every BatchNorm
 runs the port's kernels. Options of the JAX trainer that are not ported
 yet raise (:func:`check_supported`).
+
+``model_weights``: a ``<name>.ckpt`` directory of the port's trainer
+resumes (model, optimizer, epoch, scheduler); a ``.pt``/``.pth`` file
+replaces the initial parameters and statistics and resumes nothing, read
+by the rule of ``train/torch_import.py:load_model_weights`` (the port's
+own ``state_dict`` file strictly, any other one as a donor checkpoint, as
+the JAX trainer reads every ``.pt``/``.pth``).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from .checkpoint import CheckpointManager, load_checkpoint
 from .plateau import ReduceLROnPlateau
 from .state import create_train_state, set_learning_rate
 from .steps import make_eval_step, make_train_step
+from .torch_import import load_model_weights
 
 __all__ = ["Trainer", "train", "list_pairs", "make_loaders",
            "run_validation", "append_csv", "truncate_csv",
@@ -196,12 +204,6 @@ class Trainer:
     def __init__(self, cfg: RunConfig, tree: ClassTree,
                  train_root: str, val_root: Optional[str], save_loc: str,
                  device=None):
-        if cfg.model_weights and cfg.model_weights.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"{cfg.model_weights}: donor .pt/.pth weights are not "
-                "ported yet (ROADMAP.md queue 1, item 7: "
-                "train/torch_import.py); pass a <name>.ckpt directory "
-                "written by the port's trainer to resume")
         self.cfg = cfg
         self.tree = tree
         self.save_loc = save_loc
@@ -229,7 +231,13 @@ class Trainer:
                               memory_format=torch.channels_last).train()
         self.state = create_train_state(self.model, cfg.lr, cfg.weight_decay)
         self._resume_meta = None
-        if cfg.model_weights:  # one of the port's own .ckpt directories
+        if cfg.model_weights and cfg.model_weights.endswith((".pt", ".pth")):
+            # weights only, no resume: the port's own state_dict file, or a
+            # donor checkpoint (train/torch_import.py), whose unmatched
+            # leaves keep the initialization drawn from cfg.seed
+            load_model_weights(self.model, cfg.model_weights,
+                               cfg.model_select)
+        elif cfg.model_weights:  # one of the port's own .ckpt directories
             self.state, self._resume_meta = load_checkpoint(
                 cfg.model_weights, self.state)
             print(f"Resumed from {cfg.model_weights}: {self._resume_meta}")

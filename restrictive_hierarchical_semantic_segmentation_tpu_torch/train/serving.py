@@ -19,12 +19,17 @@ logits); its class maps are the argmax of the mean probabilities and its
 ``logits`` are None. The JAX Predictor's ``mesh``, which shards the folds
 over chips, is not ported (ROADMAP.md queue 1, item 8).
 
-Weights are the port's own ``state_dict``: a ``.pt`` file written with
-``torch.save``, a ``<name>.ckpt`` directory written by the port's trainer
-(its ``state.pt``; the counterpart of the JAX Predictor reading its orbax
-checkpoints), or a dict in memory (``bridge.state_dict_from_flax`` makes
-one from JAX variables). Loading JAX orbax checkpoints or donor ``.pth``
-files is a later slice.
+Weights are a ``state_dict`` in memory (``bridge.state_dict_from_flax``
+makes one from JAX variables) or a path read by the ``--model-weights``
+rule of ``train/torch_import.py:load_model_weights``: a ``.pt``/``.pth``
+file whose keys are the model's ``state_dict`` keys is the port's own file
+(written with ``torch.save``) and loads strictly; any other ``.pt``/``.pth``
+file is a donor checkpoint (the published HRNet or milesial-UNet names),
+imported as the JAX Predictor imports it, every leaf it does not match
+keeping the model's initialization (drawn from seed 0); anything else is a
+``<name>.ckpt`` directory written by the port's trainer (its ``state.pt``;
+the counterpart of the JAX Predictor reading its orbax checkpoints). A JAX
+orbax checkpoint is refused (``train/checkpoint.py:load_state``).
 """
 from __future__ import annotations
 
@@ -39,28 +44,11 @@ from ..config.run import RunConfig
 from ..hierarchy.tree import ClassTree
 from ..models.hierarchical import build_model
 from ..utils.device import resolve_device
+from .torch_import import load_model_weights
 
 __all__ = ["Predictor"]
 
 _OUTPUTS = ("logits", "probs", "class_maps")
-
-
-def _state_dict(weights) -> Mapping[str, torch.Tensor]:
-    if isinstance(weights, Mapping):
-        return weights
-    path = str(weights).rstrip("/")
-    if os.path.isdir(path) and path.endswith(".ckpt"):
-        # a checkpoint of the port's trainer (train/checkpoint.py)
-        from .checkpoint import load_state
-
-        return load_state(path)["model"]
-    if not path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: the port loads its own .pt state_dict or a <name>.ckpt "
-            "directory written by its trainer; JAX orbax checkpoints and "
-            "donor .pth loading are later slices (convert JAX variables "
-            "with bridge.state_dict_from_flax and torch.save them)")
-    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 class Predictor:
@@ -139,10 +127,15 @@ class Predictor:
             hrnet_cfg = resolve_hrnet_config(cfg.hrnet_yaml)
         self.models = []
         for w in folds:
-            model = build_model(self.tree, cfg.model_select, cfg.model_type,
-                                hrnet_cfg,
-                                concat_prev_probs=cfg.concat_prev_probs)
-            model.load_state_dict(_state_dict(w), strict=True)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)  # the init a donor leaves unmatched
+                model = build_model(self.tree, cfg.model_select,
+                                    cfg.model_type, hrnet_cfg,
+                                    concat_prev_probs=cfg.concat_prev_probs)
+            if isinstance(w, Mapping):
+                model.load_state_dict(w, strict=True)
+            else:
+                load_model_weights(model, w, cfg.model_select)
             self.models.append(model.eval().to(
                 self.device, memory_format=torch.channels_last))
         self.model = self.models[0]
@@ -191,18 +184,23 @@ class Predictor:
     def forward(self, x: torch.Tensor) -> Dict:
         """Device tensors in, device tensors out (see :meth:`__call__`)."""
         with torch.inference_mode():
-            x = self._prep(x)
-            if self.ensemble:
-                full = self._fold_mean(x)
-            else:
-                out = self._autocast(self._applies[0], x)
-                full = {
-                    "logits": list(out.logits_per_level),
-                    "probs": (list(out.probs_per_level)
-                              if out.probs_per_level is not None else None),
-                    "class_maps": [z.argmax(-1).to(self.class_map_dtype)
-                                   for z in out.logits_per_level],
-                }
+            return self.outputs_of(x)
+
+    def outputs_of(self, x: torch.Tensor) -> Dict:
+        """The requested outputs of ``x`` with autograd as the caller has
+        it: the body of :meth:`forward`, which ``train/export.py`` traces."""
+        x = self._prep(x)
+        if self.ensemble:
+            full = self._fold_mean(x)
+        else:
+            out = self._autocast(self._applies[0], x)
+            full = {
+                "logits": list(out.logits_per_level),
+                "probs": (list(out.probs_per_level)
+                          if out.probs_per_level is not None else None),
+                "class_maps": [z.argmax(-1).to(self.class_map_dtype)
+                               for z in out.logits_per_level],
+            }
         return {k: full[k] for k in self.outputs}
 
     def _fold_mean(self, x: torch.Tensor) -> Dict:

@@ -4,8 +4,9 @@ the BatchNorm module on the card against itself on the CPU, the fused
 prefetch and checkpoint snapshots, the offline Evaluator (card against
 CPU, kernel launches per forward), the int8 conv's card path (cuBLASLt's
 int8 GEMM through ``torch._int_mm``) against its plain version at the
-shapes its rules make it pad, fold ensembles and the quantized Predictor.
-Marked
+shapes its rules make it pad, fold ensembles and the quantized Predictor,
+and a ``torch.export`` artifact launching kernel 2 (the operator's fake
+implementation against the kernel's output). Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -812,3 +813,62 @@ def test_quantized_predictor_on_card_against_cpu(cuda, monkeypatch):
     for L, z in enumerate(out.logits_per_level):
         agree = (card["class_maps"][L] == z.argmax(-1).numpy()).mean()
         assert agree >= 0.995, (L, agree)
+
+
+@pytest.mark.parametrize("tta", [False, True])
+def test_exported_program_launches_kernel_2(cuda, tmp_path, monkeypatch, tta):
+    """A symbolic-batch artifact exported and loaded on the card: 18
+    scale_bias_act launches per forward at batch 1 and 3 (TTA's two views
+    are one forward), no plain call, outputs bit-equal to the eager
+    Predictor's (the same kernels in the same order); loaded on the CPU
+    (``platforms`` cuda, cpu) its f32 probabilities are within 1e-4."""
+    import numpy as np
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        export,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    serving, cfg, sds = _tiny_unets(monkeypatch, 1)
+    pred = serving.Predictor(cfg, sds[0], tta=tta, device="cuda")
+    path = str(tmp_path / "u.pt2")
+    export.export_predictor(pred, path, platforms=("cuda", "cpu"))
+    loaded = export.load_exported(path)
+    plain = []
+    monkeypatch.setattr(fba, "_scale_bias_act_ref",
+                        lambda *a: plain.append(1))
+    x = np.random.default_rng(2).uniform(
+        -1, 1, (3, EVAL_IMG, EVAL_IMG, 3)).astype(np.float32)
+    for b in (1, 3):
+        before = fba.LAUNCHES
+        got = loaded(x[:b])
+        torch.cuda.synchronize()
+        assert fba.LAUNCHES - before == 18 and not plain
+        want = pred(x[:b])
+        for k in want:
+            for g, w in zip(got[k], want[k]):
+                np.testing.assert_array_equal(g, w)
+    monkeypatch.undo()
+    cpu = export.load_exported(path, device="cpu")(x)
+    for g, w in zip(cpu["probs"], loaded(x)["probs"]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 39, 39, 192), torch.bfloat16),
+                                         ((77, 48), torch.float32)])
+def test_scale_bias_act_fake_matches_kernel(cuda, shape, dtype):
+    """The operator's fake implementation (what torch.export traces with)
+    gives the kernel's output shape, dtype, strides and device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    c = shape[-1]
+    x = torch.randn(shape, device=cuda).to(dtype)
+    a, b = torch.rand(c, device=cuda), torch.rand(c, device=cuda)
+    y = torch.ops.rhss.scale_bias_act(x, a, b, "relu")
+    with FakeTensorMode() as mode:
+        fx, fa, fb = (mode.from_tensor(t) for t in (x, a, b))
+        fy = torch.ops.rhss.scale_bias_act(fx, fa, fb, "relu")
+    assert (fy.shape, fy.dtype, fy.stride(), fy.device) == \
+        (y.shape, y.dtype, y.stride(), y.device)
+    assert torch.equal(y, fba._scale_bias_act_ref(x, a, b, "relu"))
+

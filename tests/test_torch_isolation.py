@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing it (and its serve, train and
-predict_eval CLIs) pulls in neither jax nor any module of the JAX package,
+"""The PyTorch port stands alone: importing it (and its serve, train,
+predict_eval and export CLIs, its exporter and its donor importer) pulls
+in neither jax nor any module of the JAX package,
 and the train and offline-eval paths load no cv2, sklearn, orbax or
 tensorflow (the card's machine has none of them); no source file of the
 port imports them at module level, and ``chip_smoke.py`` refuses to run
@@ -58,6 +59,17 @@ def test_port_and_serve_cli_import_no_jax():
     assert f"{PORT}.models.backbones.unet" in mods
     assert f"{PORT}.tools.conv_bn_experiment" in mods
     assert [m for m in mods if _forbidden(m)] == []
+
+
+def test_deployment_modules_import_no_jax():
+    """The export module and CLI and the donor importer (which reads
+    ``.pth`` files with torch alone, where the JAX one converts to flax)."""
+    mods = _modules_after(f"import {PORT}.train.export\n"
+                          f"import {PORT}.train.torch_import\n"
+                          f"import {PORT}.cli.export")
+    for name in ("train.export", "train.torch_import", "cli.export"):
+        assert f"{PORT}.{name}" in mods
+    assert [m for m in mods if _forbidden_on_train_path(m)] == []
 
 
 def test_train_path_data_imports_no_cv2():

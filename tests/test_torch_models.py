@@ -112,9 +112,21 @@ def test_hrnet_backbone_matches_jax(pallas):
 
 
 def test_hrnet_head_modes():
+    """The sum head computes the concat head's function on the same weights
+    (f32, atol 1e-5: the terms are summed in another order); an unknown
+    mode raises (tests/test_torch_hrnet_sum_head.py holds both against the
+    JAX module)."""
     _, pcfg = tiny_configs()
-    with pytest.raises(NotImplementedError):
-        HRNetBackbone(pcfg, head_mode="sum")
+    torch.manual_seed(0)
+    concat = HRNetBackbone(pcfg, head_mode="concat").eval()
+    head_sum = HRNetBackbone(pcfg, head_mode="sum").eval()
+    head_sum.load_state_dict(concat.state_dict(), strict=True)
+    x = nhwc_to_torch(np.random.default_rng(3).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        np.testing.assert_allclose(torch_to_nhwc(head_sum(x)),
+                                   torch_to_nhwc(concat(x)), rtol=0,
+                                   atol=1e-5)
     with pytest.raises(ValueError):
         HRNetBackbone(pcfg, head_mode="concatenate")
     # model_select 0, the default, is the UNet donor: 9 DoubleConvs of two

@@ -2,8 +2,8 @@
 contracts of its ``Evaluator`` on the CPU: flag parity with the JAX CLI,
 the cross-validation fold expansion, the output under
 ``./Predictions/<save-loc>``, the printed parameter count against the JAX
-model's, the refusals (donor ``.pt``/``.pth`` weights, also under
-``--quantize True``, and a JAX orbax checkpoint), ``--quantize True``
+model's, donor ``.pt``/``.pth`` weights read (also under ``--quantize
+True``) and a JAX orbax checkpoint refused, ``--quantize True``
 (with and without ``--tta``) against the JAX CLI's quantized run on the
 same weights within the JAX test's 0.05 Dice
 (``tests/test_quantize.py:222``), ``--val-batch 3`` (a padded ragged tail) against
@@ -49,10 +49,12 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import (
     create_train_state,
 )
+from torch_donor_common import donor_state_dict
 from torch_eval_common import (
     IMG,
     csv_numbers,
     read_csv,
+    seeded_variables,
     small_models,
     write_weights,
 )
@@ -158,24 +160,21 @@ def test_cli_at_full_width_prints_the_jax_parameter_count(
     assert set(res[0]["seconds"]) == {"total", "loader_wait"}
 
 
-def _refusal_argv(weights_path):
-    return ["--save-loc", "x", "--full-ds", "unused", "--model-weights",
+def _refusal_argv(weights_path, root="unused"):
+    return ["--save-loc", "x", "--full-ds", root, "--model-weights",
             weights_path, "--inc-cross-val", "False", "--device", "cpu",
             "--model-type", "1"] + TREE_ARGS
 
 
 @pytest.mark.parametrize("case", ["quantize", ".pt", ".pth", "orbax"])
-def test_cli_refusals(case, weights, tmp_path, monkeypatch):
+def test_cli_refusals(case, data_root, weights, tmp_path, monkeypatch,
+                      capsys):
+    """A JAX orbax checkpoint is refused; donor ``.pt``/``.pth`` weights
+    (the reference's names) load, as in the JAX CLI, also under
+    ``--quantize True``."""
     monkeypatch.chdir(tmp_path)
     jax_ckpt, port_ckpt = weights[1]
-    if case == "quantize":
-        # int8 quantization runs (test_cli_quantize_against_jax); it lifts
-        # no refusal of the weights it is given
-        donor = tmp_path / "donor.pt"
-        torch.save({}, donor)
-        argv, match = (_refusal_argv(str(donor)) + ["--quantize", "True"],
-                       r"donor weights.*item 7")
-    elif case == "orbax":
+    if case == "orbax":
         # the JAX trainer's fold_N/best.ckpt name, through the fold expansion
         os.makedirs(tmp_path / "run" / "fold_1")
         os.symlink(jax_ckpt, tmp_path / "run" / "fold_1" / "best.ckpt")
@@ -185,12 +184,21 @@ def test_cli_refusals(case, weights, tmp_path, monkeypatch):
                 "--model-weights", str(tmp_path / "run"), "--folds", "1",
                 "--device", "cpu", "--model-type", "1"] + TREE_ARGS
         match = r"holds no state\.pt.*JAX package's orbax checkpoint"
-    else:
-        donor = tmp_path / f"donor{case}"
-        torch.save({}, donor)
-        argv, match = _refusal_argv(str(donor)), r"donor weights.*item 7"
-    with pytest.raises(NotImplementedError, match=match):
-        pcli.main(argv)
+        with pytest.raises(NotImplementedError, match=match):
+            pcli.main(argv)
+        return
+    small_models(monkeypatch, jax_side=False)
+    params, stats = seeded_variables(trees("default")[0], 1, seed=6)
+    donor = tmp_path / f"donor{'.pt' if case == 'quantize' else case}"
+    torch.save(donor_state_dict(params, stats, 0), donor)
+    argv = _refusal_argv(str(donor), data_root) + ["--img-size", str(IMG)]
+    if case == "quantize":
+        argv += ["--quantize", "True"]
+    pcli.main(argv)
+    n = len(pckpt.load_state(port_ckpt)["model"])
+    assert f"Loaded {n} / {n} layers." in capsys.readouterr().out
+    assert (tmp_path / "Predictions" / "x" / "fold_1" / "metrics.csv") \
+        .is_file()
 
 
 @pytest.mark.parametrize("tta", ["False", "True"])

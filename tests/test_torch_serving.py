@@ -24,6 +24,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu.models.hierarchical impo
     build_model as jax_build_model,
 )
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.bridge import (
+    flax_from_state_dict,
     state_dict_from_flax,
 )
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
@@ -43,6 +44,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.serving impo
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.utils.device import (
     resolve_device,
 )
+from torch_donor_common import donor_state_dict
 from torch_port_common import ASSETS, ATOL, RTOL, jax_variables, tiny_configs, trees
 
 SIZE = 32
@@ -134,7 +136,15 @@ def test_predictor_outputs_dtypes_and_weights_file(setup):
         np.testing.assert_array_equal(g, r)
     with pytest.raises(ValueError, match="unknown Predictor outputs"):
         Predictor(cfg, sd, tree=tree, outputs=("features",), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # a donor .pth under the reference's names loads as the same weights
+    donor = setup["tmp"] / "donor.pth"
+    params, stats = flax_from_state_dict(sd)
+    torch.save(donor_state_dict(params, stats, 1), str(donor))
+    got = Predictor(cfg, str(donor), tree=tree, outputs=("class_maps",),
+                    class_map_dtype="uint8", device="cpu")(x)
+    for g, r in zip(got["class_maps"], ref):
+        np.testing.assert_array_equal(g, r)
+    with pytest.raises(FileNotFoundError):
         Predictor(cfg, str(setup["tmp"] / "best.ckpt"), tree=tree,
                   device="cpu")
 

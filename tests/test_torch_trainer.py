@@ -9,7 +9,8 @@ Held: two folds train and dump prediction images (``tests/test_e2e.py``);
 (``tests/test_resume.py``); the same seed writes a byte-identical
 metrics.csv; the ``Predictor`` and the serve CLI read the trainer's
 ``best.ckpt``; the CLI has every flag of the JAX CLI with its default and
-choices, and refuses the options the port has not ported yet.
+choices, and refuses the options the port has not ported yet (donor
+``.pth`` weights are read: ``tests/test_torch_donor_import.py``).
 """
 import argparse
 import csv
@@ -232,7 +233,6 @@ def test_cli_has_every_jax_flag_with_its_default():
     (["--remat", "conv"], "item 8"),
     (["--remat", "True"], "item 8"),
     (["--profile-dir", "/nonexistent/prof"], "item 8"),
-    (["--model-weights", "donor.pth"], "item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, assets_dir, flags, item):
     with pytest.raises(NotImplementedError, match=item):
