@@ -104,6 +104,24 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     directly and through its ``torch.library`` operator, in turns; export
     and load seconds, artifact MB and forward ms loaded against eager
     (host clock).
+18. data side (``build/chip_smoke/data_side/``, after phase 13, whose data
+    and fold it reuses), under the TF32 flags of the script's start:
+    ``data/device_augment.py:augment_sample`` at 352 px on the card
+    against the CPU at one fixed draw (image within 1e-5 on 99.5 % of
+    pixels, targets on 99.5 %), a ``DeviceDataset`` epoch drawn twice and
+    timed; phase 13's recipe through the train CLI with ``--device-data
+    True`` (2 epochs timed, epoch 2's images/s beside phase 13's host
+    chain; then with deterministic algorithms 2 epochs, a resume to 3 and
+    an unbroken 3, whose metrics.csv rows must be equal; the launches of
+    kernels 1-3 counted as in phase 13); the host chain with the native
+    C++ targets against numpy (images equal, targets on 99.99 %: affine
+    ties; ms per batch); the agreement CLI (0.75 on
+    ``tests/test_e2e.py``'s masks, scipy's t quantile on this machine); the
+    serve CLI's f32 Predictor at batch 4 against batch 1 and against the
+    CPU (class-map pixels that differ); the depth-4 recall recipe of
+    ``tests/test_extended_eval_recall.py`` trained and scored on the card
+    (its floors held, with deterministic algorithms); phase 13's fold once
+    in f32, its validation loss beside the bf16 run's.
 
 The serving profiles (phases 4 and 9) go through ``profile_call``, whose
 marker kernels keep a trace from losing the call's first device events.
@@ -113,6 +131,7 @@ the ``{"ok": true, "device": ...}`` JSON line. Imports no jax.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -120,6 +139,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -1315,6 +1335,16 @@ def _plain_counters():
     return counts, undo
 
 
+def train_cli_argv(data: str, out: str, dtype: str = "bfloat16") -> list:
+    """Phase 13's train-CLI flags over ``data``, writing to ``out``."""
+    return ["--save-path", out, "--data-root", data, "--model-type", "1",
+            "--folds", "1", "--compute-dtype", dtype,
+            "--learning-rate", "[0.018]",
+            "--level-weights", json.dumps(LEVEL_WEIGHTS),
+            "--tree-root", "assets/class_tree_tl.json",
+            "--class-map", "assets/class_map.csv"]
+
+
 def _read_csv(path):
     import csv
 
@@ -1354,39 +1384,19 @@ def phase_train_cli(n_bn: int, bare_step_ms: float, card: str) -> dict:
     t0 = time.perf_counter()
     write_synth_dataset(data, CLI_TRAIN_IMAGES, size=352, seed=SEED, folds=1)
     data_s = time.perf_counter() - t0
-    tree_files = ["--tree-root", "assets/class_tree_tl.json",
-                  "--class-map", "assets/class_map.csv"]
-    argv = (["--save-path", out, "--data-root", data, "--model-type", "1",
-             "--folds", "1", "--compute-dtype", "bfloat16",
-             "--learning-rate", "[0.018]",
-             "--level-weights", json.dumps(LEVEL_WEIGHTS)] + tree_files)
+    argv = train_cli_argv(data, out)
     args = cli.get_args(argv + ["--epochs", "2"])
     assert (args.model_select, args.img_size, args.batch_size, args.val_batch,
             args.device) == (0, 352, 16, 1, "cuda"), args
     fold = f"{out}/fold_1"
     steps = CLI_TRAIN_IMAGES // TRAIN_BATCH
     val = max(2, CLI_TRAIN_IMAGES // 4)
-    plain, undo = _plain_counters()
-    runs = []
-    try:
-        for epochs, extra in ((2, []), (3, ["--model-weights",
-                                            f"{fold}/last.ckpt"])):
-            set_counts_to_zero()  # the main path: counts 0 just before ...
-            t0 = time.perf_counter()
-            cli.main(argv + ["--epochs", str(epochs)] + extra)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()  # ... and read just after
-            runs.append({"epochs": epochs, "wall_s": wall, "counts": counts,
-                         "rows": _read_csv(f"{fold}/metrics.csv")})
-    finally:
-        undo()
-    assert all(v == 0 for v in plain.values()), plain
-    for run, n_ep in zip(runs, (2, 1)):
-        c = run["counts"]
-        assert c["bn_stats"] == c["bn_backward"] == n_bn * steps * n_ep, c
-        assert c["scale_bias_act"] == n_bn * (steps + val) * n_ep, c
-    first, resumed = runs[0]["rows"], runs[1]["rows"]
+    runs = _train_cli_runs(argv, [(2, [], 2)], n_bn, steps, val)
+    first = _read_csv(f"{fold}/metrics.csv")
+    runs += _train_cli_runs(
+        argv, [(3, ["--model-weights", f"{fold}/last.ckpt"], 1)], n_bn,
+        steps, val)
+    resumed = _read_csv(f"{fold}/metrics.csv")
     assert first[0] == CSV_HEADER and resumed[0] == CSV_HEADER
     assert [r[0] for r in resumed[1:]] == ["1", "2", "3"], resumed
     assert resumed[:3] == first, "the resume changed rows 1-2"
@@ -1442,8 +1452,8 @@ def phase_train_cli(n_bn: int, bare_step_ms: float, card: str) -> dict:
         f"to 3 in {runs[1]['wall_s']:.2f} s of wall time (model build, "
         f"validation and checkpoints included); metrics.csv rows "
         f"{[[round(v, 5) for v in l] for l in losses]} (train, val loss); "
-        f"launches {runs[0]['counts']} then {runs[1]['counts']}; plain "
-        f"calls {plain}")
+        f"launches {runs[0]['counts']} then {runs[1]['counts']}; no plain "
+        f"call")
     log(f"train CLI epoch 2 on {card}: {e2_s:.3f} s for {steps} steps, "
         f"{e2_ips:.2f} images/s (the trainer's host clock, the epoch's "
         "loader and one fetch of its results included)")
@@ -1452,9 +1462,7 @@ def phase_train_cli(n_bn: int, bare_step_ms: float, card: str) -> dict:
         f"{lcfg.num_workers} threads; epoch 1, which decodes the files, "
         f"{loader_ms[1]:.3f} ms), {ratio:.3f} x phase 11's bare step "
         f"({bare_step_ms:.3f} ms)")
-    return {"runs": [{k: v for k, v in r.items() if k != "rows"}
-                     for r in runs],
-            "launches": total, "epoch2_s": e2_s, "epoch2_images_per_s": e2_ips,
+    return {"runs": runs, "launches": total, "epoch2_s": e2_s, "epoch2_images_per_s": e2_ips,
             "epoch_s": epoch_s, "loader_ms_per_batch": loader_ms,
             "loader_to_step": ratio, "losses": losses, "data_s": data_s,
             "predictor_launches": pred_launches}
@@ -1562,7 +1570,7 @@ EVAL_CPU_IMAGES = 4
 # shifts some values by about 1e-7 to 1e-6. With cuDNN's TF32 (PyTorch's
 # default for float32 convolutions) a later run put the card 1.29e-4 (186
 # pixels) from the CPU, so the Evaluator computes its f32 convolutions in
-# f32 (train/evaluate.py:_float32_convs); without TF32 both runs read 0.
+# f32 (utils/device.py:float32_convs); without TF32 both runs read 0.
 EVAL_BATCH_ATOL = 1e-4
 EVAL_BATCH_PIXELS = 160
 EVAL_CPU_ATOL = 1e-5
@@ -2704,6 +2712,457 @@ def phase_deployment(card: str, device: str = "cuda") -> dict:
     return out
 
 
+DATA_ROOT = "build/chip_smoke/data_side"
+# augment_sample, card against CPU at fixed parameters: the bounds of
+# tests/test_torch_device_augment.py (the port against JAX)
+AUG_IMAGE_ATOL = 1e-5
+AUG_SHARE = 0.995
+AUG_IMAGES = 16
+# tests/test_extended_eval_recall.py's floors
+RECALL_L0_FLOOR = 0.5
+RECALL_MEAN_FLOOR = 0.2
+TF32_IMAGES = 4
+# native against numpy targets: the library's affine gather rounds its
+# float64 source coordinates half away from zero, the numpy path rounds
+# cv2's float32 ones half to even, so a pixel at a tie may take another
+# source (a CPU probe at 352 px: 2 of 5,947,392 target pixels)
+NATIVE_AGREE = 0.9999
+# class-map pixels of the f32 Predictor that may move between batch 4 and
+# 1, or from the card to the CPU (near ties); under TF32 they were 233 and
+# 464 of 991,232 before the Predictor computed its convolutions in f32
+TF32_PIXELS = 10
+
+
+def _small_unet_patched():
+    """Patch the recall recipe's model (a hierarchical UNet of base width
+    8) into the trainer and the Evaluator; returns the undo."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import hierarchical as H
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .backbones.unet import UNetBackbone
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        import evaluate, loop
+
+    def small(tree, model_select, model_type, *args, **kwargs):
+        return H.HierarchicalSegmenter(tree=tree,
+                                       backbone=UNetBackbone(base_ch=8),
+                                       hierarchical=model_type == 1)
+
+    saved = {m: m.build_model for m in (loop, evaluate)}
+    for m in saved:
+        m.build_model = small
+
+    def undo():
+        for m, f in saved.items():
+            m.build_model = f
+    return undo
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic cuDNN and PyTorch algorithms for the duration (a
+    warning, silenced here, where an operation has none), the settings
+    restored after. Without them the card's atomics (the resize backward's
+    ``index_add_``, cuDNN) make two runs of one recipe differ from the
+    first step on."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message=".*deterministic implementation.*")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def recall_recipe(root: str, device: str) -> list:
+    """``tests/test_extended_eval_recall.py``'s recipe through the port:
+    the depth-4 tree, a base-width-8 UNet, 48 px, 10 epochs on 8 synthetic
+    images, then ``predict_eval``; the per-class metrics of the fold."""
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .synthetic import write_synth_dataset
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .evaluate import predict_eval
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .loop import train
+
+    shutil.rmtree(root, ignore_errors=True)
+    write_synth_dataset(f"{root}/data", 8, size=96, seed=3, folds=1)
+    cfg = RunConfig(
+        save_path=f"{root}/run", data_root=f"{root}/data",
+        tree_root="assets/class_tree_tl_extended.json",
+        class_map="assets/class_map_extended.csv",
+        model_select=0, model_type=1, img_size=48, epochs=10, batch_size=2,
+        val_batch=2, lr=3e-3, num_workers=2, inc_cross_val=True, folds=1,
+        level0_pretrain_epochs=None)
+    undo = _small_unet_patched()
+    try:
+        train(cfg, device=device)
+        res = predict_eval(cfg, [f"{root}/run/fold_1/best.ckpt"],
+                           [f"{root}/data/fold_1/val"], f"{root}/pred",
+                           device=device)
+    finally:
+        undo()
+    return res[0]["per_class"]
+
+
+def _train_cli_runs(argv_base, plan, n_bn, steps, val) -> list:
+    """Run the train CLI once per ``(epochs, extra flags)`` of ``plan``,
+    each with the launches of kernels 1-3 counted (counts set to 0 just
+    before ``main``, read just after) and checked per step and per
+    validation forward; no plain version may run."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        train as cli,
+    )
+
+    plain, undo = _plain_counters()
+    runs = []
+    try:
+        for epochs, extra, n_ep in plan:
+            set_counts_to_zero()
+            t0 = time.perf_counter()
+            cli.main(argv_base + ["--epochs", str(epochs)] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = read_counts()
+            assert c["bn_stats"] == c["bn_backward"] == n_bn * steps * n_ep, c
+            assert c["scale_bias_act"] == n_bn * (steps + val) * n_ep, c
+            runs.append({"epochs": epochs, "wall_s": wall, "counts": c})
+    finally:
+        undo()
+    assert all(v == 0 for v in plain.values()), plain
+    return runs
+
+
+def _epoch_seconds(fold: str) -> dict:
+    with open(f"{fold}/logs/metrics.jsonl") as f:
+        return {r["step"]: r["train/sec_per_epoch"]
+                for r in map(json.loads, f) if "train/sec_per_epoch" in r}
+
+
+def _tf32_check(card: str, tf32_defaults, weights, tree, label: str,
+                device: str = "cuda") -> dict:
+    """The serve CLI's f32 Predictor (class maps only, u8, as
+    ``cli/serve.py:build_server`` builds it) under the TF32 flags of the
+    script's start: batch 4 against four batches of 1 on the card, and the
+    card against the CPU, on the same 4 uint8 images; at most
+    ``TF32_PIXELS`` class-map pixels may move, and the flags must be as
+    they were."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .serving import Predictor
+
+    size = MODELS[0]["img"]
+    cfg = RunConfig(model_select=0, model_type=1, img_size=size,
+                    compute_dtype="float32")
+    kw = dict(tree=tree, outputs=("class_maps",), class_map_dtype="uint8")
+    imgs = gray_images(TF32_IMAGES, size, SEED + 18)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32_defaults
+    card_pred = Predictor(cfg, weights, device=device, **kw)
+    b4 = card_pred(imgs)["class_maps"]
+    b1 = [card_pred(imgs[i:i + 1])["class_maps"] for i in range(len(imgs))]
+    b1 = [np.concatenate(lv) for lv in zip(*b1)]
+    flags_after = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+    del card_pred
+    cpu = Predictor(cfg, weights, device="cpu", **kw)(imgs)["class_maps"]
+    n_px = sum(lv.size for lv in b4)
+    batch_px = sum(int((a != b).sum()) for a, b in zip(b4, b1))
+    cpu_px = sum(int((a != b).sum()) for a, b in zip(b4, cpu))
+    log(f"TF32 check on {card}, {label}: the serve CLI's f32 Predictor "
+        f"under TF32 flags {tf32_defaults} (cudnn, matmul): batch 4 against "
+        f"batch 1 differ on {batch_px} of {n_px} class-map pixels, the card "
+        f"against the CPU on {cpu_px}; flags after {flags_after}")
+    assert flags_after == tuple(tf32_defaults), flags_after
+    assert batch_px <= TF32_PIXELS and cpu_px <= TF32_PIXELS, (batch_px,
+                                                              cpu_px)
+    return {"batch_pixels": batch_px, "cpu_pixels": cpu_px, "pixels": n_px,
+            "flags": list(tf32_defaults), "flags_after": list(flags_after)}
+
+
+def phase_data_side(n_bn: int, card: str, tf32_defaults, cli13: dict,
+                    device: str = "cuda") -> dict:
+    """Phase 18, the data side on the card, under the TF32 flags of the
+    script's start (restored to this phase's entry values after):
+
+    * ``augment_sample`` at 352 px on 16 of phase 13's training images with
+      one fixed draw of parameters, on the card against the CPU (the image's
+      largest error and share within 1e-5, the targets' agreement, held to
+      the bounds of ``tests/test_torch_device_augment.py``), and a
+      ``DeviceDataset`` epoch timed per batch;
+    * phase 13's recipe through the train CLI with ``--device-data True``:
+      2 epochs, a resume to 3, and an unbroken 3-epoch run, every run's
+      launches of kernels 1-3 counted: 2 epochs timed under PyTorch's
+      defaults, then, with deterministic algorithms (the card's atomics
+      make two runs differ otherwise), 2 epochs and a resume to 3 whose
+      metrics.csv equals an unbroken 3-epoch run's row for row;
+      epoch 2's images/s beside phase 13's host chain;
+    * the host chain with ``use_native=True`` against ``use_native=False``
+      on phase 13's fold: two epochs, images equal, targets on 99.99 %
+      (affine ties, ``NATIVE_AGREE``), ms per batch;
+    * the agreement CLI over ``tests/test_e2e.py``'s synthetic masks: 0.75;
+    * TF32 on the f32 serving path (:func:`_tf32_check`) for phase 13's
+      ``best.ckpt`` and a seeded full-width UNet;
+    * ``tests/test_extended_eval_recall.py``'s recipe on the card (depth-4
+      tree, base-width-8 UNet, 48 px, 10 epochs, then ``predict_eval``)
+      with deterministic algorithms: both level-0 recalls above 0.5, the
+      mean above 0.2;
+    * phase 13's fold trained once in f32 (3 epochs): its validation loss
+      beside the bf16 run's."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        agreement,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .dataset import SegDataset
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .device_augment import (AugmentParams, DeviceDataset, augment_sample,
+                                load_base_arrays, sample_params)
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .loader import BatchLoader
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.png \
+        import encode_png_gray8
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .loop import CSV_HEADER, list_pairs
+
+    t_phase = time.perf_counter()
+    entry_flags = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32_defaults
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    os.makedirs(DATA_ROOT)
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    data = f"{CLI_ROOT}/data"
+    imgs, labs = list_pairs(f"{data}/fold_1/train")
+    size = MODELS[0]["img"]
+    out = {}
+
+    # --- augment_sample: the card against the CPU at fixed parameters ----
+    images, masks = load_base_arrays(imgs[:AUG_IMAGES], labs[:AUG_IMAGES],
+                                     tree, size, True)
+    p = sample_params(torch.Generator().manual_seed(SEED), AUG_IMAGES)
+    x_c, y_c = augment_sample(torch.from_numpy(images),
+                              torch.from_numpy(masks).float(), p, tree, True)
+    x_d, y_d = augment_sample(
+        torch.from_numpy(images).to(device),
+        torch.from_numpy(masks).to(device).float(),
+        AugmentParams(*(t.to(device) for t in p)), tree, True)
+    err = (x_d.cpu() - x_c).abs()
+    aug = {"image_max_abs_err": float(err.max()),
+           "image_share": float((err <= AUG_IMAGE_ATOL).float().mean()),
+           "target_agree": float((y_d.cpu() == y_c).float().mean())}
+    log(f"augment_sample on {card} against the CPU, {AUG_IMAGES} images at "
+        f"{size} px, one fixed draw: image max abs err "
+        f"{aug['image_max_abs_err']:.3e} ({aug['image_share'] * 100:.4f}% "
+        f"within {AUG_IMAGE_ATOL}), targets agree on "
+        f"{aug['target_agree'] * 100:.4f}%")
+    assert aug["image_share"] >= AUG_SHARE, aug
+    assert aug["target_agree"] >= AUG_SHARE, aug
+    dds = DeviceDataset(imgs, labs, tree, size, True, batch_size=TRAIN_BATCH,
+                        seed=SEED, device=device)
+    dds.set_epoch(3)
+    again = [[t.clone() for t in xy] for xy in dds]  # also the warm-up
+    for (x, y), (xa, ya) in zip(dds, again):  # the epoch drawn again
+        assert torch.equal(x, xa) and torch.equal(y, ya), "epoch 3 moved"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_b = sum(1 for _ in dds)
+    torch.cuda.synchronize()
+    aug["batch_ms"] = (time.perf_counter() - t0) * 1e3 / n_b
+    aug["device_bytes"] = dds.nbytes
+    dds.close()
+    log(f"DeviceDataset on {card}: {len(imgs)} images at {size} px hold "
+        f"{aug['device_bytes'] / 2 ** 20:.2f} MiB on the card; "
+        f"{aug['batch_ms']:.3f} ms per augmented batch of {TRAIN_BATCH} "
+        f"(host clock to a synchronize; epoch 3 drawn twice: equal; the "
+        f"host chain: {cli13['loader_ms_per_batch'][2]:.3f} ms, phase 13)")
+    out["augment"] = aug
+
+    # --- the train CLI with --device-data True ----------------------------
+    steps = CLI_TRAIN_IMAGES // TRAIN_BATCH
+    val = max(2, CLI_TRAIN_IMAGES // 4)
+    dd = ["--device-data", "True", "--device", device]
+    timed, det, full = (f"{DATA_ROOT}/dd_{k}" for k in ("timed", "det",
+                                                        "full"))
+    # timed under PyTorch's defaults, as users train
+    runs = _train_cli_runs(train_cli_argv(data, timed) + dd, [(2, [], 2)],
+                           n_bn, steps, val)
+    e2_s = _epoch_seconds(f"{timed}/fold_1")[2]
+    e2_ips = steps * TRAIN_BATCH / e2_s
+    # the resume against an unbroken run, both deterministic: under the
+    # defaults two card runs differ from epoch 1 on (0.1-0.3 % of the
+    # train loss), however each was started
+    fold = f"{det}/fold_1"
+    with deterministic_algorithms():
+        runs += _train_cli_runs(train_cli_argv(data, det) + dd,
+                                [(2, [], 2)], n_bn, steps, val)
+        first = _read_csv(f"{fold}/metrics.csv")
+        runs += _train_cli_runs(
+            train_cli_argv(data, det) + dd,
+            [(3, ["--model-weights", f"{fold}/last.ckpt"], 1)], n_bn, steps,
+            val)
+        runs += _train_cli_runs(train_cli_argv(data, full) + dd,
+                                [(3, [], 3)], n_bn, steps, val)
+    resumed = _read_csv(f"{fold}/metrics.csv")
+    unbroken = _read_csv(f"{full}/fold_1/metrics.csv")
+    assert resumed[:3] == first, "the resume changed rows 1-2"
+    assert resumed[0] == CSV_HEADER
+    assert [r[0] for r in resumed[1:]] == ["1", "2", "3"]
+    col = {k: CSV_HEADER.index(k) for k in ("Train Loss", "Val Loss")}
+    loss = {name: [[float(r[col["Train Loss"]]), float(r[col["Val Loss"]])]
+                   for r in rows[1:]]
+            for name, rows in (("resumed", resumed), ("unbroken", unbroken))}
+    assert np.isfinite(loss["resumed"]).all(), loss
+    assert resumed == unbroken, "the resume differs from an unbroken run"
+    launches = {k: sum(r["counts"][k] for r in runs[1:3])
+                for k in TRAIN_COUNTS}
+    log(f"train CLI --device-data True on {card}: 2 epochs in "
+        f"{runs[0]['wall_s']:.2f} s; with deterministic algorithms 2 "
+        f"epochs in {runs[1]['wall_s']:.2f} s, the resume to 3 in "
+        f"{runs[2]['wall_s']:.2f} s and an unbroken 3 in "
+        f"{runs[3]['wall_s']:.2f} s, every metrics.csv row of the two equal; "
+        f"(train, val) loss {loss['resumed']}; launches {runs[1]['counts']} "
+        f"then {runs[2]['counts']}")
+    log(f"train CLI epoch 2 on {card}: --device-data True {e2_s:.3f} s, "
+        f"{e2_ips:.2f} images/s; the host chain (phase 13, this run) "
+        f"{cli13['epoch2_s']:.3f} s, {cli13['epoch2_images_per_s']:.2f} "
+        f"images/s")
+    out["device_data"] = {"runs": runs, "launches": launches,
+                          "epoch2_s": e2_s, "epoch2_images_per_s": e2_ips,
+                          "losses": loss,
+                          "host_epoch2_images_per_s":
+                              cli13["epoch2_images_per_s"]}
+
+    # --- the host chain: native targets against numpy ---------------------
+    loaders = {native: BatchLoader(
+        SegDataset(imgs, labs, tree, size, True, augment=True,
+                   use_native=native),
+        TRAIN_BATCH, shuffle=True, drop_last=True, seed=SEED)
+        for native in (True, False)}
+    batches, ms = {}, {}
+    try:
+        for native, ld in loaders.items():
+            for epoch in (1, 2):  # 1 decodes every file; 2 reads the cache
+                ld.set_epoch(epoch)
+                t0 = time.perf_counter()
+                got = [(x, y) for x, y in ld]
+                ms[(native, epoch)] = (time.perf_counter() - t0) * 1e3 / len(
+                    got)
+                batches[(native, epoch)] = got
+    finally:
+        for ld in loaders.values():
+            ld.close()
+    moved = total = 0
+    for epoch in (1, 2):
+        for (xa, ya), (xb, yb) in zip(batches[(True, epoch)],
+                                      batches[(False, epoch)]):
+            assert np.array_equal(xa, xb), "images differ"
+            moved += int((ya != yb).sum())
+            total += ya.size
+    log(f"host chain on {card} (host clock, 8 threads, batch {TRAIN_BATCH}, "
+        f"{size} px): native targets {ms[(True, 2)]:.3f} ms per batch "
+        f"(epoch 1: {ms[(True, 1)]:.3f}), numpy {ms[(False, 2)]:.3f} ms "
+        f"(epoch 1: {ms[(False, 1)]:.3f}); over 2 epochs the images equal, "
+        f"the targets differ on {moved} of {total} values (affine ties)")
+    assert moved <= (1 - NATIVE_AGREE) * total, (moved, total)
+    out["native_ms_per_batch"] = {f"{'native' if n else 'numpy'}_epoch{e}": v
+                                  for (n, e), v in ms.items()}
+    out["native_target_values_moved"] = [moved, total]
+
+    # --- the agreement CLI --------------------------------------------------
+    a = np.zeros((32, 32), np.uint8)
+    a[8:24, 8:24] = 255
+    b = np.zeros((32, 32), np.uint8)
+    b[8:24, 12:28] = 255
+    pred_dir, gt_dir = f"{DATA_ROOT}/agreement/p", f"{DATA_ROOT}/agreement/g"
+    os.makedirs(pred_dir), os.makedirs(gt_dir)
+    for series in ("Td", "Rd"):
+        for n in ("AP12A", "AP12P", "AP40A", "AP40P", "AP100A", "AP100P",
+                  "AP200A", "AP200P"):
+            with open(f"{pred_dir}/z1{series}-{n}.png", "wb") as f:
+                f.write(encode_png_gray8(a))
+        with open(f"{gt_dir}/z1{series}-OFR200.png", "wb") as f:
+            f.write(encode_png_gray8(b))
+    rep = agreement.main(["--mask-root", pred_dir, "--ofr-gt-masks", gt_dir,
+                          "--list-of-ofr", "['OFR200']", "--ap-only", "True",
+                          "--reproducibility", "True"])
+    agr = float(rep["OFR200"]["agreement"]["AP12"][0])
+    log(f"agreement CLI on the machine of {card}: AP12 agreement {agr}")
+    assert abs(agr - 0.75) < 1e-12, rep
+    out["agreement_ap12"] = agr
+
+    # --- TF32 on the f32 serving path --------------------------------------
+    model = build_model(tree, 0, 1)
+    seeded = random_state_dict(model, SEED, MODELS[0]["conv_gain"])
+    del model
+    out["tf32"] = {
+        "trained_fold": _tf32_check(card, tf32_defaults,
+                                    f"{CLI_ROOT}/run/fold_1/best.ckpt", tree,
+                                    "phase 13's best.ckpt", device),
+        "seeded": _tf32_check(card, tf32_defaults, seeded, tree,
+                              "a seeded full-width UNet", device)}
+    torch.cuda.empty_cache()
+
+    # --- the depth-4 recall recipe on the card ------------------------------
+    # with deterministic algorithms, so the outcome repeats run to run:
+    # without them the card's atomics moved the first level-0 recall
+    # between 0.68 and 0.99 over 7 runs
+    with deterministic_algorithms():
+        per_class = recall_recipe(f"{DATA_ROOT}/recall", device)
+    l0 = [per_class[0]["recall"], per_class[1]["recall"]]
+    mean_recall = float(np.mean([m["recall"] for m in per_class]))
+    log(f"depth-4 recall recipe on {card}: level-0 recalls {l0}, mean "
+        f"recall {mean_recall:.4f} over {len(per_class)} classes (floors "
+        f"{RECALL_L0_FLOOR}, {RECALL_MEAN_FLOOR})")
+    assert len(per_class) == 11
+    assert min(l0) > RECALL_L0_FLOOR and mean_recall > RECALL_MEAN_FLOOR
+    out["recall"] = {"level0": l0, "mean": mean_recall}
+
+    # --- phase 13's fold once in f32 ----------------------------------------
+    f32_dir = f"{DATA_ROOT}/f32_run"
+    f32_runs = _train_cli_runs(train_cli_argv(data, f32_dir, "float32")
+                               + ["--device", device],
+                               [(3, [], 3)], n_bn, steps, val)
+    rows = _read_csv(f"{f32_dir}/fold_1/metrics.csv")
+    vcol = {k: CSV_HEADER.index(k) for k in ("Val Loss", "Val Dice",
+                                             "Train Loss")}
+    f32 = {k: [float(r[c]) for r in rows[1:]] for k, c in vcol.items()}
+    bf16 = {k: [float(r[c]) for r in _read_csv(
+        f"{CLI_ROOT}/run/fold_1/metrics.csv")[1:]] for k, c in vcol.items()}
+    log(f"phase 13's fold in f32 on {card} (3 epochs, TF32 flags "
+        f"{tf32_defaults}): val loss {f32['Val Loss']}, val Dice "
+        f"{f32['Val Dice']}, train loss {f32['Train Loss']}; the bf16 run "
+        f"(phase 13): val loss {bf16['Val Loss']}, val Dice "
+        f"{bf16['Val Dice']}, train loss {bf16['Train Loss']}")
+    out["f32_fold"] = {"f32": f32, "bf16": bf16,
+                       "counts": f32_runs[0]["counts"]}
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = entry_flags
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"data side on {card}: the phase took {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, tot, work,
                  bound_by="bytes", **extra):
     """One row of the kernels line; ``source`` is a file of ``csrc/``,
@@ -2819,6 +3278,10 @@ def main() -> int:
     dep = phase_deployment(card)
     torch.cuda.empty_cache()
 
+    data_side = phase_data_side(uresult["n_bn"], card, tf32_defaults, cli)
+    torch.cuda.empty_cache()
+    dd_launches = data_side["device_data"]["launches"]
+
     step_work = (f"all launches of one bf16 train step (W48, batch "
                  f"{train['batch']}, {IMG} px), inputs read from device "
                  "memory (ms_l2: from L2)")
@@ -2843,6 +3306,7 @@ def main() -> int:
         "eval_launches": ev["launches"],
         "options_launches": opt["launches"],
         "export_launches": dep["launches"],
+        "device_data_launches": dd_launches["scale_bias_act"],
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             epath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
@@ -2868,7 +3332,9 @@ def main() -> int:
                 "options_launches: phase 16's counted runs (fold ensembles, "
                 "TTA, int8 quantization); export_launches: phase 17's "
                 "counted runs of loaded torch.export artifacts (the kernel "
-                "as the operator torch.ops.rhss.scale_bias_act)",
+                "as the operator torch.ops.rhss.scale_bias_act); "
+                "device_data_launches: the train CLI's 2 epochs and resume "
+                "to 3 with --device-data True (phase 18), as cli_launches",
         **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
         **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
@@ -2888,7 +3354,8 @@ def main() -> int:
         profiled_kernels=train["profile"]["kernel_counts"]["bn_stats"],
         unet_profiled_kernels=utrain["profile"]["kernel_counts"]["bn_stats"],
         unet_launches=utrain["counts"]["bn_stats"],
-        cli_launches=cli["launches"]["bn_stats"], **unet("bn_stats")),
+        cli_launches=cli["launches"]["bn_stats"],
+        device_data_launches=dd_launches["bn_stats"], **unet("bn_stats")),
         kernel_entry(
         "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
         train["counts"]["bn_backward"], ttot["bn_backward"],
@@ -2902,7 +3369,9 @@ def main() -> int:
         grad_copies=train["grad_copies"][0],
         unet_launches=utrain["counts"]["bn_backward"],
         unet_grad_copies=utrain["grad_copies"][0],
-        cli_launches=cli["launches"]["bn_backward"], **unet("bn_backward")),
+        cli_launches=cli["launches"]["bn_backward"],
+        device_data_launches=dd_launches["bn_backward"],
+        **unet("bn_backward")),
         kernel_entry(
         "conv1x1_bn_relu", "conv_bn_relu.cu", CONV_BN_REPLACES,
         conv["launches"], conv,
@@ -2928,7 +3397,8 @@ def main() -> int:
                     "train_cli": cli, "conv_bn_cases": conv["cases"],
                     "predict_eval": {k: v for k, v in ev.items()
                                      if k != "shapes"},
-                    "serving_options": opt, "deployment": dep},
+                    "serving_options": opt, "deployment": dep,
+                    "data_side": data_side},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -18,10 +18,12 @@ resumes; a ``.pt``/``.pth`` file seeds the model's weights (the port's own
 state_dict, or a donor checkpoint under the published HRNet or
 milesial-UNet names, as the JAX CLI reads it; ``train/torch_import.py``).
 
-Options of the JAX trainer that the port does not have yet raise and name
-their ROADMAP item: ``--loader grain``, ``--device-data True``,
-``--fold-parallel True`` over several folds, ``--n-space`` above 1,
-``--dist-coordinator``, ``--remat`` other than False and ``--profile-dir``.
+``--device-data True`` keeps the training set on ``--device`` and augments
+it there (``data/device_augment.py``). ``--loader grain`` raises: grain is a
+JAX input pipeline with no counterpart here. The JAX trainer's scale-out
+options raise and name ROADMAP queue 1, item 8: ``--fold-parallel True``
+over several folds, ``--n-space`` above 1, ``--dist-coordinator``,
+``--remat`` other than False and ``--profile-dir``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,5 @@
 """SegDataset: image and mask decode -> transforms -> paired augmentation ->
-targets; counterpart of the JAX package's ``data/dataset.py`` on its numpy
-target path, without cv2.
+targets; counterpart of the JAX package's ``data/dataset.py``, without cv2.
 
 The pipeline order is the reference's (Data/dataset.py:12-476):
 
@@ -21,8 +20,10 @@ target (S, S, C_total) in ``target_dtype``. Randomness is an explicit
 the same draws as the JAX dataset's.
 
 PNGs go through the port's decoder (``data/png.py``); other formats need
-cv2, imported at the call. The JAX package's native C++ target path
-(``use_native=True``) is not ported yet and raises.
+cv2, imported at the call. Targets come from the native C++ sample factory
+(``data/native.py``, the default ``use_native=True``, as in the JAX
+package) except under a vertical flip, where the numpy path runs; the
+numpy path alone with ``use_native=False``.
 """
 from __future__ import annotations
 
@@ -173,17 +174,12 @@ class SegDataset:
         hflip: bool = True,
         vflip: bool = False,
         affine: bool = True,
-        use_native: bool = False,
+        use_native: bool = True,
         target_dtype=np.float32,
         emit_gray: bool = False,
         cache_bytes: int = 1 << 30,
     ):
         assert len(input_paths) == len(target_paths)
-        if use_native:
-            raise NotImplementedError(
-                "the native C++ target factory is not ported yet (ROADMAP "
-                "queue 1, item 6); use_native=False gives the same targets "
-                "seed for seed")
         self.input_paths = list(input_paths)
         self.target_paths = list(target_paths)
         self.tree = tree
@@ -193,14 +189,17 @@ class SegDataset:
         self.hflip = hflip
         self.vflip = vflip
         self.affine = affine
+        self.use_native = use_native
         # int8 targets: ternary {-1,0,1} is exact in int8, 4x smaller host
         # buffers and copies; the train step upcasts on the device
         self.target_dtype = target_dtype
         # keep grayscale sources single-channel (S, S, 1); the train step
         # broadcasts to 3 channels on the device
         self.emit_gray = emit_gray
-        # decoded and resized [0,1] images and decoded masks, reused across
-        # epochs, up to ``cache_bytes`` in all
+        self._tables = None
+        # decoded and resized [0,1] images, and the native path's channel
+        # bitmasks or the numpy path's decoded masks, reused across epochs,
+        # up to ``cache_bytes`` in all
         self._cache = ByteCappedCache(cache_bytes)
 
     def __len__(self) -> int:
@@ -209,6 +208,24 @@ class SegDataset:
     @property
     def num_target_channels(self) -> int:
         return self.tree.num_classes if self.hierarchical else self.tree.num_leaves
+
+    def _target_tables(self):
+        if self._tables is None:
+            from .native import ChannelTables
+
+            self._tables = ChannelTables(self.tree, self.hierarchical)
+        return self._tables
+
+    def _mask(self, index: int) -> np.ndarray:
+        mask = self._cache.get(("mask", index))
+        if mask is None:
+            # the port's PNG decoder undoes Average and Paeth rows in
+            # Python: the numpy path decodes each mask once (the native
+            # path caches the bitmask instead)
+            mask = decode_mask(self.target_paths[index])
+            if not self.use_native:
+                self._cache[("mask", index)] = mask
+        return mask
 
     def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
         if rng is None:
@@ -220,12 +237,9 @@ class SegDataset:
                 np.float32) / 255.0
             x = T.resize_bilinear_np(x, (s, s))
             self._cache[("img", index, s)] = x
-        mask = self._cache.get(("mask", index))
-        if mask is None:
-            # the port's PNG decoder undoes Average and Paeth rows in Python:
-            # decode each mask once
-            mask = decode_mask(self.target_paths[index])
-            self._cache[("mask", index)] = mask
+        mask = None
+        if not (self.use_native and ("bits", index, s) in self._cache):
+            mask = self._mask(index)
 
         # every random parameter up front, in the JAX dataset's order
         do_blur_jitter = self.augment
@@ -249,7 +263,19 @@ class SegDataset:
         if x.shape[-1] == 1 and not self.emit_gray:
             x = np.repeat(x, 3, axis=-1)
 
-        # ---- target chain --------------------------------------------------
+        # ---- target chain: the native factory, or numpy under a vflip ------
+        if self.use_native and not do_vflip:
+            from .native import make_target_native
+
+            m = T.affine_forward_matrix(aff, s, s) if aff is not None else None
+            y = make_target_native(
+                mask, self._target_tables(), s, do_hflip, m,
+                bits_cache=self._cache, cache_key=("bits", index, s),
+                dtype=self.target_dtype)
+            return np.asarray(x, np.float32), y
+
+        if mask is None:
+            mask = self._mask(index)
         y = (node_masks(mask, self.tree) if self.hierarchical
              else leaf_masks(mask, self.tree)).astype(np.float32)
         y = T.resize_bilinear_np(y, (s, s))

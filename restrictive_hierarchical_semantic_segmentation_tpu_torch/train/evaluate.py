@@ -26,7 +26,6 @@ drawn from seed 0). A JAX orbax checkpoint is refused
 """
 from __future__ import annotations
 
-import contextlib
 import csv
 import os
 import time
@@ -43,6 +42,7 @@ from ..data.png import encode_png_gray8
 from ..hierarchy.tree import ClassTree
 from ..metrics.segmentation import MetricAccumulator, level_confusion_matrices
 from ..models.hierarchical import SegmenterOutput, build_model
+from ..utils.device import float32_convs as _float32_convs
 from ..utils.device import resolve_device
 from .torch_import import load_model_weights
 from .loop import list_pairs
@@ -101,24 +101,6 @@ def reconstruct_levels_from_leaves(
                 chans.append(leaf_onehot[..., tree.leaf_index[name]])
         out.append(np.stack(chans, axis=-1).astype(np.float32))
     return out
-
-
-@contextlib.contextmanager
-def _float32_convs(enabled: bool):
-    """While ``enabled``, cuDNN convolutions and cuBLAS matmuls of float32
-    inputs compute in float32, not TF32; the flags are restored after."""
-    if not enabled:
-        yield
-        return
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
 
 
 class Evaluator:

@@ -8,8 +8,10 @@ takes the level weights, and the consistency term sees soft probabilities.
 
 One device, no mesh: the model lives on ``device`` (``cuda`` unless the
 caller asks for the CPU) in ``torch.channels_last``, where every BatchNorm
-runs the port's kernels. Options of the JAX trainer that are not ported
-yet raise (:func:`check_supported`).
+runs the port's kernels. With ``device_data`` the training set lives on
+that device too and is augmented there (``data/device_augment.py``);
+validation keeps the host chain. Options of the JAX trainer that the port
+does not have raise (:func:`check_supported`).
 
 ``model_weights``: a ``<name>.ckpt`` directory of the port's trainer
 resumes (model, optimizer, epoch, scheduler); a ``.pt``/``.pth`` file
@@ -32,6 +34,7 @@ import torch
 
 from ..config.run import RunConfig
 from ..data.dataset import SegDataset
+from ..data.device_augment import DeviceDataset
 from ..data.loader import BatchLoader, prefetch_to_device, split_ids
 from ..data.png import encode_png_gray8
 from ..hierarchy.tree import ClassTree
@@ -64,13 +67,15 @@ def _fold_ids(cfg: RunConfig) -> List[int]:
 
 
 def check_supported(cfg: RunConfig) -> None:
-    """Raise for the JAX trainer's options that the port does not have
-    yet, naming the ROADMAP item that brings each."""
-    refused = []
+    """Raise for the JAX trainer's options that the port does not have:
+    grain, which has no counterpart, and those of ROADMAP queue 1, item 8
+    (scale-out)."""
     if cfg.loader == "grain":
-        refused.append("--loader grain (queue 1, item 6)")
-    if cfg.device_data:
-        refused.append("--device-data True (queue 1, item 6)")
+        raise NotImplementedError(
+            "--loader grain: grain is a JAX input pipeline with no "
+            "counterpart in the PyTorch port; use --loader threads or "
+            "process")
+    refused = []
     if cfg.fold_parallel and len(_fold_ids(cfg)) > 1:
         refused.append("--fold-parallel True over several folds "
                        "(queue 1, item 8)")
@@ -97,8 +102,10 @@ def list_pairs(root: str) -> Tuple[List[str], List[str]]:
 
 
 def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
-                 val_root: Optional[str]):
-    """One fold's (train, val) loaders."""
+                 val_root: Optional[str], device=None):
+    """One fold's (train, val) loaders. With ``cfg.device_data`` the train
+    loader is a :class:`DeviceDataset` on ``device`` (``cuda`` unless the
+    caller asks for the CPU), which yields tensors already there."""
     check_supported(cfg)
     hier = cfg.hierarchical
     tr_imgs, tr_labs = list_pairs(train_root)
@@ -117,12 +124,19 @@ def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
         target_dtype=np.int8 if cfg.host_compact else np.float32,
         emit_gray=cfg.host_compact,
     )
-    train_loader = BatchLoader(
-        SegDataset(tr_imgs, tr_labs, tree, cfg.img_size, hier,
-                   augment=True, **ds_kw),
-        cfg.batch_size, shuffle=True, drop_last=True, seed=cfg.seed,
-        **loader_kw,
-    )
+    if cfg.device_data:
+        # the training set on the device, augmented there: the host's
+        # per-epoch work is a permutation
+        train_loader = DeviceDataset(
+            tr_imgs, tr_labs, tree, cfg.img_size, hier,
+            batch_size=cfg.batch_size, seed=cfg.seed, device=device)
+    else:
+        train_loader = BatchLoader(
+            SegDataset(tr_imgs, tr_labs, tree, cfg.img_size, hier,
+                       augment=True, **ds_kw),
+            cfg.batch_size, shuffle=True, drop_last=True, seed=cfg.seed,
+            **loader_kw,
+        )
     val_loader = BatchLoader(
         SegDataset(va_imgs, va_labs, tree, cfg.img_size, hier,
                    augment=False, **ds_kw),
@@ -278,7 +292,7 @@ class Trainer:
 
         # --- data, last: its worker pools are released by close() ----------
         self.train_loader, self.val_loader = make_loaders(
-            cfg, tree, train_root, val_root
+            cfg, tree, train_root, val_root, device=self.device
         )
 
     def lr(self) -> float:
@@ -307,7 +321,9 @@ class Trainer:
         # would synchronize every step); it is fetched once after the last
         device_aux = []
         probe = max(0, int(cfg.nan_probe_every))
-        for x, y in prefetch_to_device(self.train_loader, 2, self.device):
+        batches = (self.train_loader if cfg.device_data else
+                   prefetch_to_device(self.train_loader, 2, self.device))
+        for x, y in batches:
             self.state, aux = self.train_step(self.state, x, y, mask)
             device_aux.append(aux)
             n += 1

@@ -4,8 +4,10 @@ the JAX package's ``train/serving.py:Predictor``.
 
 The model runs in eval mode under ``torch.inference_mode()``, in
 ``torch.autocast`` bf16 when ``compute_dtype="bfloat16"`` (parameters stay
-f32), with activations in ``torch.channels_last`` so every BatchNorm goes
-through the port's scale-bias-act kernel. Outputs are the per-level logits
+f32; in f32 on the card the convolutions compute in f32, not TF32, with the
+flags restored after each call), with activations in
+``torch.channels_last`` so every BatchNorm goes through the port's
+scale-bias-act kernel. Outputs are the per-level logits
 and composed probabilities (NHWC float32) and the first-max argmax class
 maps of the logits, as numpy arrays.
 
@@ -43,7 +45,7 @@ import torch
 from ..config.run import RunConfig
 from ..hierarchy.tree import ClassTree
 from ..models.hierarchical import build_model
-from ..utils.device import resolve_device
+from ..utils.device import float32_convs, resolve_device
 from .torch_import import load_model_weights
 
 __all__ = ["Predictor"]
@@ -162,8 +164,12 @@ class Predictor:
         self._applies = applies
 
     def _autocast(self, apply, x):
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        # f32 on the card computes its convolutions in f32, not TF32: under
+        # cuDNN's default TF32 the class maps moved with the batch size and
+        # away from the CPU's
+        f32_on_card = not self.bf16 and self.device.type == "cuda"
+        with float32_convs(f32_on_card), torch.autocast(
+                self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
             return apply(x)
 
     @staticmethod

@@ -5,8 +5,9 @@ prefetch and checkpoint snapshots, the offline Evaluator (card against
 CPU, kernel launches per forward), the int8 conv's card path (cuBLASLt's
 int8 GEMM through ``torch._int_mm``) against its plain version at the
 shapes its rules make it pad, fold ensembles and the quantized Predictor,
-and a ``torch.export`` artifact launching kernel 2 (the operator's fake
-implementation against the kernel's output). Marked
+a ``torch.export`` artifact launching kernel 2 (the operator's fake
+implementation against the kernel's output), and the device-resident
+training set (augmentation on the card against the CPU). Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -872,3 +873,94 @@ def test_scale_bias_act_fake_matches_kernel(cuda, shape, dtype):
         (y.shape, y.dtype, y.stride(), y.device)
     assert torch.equal(y, fba._scale_bias_act_ref(x, a, b, "relu"))
 
+
+
+def test_augment_sample_on_card_equals_cpu(cuda):
+    """``data/device_augment.py:augment_sample`` on the card against the
+    same call on the CPU at one seeded draw per sample, under PyTorch's
+    default TF32 flags (the blur is multiply-adds, not a conv): the image
+    within 1e-5 on at least 99.5 % of pixels and the targets on at least
+    99.5 %, the bounds the port is held to against JAX."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data import (
+        device_augment as da,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (  # noqa: E501
+        ClassTree,
+    )
+
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    g = torch.Generator().manual_seed(0)
+    img = torch.rand((4, 96, 96, 1), generator=g)
+    y = (torch.rand((4, 96, 96, tree.num_classes), generator=g) > 0.6).float()
+    y[..., 0] = 1.0
+    p = da.sample_params(torch.Generator().manual_seed(1), 4)
+    xc, yc = da.augment_sample(img, y, p, tree, True)
+    xd, yd = da.augment_sample(img.to(cuda), y.to(cuda),
+                               da.AugmentParams(*(t.to(cuda) for t in p)),
+                               tree, True)
+    assert xd.device.type == yd.device.type == "cuda"
+    assert ((xd.cpu() - xc).abs() <= 1e-5).float().mean() >= 0.995
+    assert (yd.cpu() == yc).float().mean() >= 0.995
+
+
+def test_device_dataset_on_card(cuda, tmp_path):
+    """The device-resident set uploads once and yields card tensors; the
+    same (seed, epoch) draws the same batches on the card."""
+    import glob
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data import (
+        device_augment as da,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.synthetic import (  # noqa: E501
+        write_synth_dataset,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (  # noqa: E501
+        ClassTree,
+    )
+
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    write_synth_dataset(str(tmp_path), 5, size=64, seed=1)
+    imgs = sorted(glob.glob(str(tmp_path / "images" / "*")))
+    labs = sorted(glob.glob(str(tmp_path / "labels" / "*")))
+    ds = da.DeviceDataset(imgs, labs, tree, 48, True, batch_size=2,
+                          device="cuda")
+    ds.set_epoch(4)
+    first = [(x.clone(), y.clone()) for x, y in ds]
+    assert len(first) == 2
+    assert all(x.device.type == "cuda" and x.shape == (2, 48, 48, 1)
+               for x, _ in first)
+    for (xa, ya), (xb, yb) in zip(first, ds):
+        assert torch.equal(xa, xb) and torch.equal(ya, yb)
+
+
+def test_f32_predictor_on_card_computes_convs_in_f32(cuda, monkeypatch):
+    """Under PyTorch's default TF32 flags the f32 Predictor on the card
+    runs its convolutions with TF32 off and restores the flags: batch 4
+    equals four batches of 1 and the CPU within 1e-5 (the serve CLI's f32
+    class maps had moved on 233 and 464 of 991,232 pixels under TF32)."""
+    import numpy as np
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    serving, cfg, sds = _tiny_unets(monkeypatch, 1)
+    seen = []
+    pred = serving.Predictor(cfg, sds[0], device="cuda")
+    conv = next(m for m in pred.model.modules()
+                if isinstance(m, torch.nn.Conv2d))
+    conv.register_forward_pre_hook(
+        lambda *_: seen.append((torch.backends.cudnn.allow_tf32,
+                                torch.backends.cuda.matmul.allow_tf32)))
+    x = np.random.default_rng(0).uniform(
+        -1, 1, (4, EVAL_IMG, EVAL_IMG, 3)).astype(np.float32)
+    b4 = pred(x)
+    b1 = [pred(x[i:i + 1]) for i in range(4)]
+    assert seen and all(s == (False, False) for s in seen)
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+    cpu = serving.Predictor(cfg, sds[0], device="cpu")(x)
+    for L, p in enumerate(b4["probs"]):
+        one = np.concatenate([o["probs"][L] for o in b1])
+        np.testing.assert_allclose(p, one, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(p, cpu["probs"][L], rtol=0, atol=1e-5)

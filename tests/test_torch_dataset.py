@@ -70,7 +70,8 @@ def test_segdataset_matches_jax(files, hier, augment, size):
                   target_dtype=np.int8 if compact else np.float32)
         jd = jds.SegDataset(imgs, labs, jtree, size, hier, augment,
                             use_native=False, **kw)
-        pd = pds.SegDataset(imgs, labs, ptree, size, hier, augment, **kw)
+        pd = pds.SegDataset(imgs, labs, ptree, size, hier, augment,
+                            use_native=False, **kw)
         assert pd.num_target_channels == jd.num_target_channels
         for i in range(len(imgs)):
             for _ in range(2):  # the second read comes from the caches
@@ -85,9 +86,29 @@ def test_segdataset_matches_jax(files, hier, augment, size):
 
 
 def test_native_targets_are_a_later_slice(files):
-    _, ptree = trees("default")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pds.SegDataset(*files, ptree, 32, True, True, use_native=True)
+    """Native targets (``use_native=True``, the default of both packages)
+    equal the JAX package's native targets on the same files and seeds,
+    every pixel, on both target paths' dtypes and through the bitmask
+    cache; the images as in :func:`test_segdataset_matches_jax`. (The
+    name dates from when the port refused ``use_native=True``.)"""
+    imgs, labs = files
+    jtree, ptree = trees("default")
+    for hier, dtype in ((True, np.float32), (False, np.int8)):
+        jd = jds.SegDataset(imgs, labs, jtree, 64, hier, True,
+                            use_native=True, target_dtype=dtype)
+        pd = pds.SegDataset(imgs, labs, ptree, 64, hier, True,
+                            target_dtype=dtype)
+        assert pd.use_native
+        for i in range(len(imgs)):
+            for _ in range(2):  # the second read comes from the bit cache
+                xa, ya = jd.__getitem__(i, np.random.default_rng(10 + i))
+                xb, yb = pd.__getitem__(i, np.random.default_rng(10 + i))
+                assert yb.dtype == ya.dtype == dtype
+                np.testing.assert_array_equal(yb, ya)
+                keep = ~_moved(jd, i, 10 + i, 64)
+                np.testing.assert_allclose(xb[keep], xa[keep], rtol=0,
+                                           atol=IMAGE_ATOL)
+        assert ("bits", 0, 64) in pd._cache and ("mask", 0) not in pd._cache
 
 
 def test_decode_image_and_mask_match_cv2(files, tmp_path):

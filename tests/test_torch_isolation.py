@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and its serve, train,
-predict_eval and export CLIs, its exporter and its donor importer) pulls
-in neither jax nor any module of the JAX package,
+predict_eval, export and agreement CLIs, its exporter, its donor importer,
+its device-resident training set and its native sample factory) pulls in
+neither jax nor any module of the JAX package,
 and the train and offline-eval paths load no cv2, sklearn, orbax or
 tensorflow (the card's machine has none of them); no source file of the
 port imports them at module level, and ``chip_smoke.py`` refuses to run
@@ -70,6 +71,18 @@ def test_deployment_modules_import_no_jax():
     for name in ("train.export", "train.torch_import", "cli.export"):
         assert f"{PORT}.{name}" in mods
     assert [m for m in mods if _forbidden_on_train_path(m)] == []
+
+
+def test_data_side_modules_import_no_jax_or_cv2():
+    """The agreement CLI, the device-resident training set and the native
+    sample factory's bridge: no jax, no JAX package, no cv2; and the
+    agreement CLI imports scipy only inside the call that needs it."""
+    names = ("cli.agreement", "data.device_augment", "data.native")
+    mods = _modules_after("".join(f"import {PORT}.{n}\n" for n in names))
+    for name in names:
+        assert f"{PORT}.{name}" in mods
+    assert [m for m in mods if _forbidden_on_train_path(m)] == []
+    assert [m for m in mods if m == "scipy" or m.startswith("scipy.")] == []
 
 
 def test_train_path_data_imports_no_cv2():

@@ -87,7 +87,8 @@ def test_batch_loader_matches_jax(files, shuffle, drop_last, batch):
     jl = jld.BatchLoader(
         jds.SegDataset(*files, jtree, 32, True, True, use_native=False, **kw),
         batch, shuffle=shuffle, drop_last=drop_last, seed=3, num_workers=2)
-    pl = pld.BatchLoader(pds.SegDataset(*files, ptree, 32, True, True, **kw),
+    pl = pld.BatchLoader(pds.SegDataset(*files, ptree, 32, True, True,
+                                        use_native=False, **kw),
                          batch, shuffle=shuffle, drop_last=drop_last, seed=3,
                          num_workers=2)
     try:

@@ -9,8 +9,9 @@ Held: two folds train and dump prediction images (``tests/test_e2e.py``);
 (``tests/test_resume.py``); the same seed writes a byte-identical
 metrics.csv; the ``Predictor`` and the serve CLI read the trainer's
 ``best.ckpt``; the CLI has every flag of the JAX CLI with its default and
-choices, and refuses the options the port has not ported yet (donor
-``.pth`` weights are read: ``tests/test_torch_donor_import.py``).
+choices, and refuses grain and the scale-out options (donor ``.pth``
+weights are read: ``tests/test_torch_donor_import.py``); ``--device-data
+True`` trains, and resumes as an unbroken run.
 """
 import argparse
 import csv
@@ -225,8 +226,8 @@ def test_cli_has_every_jax_flag_with_its_default():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--loader", "grain"], "item 6"),
-    (["--device-data", "True"], "item 6"),
+    (["--loader", "grain"], "grain is a JAX input pipeline with no "
+                            "counterpart"),
     (["--fold-parallel", "True", "--folds", "2"], "item 8"),
     (["--n-space", "2"], "item 8"),
     (["--dist-coordinator", "localhost:1234"], "item 8"),
@@ -240,6 +241,36 @@ def test_cli_refuses_what_is_not_ported(tmp_path, assets_dir, flags, item):
                        assets_dir) + flags)
     assert not (tmp_path / "r").exists() or not any(
         (tmp_path / "r").rglob("*.ckpt"))
+
+
+def test_cli_device_data_trains_on_cpu(tmp_path, data, assets_dir,
+                                      monkeypatch):
+    """``--device-data True`` trains with the training set on ``--device``
+    (here the CPU); validation stays on the host chain."""
+    small_model(monkeypatch)
+    results = pcli.main(argv(tmp_path / "dd", data, assets_dir,
+                             "--device-data", "True"))
+    assert len(results) == 1 and np.isfinite(results[0])
+    rows = read_csv(tmp_path / "dd" / "fold_1" / "metrics.csv")
+    assert [r[0] for r in rows[1:]] == ["1", "2"]
+    assert all(np.isfinite(float(r[1])) and float(r[1]) > 0
+               for r in rows[1:])
+
+
+def test_device_data_resume_matches_uninterrupted(tmp_path, data, assets_dir,
+                                                  monkeypatch):
+    """A ``--device-data True`` run of 1 epoch resumed to 3 equals an
+    unbroken 3-epoch run: each batch's draws depend on (seed, epoch,
+    batch) alone."""
+    small_model(monkeypatch)
+    flags = ("--device-data", "True")
+    pcli.main(argv(tmp_path / "a", data, assets_dir, *flags, epochs=3))
+    pcli.main(argv(tmp_path / "b", data, assets_dir, *flags, epochs=1))
+    dir_b = tmp_path / "b" / "fold_1"
+    pcli.main(argv(tmp_path / "b", data, assets_dir, *flags,
+                   "--model-weights", str(dir_b / "last.ckpt"), epochs=3))
+    _assert_rows_close(read_csv(tmp_path / "a" / "fold_1" / "metrics.csv"),
+                       read_csv(dir_b / "metrics.csv"))
 
 
 def test_fold_parallel_over_one_fold_trains_as_usual():
