@@ -6,7 +6,8 @@ and its HTTP server, trains both for a few steps at batch 16, trains the
 UNet through the train CLI for 2 + 1 epochs, runs the fused 1x1 conv + BN +
 ReLU tool, evaluates the trained UNet through the predict_eval CLI, serves
 fold ensembles, TTA and int8 quantization, exports and loads deployment
-artifacts, imports donor checkpoints, and checks what comes out.
+artifacts, imports donor checkpoints, trains over two ranks sharing the
+card and fold-parallel, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -122,6 +123,22 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     ``tests/test_extended_eval_recall.py`` trained and scored on the card
     (its floors held, with deterministic algorithms); phase 13's fold once
     in f32, its validation loss beside the bf16 run's.
+
+19. scale-out of training (``build/chip_smoke/scale_out/``, after phase
+    18): the split entries of kernels 1 and 3 (a data-parallel group's
+    global-batch BatchNorm: the sums entry; the reduce and dx entries) at
+    every BN shape of the W48 and UNet train steps, bit for bit to the
+    fused launches and each against its plain version, fused against split
+    timed (CUDA events, summed per step); two ranks sharing the card over
+    gloo, the full-width UNet at 352 px, a global batch of 16 as 8 + 8,
+    three bf16 steps and one f32 step against one process at 16
+    (deterministic algorithms; losses, running buffers and the f32 step's
+    parameters within the stated bounds, the ranks bit-equal, each rank's
+    launches and all-reduces per step counted); the train CLI with
+    ``--fold-parallel True`` over two
+    folds against the sequential CLI (metrics.csv equal row for row), and
+    its lockstep ``--auto-resume`` to epoch 3; the train CLI with
+    ``--dist-coordinator`` at a world size of 1 under NCCL.
 
 The serving profiles (phases 4 and 9) go through ``profile_call``, whose
 marker kernels keep a trace from losing the call's first device events.
@@ -1316,7 +1333,9 @@ def _plain_counters():
         fused_bn_act as fba,
     )
 
-    names = ("_bn_stats_ref", "_bn_backward_ref", "_scale_bias_act_ref")
+    names = ("_bn_stats_ref", "_bn_backward_ref", "_scale_bias_act_ref",
+             "_bn_stats_sums_ref", "_bn_backward_reduce_ref",
+             "_bn_backward_dx_ref")
     counts = dict.fromkeys(names, 0)
     saved = {n: getattr(fba, n) for n in names}
 
@@ -3163,6 +3182,589 @@ def phase_data_side(n_bn: int, card: str, tf32_defaults, cli13: dict,
     return out
 
 
+# ------------------------------------------ phase 19: scale-out of training
+SCALE_ROOT = "build/chip_smoke/scale_out"
+DP_RANKS = 2
+# the two ranks against one process, by compute dtype: (steps, loss and
+# per-level rtol of step 1, of later steps, running buffers after step 1 as
+# a share of each buffer's largest |value|: in bf16 one bf16 ulp, 2^-8, of
+# the values the statistics are taken on). bf16: the two sides' convs run
+# at batch 8 and 16, whose cuDNN algorithms add in other orders, and each
+# rank's weight gradients are rounded to bf16 before they are added; AdamW's
+# first update (about lr * sign(g), lr 0.018) turns the gradients that
+# nearly cancel into whole-lr differences, which the later steps carry. f32
+# (TF32 off): the sum order alone, as phases 6 and 10 hold the card to the
+# CPU; its step holds the parameters on the significant-update criterion of
+# JAX tests/test_fold_parallel.py:160-178 (at most 1 % of the updates above
+# lr / 2 off by more than 10 %)
+DP_PLAN = (("bfloat16", 3), ("float32", 1))
+DP_TOL = {"bfloat16": {"loss1": 1e-3, "loss": 5e-2, "stats1": 2 ** -8},
+          "float32": {"loss1": 1e-4, "loss": 1e-4, "stats1": 1e-4}}
+DP_SIG_BAD = 0.01
+FP_FOLD_IMAGES = 32    # per fold: 2 steps of 16; write_synth_dataset adds 8
+SPLIT_ENTRIES = ("bn_stats_sums", "bn_backward_reduce", "bn_backward_dx")
+
+
+def _significant_update(new: dict, ref: dict, old: dict, lr: float):
+    """JAX ``tests/test_fold_parallel.py:160-178``: the updates above lr / 2
+    on the reference side, and the share of them the other side misses by
+    more than 10 % (AdamW's sign-like first update makes noise elements
+    flip by a whole lr)."""
+    n_sig = n_bad = 0
+    for k, r in ref.items():
+        us = (r - old[k]).double()
+        up = (new[k] - old[k]).double()
+        sig = us.abs() > 0.5 * lr
+        n_sig += int(sig.sum())
+        n_bad += int(((up[sig] - us[sig]).abs()
+                      > 0.1 * lr + 0.1 * us[sig].abs()).sum())
+    return n_sig, n_bad / max(1, n_sig)
+
+
+def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
+             plan=DP_PLAN, device: str = "cuda") -> dict:
+    """For each ``(compute dtype, steps)`` of ``plan``, that many train
+    steps of the full-width hierarchical UNet from the weights at
+    ``sd_path`` on this rank's rows of the global batch at ``batch_path``,
+    over the WORLD group when ``world`` > 1 (the BatchNorms' statistics and
+    the gradients span the group); f32 without TF32. The launches of every
+    kernel entry and the all-reduces are counted per step (counts 0 just
+    before, read just after)."""
+    import torch.distributed as dist
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .norm import set_bn_group
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .state import create_train_state
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .steps import make_train_step
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.utils \
+        .device import float32_convs
+
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    x, y = torch.load(batch_path)
+    per = x.shape[0] // world
+    x = x[rank * per:(rank + 1) * per].to(device)
+    y = y[rank * per:(rank + 1) * per].to(device)
+    group = dist.group.WORLD if world > 1 else None
+    reduces = [0]
+    real_all_reduce = dist.all_reduce
+
+    def counted_all_reduce(*a, **k):
+        reduces[0] += 1
+        return real_all_reduce(*a, **k)
+
+    dist.all_reduce = counted_all_reduce
+    plain, undo = _plain_counters()
+    results = {}
+    try:
+        for dtype, steps in plan:
+            model = build_model(tree, 0, 1)
+            model.load_state_dict(torch.load(sd_path), strict=True)
+            model = model.to(device, memory_format=torch.channels_last)
+            set_bn_group(model.train(), group)
+            state = create_train_state(model, TRAIN_LR)
+            step = make_train_step(model, tree, True,
+                                   level_weights=LEVEL_WEIGHTS,
+                                   compute_dtype=dtype, group=group)
+            mask = torch.ones(tree.num_levels, device=device)
+            out = {"loss": [], "per_level": [], "counts": [],
+                   "all_reduces": [], "ms": [], "buckets": len(step.buckets)}
+            with float32_convs(dtype == "float32" and x.is_cuda):
+                for i in range(steps):
+                    set_counts_to_zero()
+                    reduces[0] = 0
+                    t0 = time.perf_counter()
+                    state, aux = step(state, x, y, mask)
+                    if x.is_cuda:
+                        torch.cuda.synchronize()
+                    out["ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["counts"].append(read_counts())
+                    out["all_reduces"].append(reduces[0])
+                    out["loss"].append(float(aux["loss"]))
+                    out["per_level"].append(aux["per_level"].float().cpu())
+                    if i == 0:
+                        out["params1"] = {
+                            n: p.detach().cpu().clone()
+                            for n, p in model.named_parameters()}
+                        out["buffers1"] = {
+                            k: v.detach().cpu().clone()
+                            for k, v in model.state_dict().items()
+                            if k.endswith(("running_mean", "running_var"))}
+            out["state"] = {k: v.detach().cpu().clone()
+                            for k, v in model.state_dict().items()}
+            results[dtype] = out
+            del model, state, step
+    finally:
+        dist.all_reduce = real_all_reduce
+        undo()
+    results["plain_calls"] = dict(plain)
+    return results
+
+
+def _dp_rank(rank: int, world: int, init: str, args: tuple, out: str,
+             device: str):
+    """One rank of :func:`phase_scale_out`'s data-parallel run: a gloo
+    process group on ``init``, the card shared with the other ranks."""
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        with deterministic_algorithms():
+            res = dp_steps(rank, world, *args, device=device)
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp_ranks(world: int, args: tuple, out: str, device: str = "cuda",
+                 timeout: float = 300):
+    """:func:`_dp_rank` on ``world`` spawned processes; joins them with a
+    time limit and kills what is left; returns their results."""
+    import multiprocessing as mp
+    import os
+
+    init = f"file://{os.path.abspath(out)}/rendezvous"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank,
+                         args=(r, world, init, args, out, device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+    assert not hung, f"{len(hung)} ranks still running after {timeout} s"
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"rank exit codes {codes}"
+    return [torch.load(f"{out}/rank{r}.pt") for r in range(world)]
+
+
+def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
+    """Kernels 1 and 3 through the split entries of a data-parallel group
+    at one BN shape, at one rank: mean/var, dx, dgamma and dbeta bit for
+    bit to the fused launches, each entry against its plain version, and
+    the times (inputs from device memory) of the fused calls and the split
+    ones (the sums entry with ``stats_from_sums``; reduce and dx). With
+    ``entries``, each entry's time, its plain version's and one library
+    call's (PyTorch's SyncBatchNorm pieces: ``batch_norm_stats``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``) and its
+    bound."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    c = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    x = (torch.randn(shape, generator=gen, device=device) * 1.5
+         + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=device).to(dtype)
+    gamma = torch.rand(c, generator=gen, device=device) + 0.5
+    beta = torch.randn(c, generator=gen, device=device) * 0.5
+    mean, var = fba.bn_stats(x)
+    sums = fba.bn_stats_sums(x)
+    m2, v2 = fba.stats_from_sums(sums)
+    assert torch.equal(m2, mean) and torch.equal(v2, var), \
+        f"split statistics differ from the fused kernel's at {shape}"
+    rstd = torch.rsqrt(var + BN_EPS)
+    scale, shift = gamma * rstd, beta - mean * gamma * rstd
+    vecs = (scale, shift, mean, rstd)
+    dx, dg, db = fba.bn_act_backward(x, g, *vecs, act)
+    dg2, db2, bsums = fba.bn_backward_reduce(x, g, *vecs, act)
+    dx2 = fba.bn_backward_dx(x, g, *vecs, bsums, act)
+    torch.cuda.synchronize()
+    assert torch.equal(dx2, dx) and torch.equal(dg2, dg) and \
+        torch.equal(db2, db), f"split backward differs at {shape} {act}"
+    # each entry against its plain version
+    ref = fba._bn_stats_sums_ref(x)
+    xd = x.reshape(-1, c).double()
+    err_sums = 0.0
+    for got, want, size in ((sums[:c], ref[:c], xd.abs().sum(0)),
+                            (sums[c:2 * c], ref[c:2 * c],
+                             (xd * xd).sum(0))):
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 * size + 1e-12).all()), \
+            f"bn_stats_sums off at {shape}"
+        err_sums = max(err_sums, float(err.max()))
+    assert float(sums[-1]) == float(ref[-1]) == rows
+    del xd
+    x2, g2 = x.reshape(-1, c), g.reshape(-1, c)
+    rdg, rdb, rs = fba._bn_backward_reduce_ref(x2, g2, *vecs, act)
+    err_red = max(float((dg2 - rdg).abs().max()),
+                  float((db2 - rdb).abs().max()),
+                  float((bsums - rs).abs().max()))
+    assert err_red <= 1e-5 * float(rs[:2 * c].abs().max()), \
+        f"bn_backward_reduce off at {shape}"
+    rdx = fba._bn_backward_dx_ref(x2, g2, *vecs, bsums, act)
+    err_dx = _backward_err((dx2.reshape(-1, c), dg2, db2), (rdx, dg2, db2))
+    del rdx, rs
+
+    nb = x.numel() * x.element_size()
+    n_cold = max(2, -(-2 * L2_BYTES // (2 * nb)))
+    cold = [(x.clone(), g.clone(), *(v.clone() for v in vecs),
+             bsums.clone(), gamma.clone()) for _ in range(n_cold)]
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+    count = torch.full((1,), rows, dtype=torch.int32, device=device)
+    xs = [(a[0],) for a in cold]
+    xg = [a[:6] for a in cold]
+    xgs = [a[:7] for a in cold]
+    lib = [(a[0], a[1], a[4], a[5], a[7]) for a in cold]
+    t = {
+        "fused_stats": time_ms(fba.bn_stats, xs, reps=10),
+        "split_stats": time_ms(lambda xx: fba.stats_from_sums(
+            fba.bn_stats_sums(xx)), xs, reps=10),
+        "fused_backward": time_ms(
+            lambda *a: fba.bn_act_backward(*a, act), xg, reps=10),
+        "split_backward": time_ms(
+            lambda *a: fba.bn_backward_dx(*a[:6], fba.bn_backward_reduce(
+                *a[:6], act)[2], act), xg, reps=10),
+    }
+    errs = {"bn_stats_sums": err_sums, "bn_backward_reduce": err_red,
+            "bn_backward_dx": err_dx}
+    if not entries:
+        return {"times": t, "errs": errs}
+    rows_out = {
+        "bn_stats_sums": {
+            "max_abs_err": err_sums,
+            "ms": time_ms(fba.bn_stats_sums, xs, reps=10),
+            "plain_ms": time_ms(fba._bn_stats_sums_ref, xs, reps=10),
+            "library_ms": time_ms(lambda xx: torch.batch_norm_stats(
+                nchw(xx), BN_EPS), xs, reps=10),
+            "bytes": nb + (2 * c + 1) * 8},
+        "bn_backward_reduce": {
+            "max_abs_err": err_red,
+            "ms": time_ms(lambda *a: fba.bn_backward_reduce(*a, act), xg,
+                          reps=10),
+            "plain_ms": time_ms(lambda xx, gg, *v: fba
+                                ._bn_backward_reduce_ref(
+                                    xx.reshape(-1, c), gg.reshape(-1, c),
+                                    *v, act), xg, reps=10),
+            "library_ms": time_ms(
+                lambda xx, gg, mu, rs_, gm: torch.batch_norm_backward_reduce(
+                    nchw(gg), nchw(xx), mu, rs_, gm, True, True, True),
+                lib, reps=10),
+            "bytes": 2 * nb + 4 * 4 * c + 2 * 4 * c + (2 * c + 1) * 8},
+        "bn_backward_dx": {
+            "max_abs_err": err_dx,
+            "ms": time_ms(lambda *a: fba.bn_backward_dx(*a, act), xgs,
+                          reps=10),
+            "plain_ms": time_ms(lambda xx, gg, *v: fba._bn_backward_dx_ref(
+                xx.reshape(-1, c), gg.reshape(-1, c), *v, act), xgs,
+                reps=10),
+            "library_ms": time_ms(
+                lambda xx, gg, mu, rs_, gm: torch.batch_norm_backward_elemt(
+                    nchw(gg), nchw(xx), mu, rs_, gm, rs_, rs_, count),
+                lib, reps=10),
+            "bytes": 3 * nb + 4 * 4 * c + (2 * c + 1) * 8},
+    }
+    for row in rows_out.values():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    return {"times": t, "errs": errs, "entries": rows_out}
+
+
+def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
+                        ) -> dict:
+    """:func:`measure_split` at every (shape, dtype, act) of each path's
+    train step (``{path: {(shape, dtype, act): calls}}``), summed over the
+    step's calls: fused against split ms per step; on ``entries_path`` also
+    each split entry's totals (the kernels line's rows 1 and 3)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    out = {}
+    for path, shapes in shapes_by_path.items():
+        full = path == entries_path
+        times = dict.fromkeys(("fused_stats", "split_stats",
+                               "fused_backward", "split_backward"), 0.0)
+        errs = dict.fromkeys(SPLIT_ENTRIES, 0.0)
+        entries = {e: dict.fromkeys(("max_abs_err", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bytes"), 0.0)
+                   for e in SPLIT_ENTRIES}
+        for (shape, dtype, act), n in sorted(shapes.items(),
+                                             key=lambda kv: str(kv[0])):
+            r = measure_split(shape, dtype, act, gen, device, full)
+            for k, v in r["times"].items():
+                times[k] += n * v
+            for e, v in r["errs"].items():
+                errs[e] = max(errs[e], v)
+            for e, row in r.get("entries", {}).items():
+                tot = entries[e]
+                tot["max_abs_err"] = max(tot["max_abs_err"],
+                                         row["max_abs_err"])
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bytes"):
+                    tot[k] += n * row[k]
+        out[path] = {"times": times, "errs": errs, "shapes": len(shapes),
+                     "launches": sum(shapes.values())}
+        if full:
+            out[path]["entries"] = entries
+        log(f"split against fused ({path}, {len(shapes)} shapes, "
+            f"{sum(shapes.values())} BN calls, bit for bit at every shape): "
+            f"statistics {times['fused_stats']:.4f} ms fused, "
+            f"{times['split_stats']:.4f} split; backward "
+            f"{times['fused_backward']:.4f} fused, "
+            f"{times['split_backward']:.4f} split (CUDA events, summed per "
+            f"step, inputs from device memory, no all-reduce); entries "
+            f"against their plain versions, max abs err {json.dumps(errs)}"
+            + (f"; per step {json.dumps(entries)}" if full else ""))
+    return out
+
+
+def phase_scale_out(card: str, train_shapes: dict,
+                    device: str = "cuda") -> dict:
+    """Phase 19, scale-out of training on the card:
+
+    * the split entries of kernels 1 and 3 (a data-parallel group's
+      global-batch BatchNorm) at every BN shape of the W48 and UNet train
+      steps, bit for bit to the fused launches, each against its plain
+      version, fused against split timed (:func:`phase_split_kernels`);
+    * two ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+      device), the full-width UNet at 352 px, a global batch of 16 as 8 +
+      8, three bf16 steps and one f32 step (TF32 off) from seeded weights,
+      against one process at batch 16 on the card, both with deterministic
+      algorithms: losses, per-level losses and running buffers within the
+      stated tolerances (``DP_TOL``), the f32 step's parameters on the
+      significant-update criterion, the ranks' parameters and buffers
+      bit-equal, each rank's launches of kernels 1-3 (through the split
+      entries) and all-reduces per step counted;
+    * the train CLI with ``--fold-parallel True``: two folds of synthetic
+      radiographs (phase 13's generator, 32 + 8 images each), 2 epochs, one
+      process, against the sequential CLI over the same folds, with
+      deterministic algorithms: metrics.csv equal row for row, best/last
+      of both folds, then a lockstep ``--auto-resume True`` to epoch 3;
+    * the train CLI with ``--dist-coordinator`` at a world size of 1 under
+      NCCL, one epoch of phase 13's fold.
+
+    Step ms are on the host clock; two ranks sharing one card is not a
+    scaling number."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        train as cli,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .synthetic import write_synth_dataset
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SCALE_ROOT, ignore_errors=True)
+    os.makedirs(SCALE_ROOT)
+    # the ranks' BN shapes: the UNet step's at half the batch
+    ranks = {(tuple([k[0][0] // DP_RANKS, *k[0][1:]]), k[1], k[2]): n
+             for k, n in train_shapes["UNet step"].items()}
+    out = {"split": phase_split_kernels(
+        torch.device(device), {**train_shapes, "UNet rank": ranks},
+        "UNet rank")}
+    torch.cuda.empty_cache()
+
+    # --- two ranks on one card against one process
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    model = build_model(tree, 0, 1)
+    sd = random_state_dict(model, SEED + 19, MODELS[0]["conv_gain"])
+    del model
+    sd_path, batch_path = f"{SCALE_ROOT}/unet.pt", f"{SCALE_ROOT}/batch.pt"
+    torch.save(sd, sd_path)
+    torch.save(synthetic_batch(tree, TRAIN_BATCH, MODELS[0]["img"],
+                               SEED + 19), batch_path)
+    args = (sd_path, batch_path)
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks(DP_RANKS, args, SCALE_ROOT, device)
+    ranks_s = time.perf_counter() - t0
+    with deterministic_algorithms():
+        one = dp_steps(0, 1, *args, device=device)
+    n_bn = MODELS[0]["n_bn"]
+    for r in ranks:
+        assert all(v == 0 for v in r["plain_calls"].values()), r
+    assert all(v == 0 for v in one["plain_calls"].values()), one
+    out["data_axis"] = {"ranks_s": ranks_s}
+    for dtype, steps in DP_PLAN:
+        rk = [r[dtype] for r in ranks]
+        on = one[dtype]
+        tol = DP_TOL[dtype]
+        for r in rk:
+            for c in r["counts"]:
+                assert c["bn_stats_sums"] == c["bn_backward_reduce"] == \
+                    c["bn_backward_dx"] == c["scale_bias_act"] == n_bn, c
+                assert c["bn_stats"] == c["bn_backward"] == 0, c
+            # 2 per BN call, one for the Dice counts, the gradient buckets
+            # and one for the step's aux
+            assert r["all_reduces"] == [2 * n_bn + 1 + r["buckets"] + 1] \
+                * steps, r["all_reduces"]
+        for c in on["counts"]:
+            assert c["bn_stats"] == c["bn_backward"] == n_bn, c
+            assert all(c[e] == 0 for e in SPLIT_ENTRIES), c
+        differ = [k for k, v in rk[0]["state"].items()
+                  if not torch.equal(v, rk[1]["state"][k])]
+        assert not differ, f"the ranks' states differ: {differ[:5]}"
+        loss_err = [abs(a - b) / abs(b) for a, b in
+                    zip(rk[0]["loss"], on["loss"])]
+        level_err = [float(((a - b).abs() / b.abs()).max()) for a, b in
+                     zip(rk[0]["per_level"], on["per_level"])]
+        stats_err = max(float((rk[0]["buffers1"][k] - v).abs().max()
+                              / v.abs().max())
+                        for k, v in on["buffers1"].items())
+        n_sig, bad = _significant_update(rk[0]["params1"], on["params1"],
+                                         sd, TRAIN_LR)
+        log(f"data axis on {card}, {dtype}: {DP_RANKS} ranks on one card "
+            f"over gloo, UNet 352 px, batch {TRAIN_BATCH} as "
+            f"{TRAIN_BATCH // DP_RANKS} + {TRAIN_BATCH // DP_RANKS}, "
+            f"{steps} steps against one process: losses "
+            f"{[round(v, 6) for v in rk[0]['loss']]} against "
+            f"{[round(v, 6) for v in on['loss']]} (rel "
+            f"{[f'{v:.2e}' for v in loss_err]}), per-level max rel "
+            f"{[f'{v:.2e}' for v in level_err]}, running buffers after "
+            f"step 1 max {stats_err:.2e} of their largest value; step 1's "
+            f"significant updates {n_sig}, {bad:.4%} off; the ranks' "
+            f"parameters and buffers bit-equal; per step, rank 0: launches "
+            f"{rk[0]['counts'][0]}, rank 1: {rk[1]['counts'][0]}; "
+            f"all-reduces per rank {[r['all_reduces'][0] for r in rk]} "
+            f"(2 x {n_bn} BN calls, 1 Dice count, {rk[0]['buckets']} "
+            f"gradient buckets, 1 aux)")
+        log(f"data axis step ms on {card}, {dtype} (host clock; two ranks "
+            f"sharing one card is not a scaling number): rank 0 "
+            f"{[round(v, 3) for v in rk[0]['ms']]}, rank 1 "
+            f"{[round(v, 3) for v in rk[1]['ms']]}, one process "
+            f"{[round(v, 3) for v in on['ms']]}")
+        assert loss_err[0] <= tol["loss1"] and level_err[0] <= tol["loss1"]
+        assert max(loss_err + level_err) <= tol["loss"], (loss_err,
+                                                          level_err)
+        assert stats_err <= tol["stats1"], stats_err
+        if dtype == "float32":
+            assert n_sig > 1000 and bad < DP_SIG_BAD, (n_sig, bad)
+        out["data_axis"][dtype] = {
+            "loss": rk[0]["loss"], "one_loss": on["loss"],
+            "loss_rel_err": loss_err, "level_rel_err": level_err,
+            "stats1_err": stats_err, "sig_updates": n_sig, "sig_bad": bad,
+            "launches": rk[0]["counts"][0],
+            "launches_total": {e: sum(c[e] for c in rk[0]["counts"])
+                               for e in SPLIT_ENTRIES},
+            "all_reduces": rk[0]["all_reduces"][0],
+            "buckets": rk[0]["buckets"], "rank_ms": [r["ms"] for r in rk],
+            "one_ms": on["ms"]}
+    del ranks, one
+    torch.cuda.empty_cache()
+
+    # --- the train CLI with --fold-parallel True against the sequential CLI
+    t0 = time.perf_counter()
+    data = f"{SCALE_ROOT}/folds"
+    write_synth_dataset(data, FP_FOLD_IMAGES, size=352, seed=SEED + 19,
+                        folds=2)
+    data_s = time.perf_counter() - t0
+    base = train_cli_argv(data, "", "bfloat16")
+    base = base[2:]  # the save path comes per run
+    base[base.index("--folds") + 1] = "2"
+    steps, val = FP_FOLD_IMAGES // TRAIN_BATCH, FP_FOLD_IMAGES // 4
+    plain, undo = _plain_counters()
+    fp_runs = {}
+    try:
+        with deterministic_algorithms():
+            for name, extra, epochs in (
+                    ("sequential", [], 2),
+                    ("fold_parallel", ["--fold-parallel", "True"], 2),
+                    ("resumed", ["--fold-parallel", "True",
+                                 "--auto-resume", "True"], 3)):
+                run = f"{SCALE_ROOT}/{'sequential' if name == 'sequential' else 'fold_parallel'}"
+                set_counts_to_zero()
+                t0 = time.perf_counter()
+                cli.main(["--save-path", run, *base, "--epochs", str(epochs),
+                          *extra])
+                torch.cuda.synchronize()
+                c = read_counts()
+                n_ep = 1 if name == "resumed" else 2
+                assert c["bn_stats"] == c["bn_backward"] == \
+                    2 * n_bn * steps * n_ep, (name, c)
+                assert c["scale_bias_act"] == 2 * n_bn * (steps + val) * n_ep
+                fp_runs[name] = {"wall_s": time.perf_counter() - t0,
+                                 "counts": c, "csv": [
+                                     _read_csv(f"{run}/fold_{k}/metrics.csv")
+                                     for k in (1, 2)]}
+    finally:
+        undo()
+    assert all(v == 0 for v in plain.values()), plain
+    for k in (0, 1):
+        seq, par = fp_runs["sequential"]["csv"][k], \
+            fp_runs["fold_parallel"]["csv"][k]
+        assert seq == par, f"fold {k + 1}: fold-parallel rows differ"
+        res = fp_runs["resumed"]["csv"][k]
+        assert [r[0] for r in res[1:]] == ["1", "2", "3"], res
+        assert res[:3] == par, "the lockstep resume changed rows 1-2"
+        for name in ("best.ckpt", "last.ckpt"):
+            assert os.path.isfile(
+                f"{SCALE_ROOT}/fold_parallel/fold_{k + 1}/{name}/state.pt")
+    with open(f"{SCALE_ROOT}/fold_parallel/fold_1/logs/metrics.jsonl") as f:
+        logs = [json.loads(ln) for ln in f]
+    fp_epoch_s = {r["step"]: r["train/sec_per_epoch"] for r in logs
+                  if "train/sec_per_epoch" in r}
+    assert all(r.get("train/concurrent_folds", 2) == 2 for r in logs)
+    seq_epoch_s = _epoch_seconds(f"{SCALE_ROOT}/sequential/fold_1")
+    log(f"fold-parallel train CLI on {card}: 2 folds of "
+        f"{FP_FOLD_IMAGES} + {FP_FOLD_IMAGES // 4} images at 352 px "
+        f"(written in {data_s:.2f} s), 2 epochs: metrics.csv equal to the "
+        f"sequential CLI's row for row (deterministic algorithms); the "
+        f"lockstep --auto-resume to 3 kept rows 1-2; wall s: sequential "
+        f"{fp_runs['sequential']['wall_s']:.2f}, fold-parallel "
+        f"{fp_runs['fold_parallel']['wall_s']:.2f}, resume "
+        f"{fp_runs['resumed']['wall_s']:.2f}; epoch 2 s: both folds in "
+        f"lockstep {fp_epoch_s[2]:.3f}, sequential fold 1 alone "
+        f"{seq_epoch_s[2]:.3f}; launches {fp_runs['fold_parallel']['counts']}")
+    out["fold_parallel"] = {
+        "wall_s": {k: v["wall_s"] for k, v in fp_runs.items()},
+        "counts": fp_runs["fold_parallel"]["counts"],
+        "epoch2_s": fp_epoch_s[2], "sequential_fold1_epoch2_s":
+        seq_epoch_s[2]}
+
+    # --- the train CLI with --dist-coordinator at world size 1 (NCCL)
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    run = f"{SCALE_ROOT}/dist_cli"
+    set_counts_to_zero()
+    t0 = time.perf_counter()
+    cli.main(train_cli_argv(f"{CLI_ROOT}/data", run) + [
+        "--epochs", "1", "--dist-coordinator", f"127.0.0.1:{port}",
+        "--dist-procs", "1", "--dist-proc-id", "0"])
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    assert not dist.is_initialized()  # the CLI destroyed its group
+    c = read_counts()
+    steps13 = CLI_TRAIN_IMAGES // TRAIN_BATCH
+    assert c["bn_stats"] == c["bn_backward"] == n_bn * steps13, c
+    rows = _read_csv(f"{run}/fold_1/metrics.csv")
+    assert [r[0] for r in rows[1:]] == ["1"] and np.isfinite(
+        float(rows[1][1])), rows
+    log(f"--dist-coordinator on {card}: world size 1 under NCCL, one "
+        f"epoch of phase 13's fold in {dist_s:.2f} s of wall time, train "
+        f"loss {float(rows[1][1]):.5f}, launches {c}")
+    out["dist_cli"] = {"wall_s": dist_s, "counts": c}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"scale-out on {card}: the phase took {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, tot, work,
                  bound_by="bytes", **extra):
     """One row of the kernels line; ``source`` is a file of ``csrc/``,
@@ -3282,6 +3884,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     dd_launches = data_side["device_data"]["launches"]
 
+    scale = phase_scale_out(card, {"W48 step": train["shapes"],
+                                   "UNet step": utrain["shapes"]})
+    torch.cuda.empty_cache()
+
+    def split_entry(name, source, replaces):
+        """A split entry of kernel 1 or 3 (phase 19): launches over the
+        two-rank run (rank 0's three steps), the rest summed over one
+        step's calls at a rank's shapes."""
+        tot = scale["split"]["UNet rank"]["entries"][name]
+        return {"name": name, "route": "cuda",
+                "source": "restrictive_hierarchical_semantic_segmentation_"
+                          f"tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": scale["data_axis"]["bfloat16"][
+                    "launches_total"][name],
+                "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": "bytes", "library_ms": tot["library_ms"],
+                "work": f"the {MODELS[0]['n_bn']} calls of one UNet step at "
+                        f"a rank's shapes (batch {TRAIN_BATCH // DP_RANKS} "
+                        f"of {TRAIN_BATCH}, 352 px, bf16), inputs from device"
+                        " memory; launches: rank 0 over phase 19's "
+                        f"{DP_PLAN[0][1]} bf16 steps of {DP_RANKS} ranks on "
+                        "one card"}
+
+    fused_split = {path: r["times"] for path, r in scale["split"].items()}
+
     step_work = (f"all launches of one bf16 train step (W48, batch "
                  f"{train['batch']}, {IMG} px), inputs read from device "
                  "memory (ms_l2: from L2)")
@@ -3355,7 +3984,10 @@ def main() -> int:
         unet_profiled_kernels=utrain["profile"]["kernel_counts"]["bn_stats"],
         unet_launches=utrain["counts"]["bn_stats"],
         cli_launches=cli["launches"]["bn_stats"],
-        device_data_launches=dd_launches["bn_stats"], **unet("bn_stats")),
+        device_data_launches=dd_launches["bn_stats"],
+        split_entries=[split_entry("bn_stats_sums", "bn_stats.cu",
+                                   f"{BN_FILE}:51")],
+        fused_vs_split_ms=fused_split, **unet("bn_stats")),
         kernel_entry(
         "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
         train["counts"]["bn_backward"], ttot["bn_backward"],
@@ -3371,7 +4003,9 @@ def main() -> int:
         unet_grad_copies=utrain["grad_copies"][0],
         cli_launches=cli["launches"]["bn_backward"],
         device_data_launches=dd_launches["bn_backward"],
-        **unet("bn_backward")),
+        split_entries=[split_entry(e, "bn_backward.cu", f"{BN_FILE}:173")
+                       for e in ("bn_backward_reduce", "bn_backward_dx")],
+        fused_vs_split_ms=fused_split, **unet("bn_backward")),
         kernel_entry(
         "conv1x1_bn_relu", "conv_bn_relu.cu", CONV_BN_REPLACES,
         conv["launches"], conv,
@@ -3386,6 +4020,8 @@ def main() -> int:
         bound_by=conv["bound_by"], tool=conv["tool"])]
     for k in kernels:
         assert k["launches"] >= 1, k["name"]
+        for e in k.get("split_entries", []):
+            assert e["launches"] >= 1, e["name"]
     log(json.dumps({"serve_latency_ms": latencies, "card": card,
                     "train_parity": parity, "train": {
                         k: v for k, v in train.items() if k != "shapes"},
@@ -3398,7 +4034,7 @@ def main() -> int:
                     "predict_eval": {k: v for k, v in ev.items()
                                      if k != "shapes"},
                     "serving_options": opt, "deployment": dep,
-                    "data_side": data_side},
+                    "data_side": data_side, "scale_out": scale},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -20,10 +20,27 @@ milesial-UNet names, as the JAX CLI reads it; ``train/torch_import.py``).
 
 ``--device-data True`` keeps the training set on ``--device`` and augments
 it there (``data/device_augment.py``). ``--loader grain`` raises: grain is a
-JAX input pipeline with no counterpart here. The JAX trainer's scale-out
-options raise and name ROADMAP queue 1, item 8: ``--fold-parallel True``
-over several folds, ``--n-space`` above 1, ``--dist-coordinator``,
-``--remat`` other than False and ``--profile-dir``.
+JAX input pipeline with no counterpart here.
+
+Scale-out. ``--fold-parallel True`` trains every fold in lockstep
+(``train/fold_parallel.py``). ``--dist-coordinator host:port``,
+``--dist-procs N`` and ``--dist-proc-id i`` make this process rank ``i``
+of ``N`` (``parallel/mesh.py:init_distributed``, a ``tcp://`` rendezvous
+at the coordinator, before anything touches the card): every rank runs
+this CLI with the same flags, the batch is split over the ranks (one card
+per rank, BatchNorm over the global batch), and the first rank writes
+every file. Each rank takes ``cuda:{LOCAL_RANK or i % device_count}``
+unless ``--device`` names another device; the backend is NCCL on the card
+and gloo on the CPU. The JAX CLI's ``RHSS_PLATFORM``/``RHSS_CPU_DEVICES``
+overrides (JAX's platform and virtual CPU device count) have no
+counterpart: ``--device`` picks the device. Still raising, and naming
+ROADMAP queue 1, item 8: ``--n-space`` above 1, ``--remat`` other than
+False and ``--profile-dir``. Two ranks on one machine::
+
+    for i in 0 1; do python -m \
+      restrictive_hierarchical_semantic_segmentation_tpu_torch.cli.train \
+      ... --dist-coordinator localhost:29512 --dist-procs 2 \
+      --dist-proc-id $i & done; wait
 """
 from __future__ import annotations
 
@@ -77,9 +94,9 @@ def get_args(argv=None):
     p.add_argument("--n-space", type=int, default=1,
                    help="spatial-sharding mesh axis size")
     p.add_argument("--fold-parallel", type=str, default="False",
-                   help="train all cross-val folds simultaneously (not "
-                        "in the PyTorch port yet: over several folds it "
-                        "raises; the reference trains folds sequentially)")
+                   help="train all cross-val folds in lockstep, each over "
+                        "its group of ranks (the reference trains folds "
+                        "sequentially)")
     p.add_argument("--concat-prev-probs", type=str, default="False",
                    help="README-abstract image(+)probs conditioning variant")
     p.add_argument("--remat", type=str, default="False",
@@ -123,10 +140,10 @@ def get_args(argv=None):
                         "(zero host work per epoch; distributionally "
                         "equivalent to the host pipeline)")
     p.add_argument("--dist-coordinator", type=str, default="",
-                   help="multi-process training (jax.distributed over "
-                        "DCN/gloo): coordinator address host:port; every "
-                        "process runs this CLI with the same flags, process "
-                        "0 writes all artifacts")
+                   help="multi-process training (torch.distributed, NCCL "
+                        "on the card, gloo on the CPU): coordinator address "
+                        "host:port; every process runs this CLI with the "
+                        "same flags, process 0 writes all artifacts")
     p.add_argument("--dist-procs", type=int, default=0,
                    help="total process count for --dist-coordinator")
     p.add_argument("--dist-proc-id", type=int, default=-1,
@@ -195,14 +212,29 @@ def config_from_args(args):
     )
 
 
+def rank_device(device: str, proc_id: int) -> str:
+    """This rank's device: ``cuda:{LOCAL_RANK or proc_id % device_count}``
+    for a bare ``cuda``, else ``device`` as given."""
+    import os
+
+    import torch
+
+    if device != "cuda" or not torch.cuda.is_available():
+        return device
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local else proc_id % torch.cuda.device_count()
+    return f"cuda:{index}"
+
+
 def main(argv=None):
     args = get_args(argv)
     if _bool(args.mgpu):
         # reference --multi-gpu wraps nn.DataParallel (train.py:509-510);
-        # here data parallelism is automatic over the device mesh, so the
+        # here data parallelism is over ranks, one process per card, so the
         # flag is accepted for drop-in parity but changes nothing
-        print("--multi-gpu is ignored: data parallelism is automatic over "
-              "the device mesh (see --n-space / --fold-parallel; "
+        print("--multi-gpu is ignored: data parallelism is over ranks, one "
+              "process per card, started with --dist-coordinator / "
+              "--dist-procs / --dist-proc-id (see --fold-parallel; "
               "MIGRATION.md 'Parallelism').")
     import os
 
@@ -213,15 +245,30 @@ def main(argv=None):
         import signal
 
         faulthandler.register(signal.SIGUSR2, all_threads=True)
-    if args.dist_coordinator:
-        raise NotImplementedError(
-            "--dist-coordinator: multi-process training is not in the "
-            "PyTorch port yet (ROADMAP.md queue 1, item 8)")
     cfg = config_from_args(args)
-    from ..train.loop import train
+    from ..train.loop import check_supported, train
 
-    results = train(cfg, device=args.device)
-    print("Finished Training", results)
+    check_supported(cfg)  # before the rendezvous and the card
+    device = args.device
+    if args.dist_coordinator:
+        # before anything else touches the card (JAX cli/train.py:216-221)
+        from ..parallel.mesh import init_distributed
+        from ..utils.device import resolve_device
+
+        device = rank_device(args.device, args.dist_proc_id)
+        init_distributed(args.dist_coordinator,
+                         num_processes=args.dist_procs,
+                         process_id=args.dist_proc_id,
+                         device=resolve_device(device))
+    try:
+        results = train(cfg, device=device)
+    finally:
+        if args.dist_coordinator:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if not args.dist_coordinator or args.dist_proc_id == 0:
+        print("Finished Training", results)
     return results
 
 

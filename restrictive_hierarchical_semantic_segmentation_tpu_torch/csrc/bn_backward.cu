@@ -59,6 +59,21 @@
 // A grid that cannot be resident all at once fails the launch (the wrapper
 // raises); it never hangs.
 //
+// Two more entries split the pass for a data-parallel group (global-batch
+// BatchNorm, ops/fused_bn_act.py:SyncFusedBNAct), whose all-reduce of the
+// sums must fall between the sums and dx:
+//  * rhss_bn_backward_reduce: the same cooperative launch without phase B;
+//    besides edz and eydz (f32, the local dbeta and dgamma) it writes the
+//    combine's double sums and n, [Σdy, Σdy·x̂, n], for the all-reduce;
+//  * rhss_bn_backward_dx: dx from those sums added over the group, a plain
+//    elementwise kernel (bn_backward_dx: one thread per 8 channels, a
+//    grid-stride loop over rows; bound: x and g read once, dx written once).
+//    It forms edz / n and eydz / n in double and rounds them once, as the
+//    combine does, and dx with phase B's roundings, so at one rank the split
+//    gives the fused launch's dx, dgamma and dbeta bit for bit.
+// Between the two, x and g are read twice from device memory (5 tensors
+// moved in all, against the fused pass's 3 where they stay on chip).
+//
 // Plain C interface for ctypes: returns cudaGetLastError() after the launch
 // (0 on success), or cudaErrorInvalidValue for arguments it does not take.
 // The launch goes on the caller's stream; nothing synchronises and nothing
@@ -115,6 +130,7 @@ struct Args {
   float* edz;
   float* eydz;
   T* dx;  // null: dgamma and dbeta only
+  double* sums;  // non-null: [Σdy (C), Σdy·x̂ (C), n] in double as well
   int64_t rows;
   int64_t rows_per_block;
   int channels;
@@ -313,6 +329,10 @@ bn_backward_fused(const Args<T> args) {
     const auto fin = [&](int ch, double a, double b) {
       args.edz[ch] = (float)a;
       args.eydz[ch] = (float)b;
+      if (args.sums != nullptr) {
+        args.sums[ch] = a;
+        args.sums[C + ch] = b;
+      }
       // and divided by n once, in double, for phase B
       scaled[ch] = (float)(a / (double)args.rows);
       scaled[C + ch] = (float)(b / (double)args.rows);
@@ -321,6 +341,8 @@ bn_backward_fused(const Args<T> args) {
     for (int grp = blockIdx.x; grp < groups; grp += gridDim.x)
       rhss::combine_group(args.partial, args.row_blocks, C, grp, t, da,
                           da + kThreads, fin);
+    if (args.sums != nullptr && blockIdx.x == 0 && t == 0)
+      args.sums[2 * C] = (double)args.rows;
   }
   if (args.dx == nullptr) return;  // uniform over the grid
   grid.sync();
@@ -367,6 +389,78 @@ bn_backward_fused(const Args<T> args) {
          read_row<T>(st_g + k * ty * tx, kStage));
 }
 
+// dx of the split backward: rows r of channel vector v, with edz / n and
+// eydz / n formed from the group's double sums (sums[2C] = n) as the fused
+// combine forms them. Block (bx, by): channel vectors [bx * vecs, + vecs) on
+// tx lanes (tx the power of 2 at or above vecs), rows by * ty + y + k * ty *
+// gridDim.y on ty = 256 / tx lanes; neighbouring threads read neighbouring
+// 16-byte words of a row.
+template <typename T, bool RELU>
+__global__ void __launch_bounds__(rhss::kThreads)
+bn_backward_dx(const T* __restrict__ x, const T* __restrict__ g, Params p,
+               const double* __restrict__ sums, T* __restrict__ dx,
+               int64_t rows, int channels, int tx, int vecs) {
+  const int t = threadIdx.x;
+  const int lane = t % tx, y = t / tx, ty = rhss::kThreads / tx;
+  const int v = blockIdx.x * vecs + lane;
+  if (lane >= vecs || v >= channels / kVec) return;
+  const int c = v * kVec;
+  float sc[kVec], sh[kVec], mu[kVec], rs[kVec], ed[kVec], ey[kVec];
+  rhss::load8(p.scale + c, sc);
+  rhss::load8(p.shift + c, sh);
+  rhss::load8(p.mean + c, mu);
+  rhss::load8(p.rstd + c, rs);
+  const double n = sums[2 * channels];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    ed[k] = (float)(sums[c + k] / n);
+    ey[k] = (float)(sums[channels + c + k] / n);
+  }
+  const int64_t stride = (int64_t)gridDim.y * ty;
+  for (int64_t r = (int64_t)blockIdx.y * ty + y; r < rows; r += stride) {
+    const int64_t off = r * channels + c;
+    Raw<T> rx, rg;
+    rx.load(x + off);
+    rg.load(g + off);
+    float xv[kVec], gv[kVec], out[kVec];
+    rx.to_float(xv);
+    rg.to_float(gv);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      float dy, xhat;
+      dy_xhat<RELU>(xv[j], gv[j], sc[j], sh[j], mu[j], rs[j], dy, xhat);
+      const float q = __fmaf_rn(xhat, ey[j], ed[j]);
+      out[j] = __fmul_rn(sc[j], __fsub_rn(dy, q));
+    }
+    store8(dx + off, out);
+  }
+}
+
+template <typename T, bool RELU>
+int launch_dx(const void* x, const void* g, Params p, const double* sums,
+              void* dx, int64_t rows, int channels, cudaStream_t s) {
+  static rhss::DeviceOnce once;
+  int sms = 0;
+  const int set = once.get(&sms, [] { return cudaSuccess; });
+  if (set != 0) return set;
+  const int c_vec = channels / kVec;
+  const int col_blocks = (c_vec + 31) / 32;
+  const int vecs = (c_vec + col_blocks - 1) / col_blocks;
+  int tx = 1;
+  while (tx < vecs) tx *= 2;
+  const int ty = rhss::kThreads / tx;
+  // 8 blocks of 256 threads per SM in all, or one row lane each
+  int64_t row_blocks = (rows + ty - 1) / ty;
+  int64_t most = (int64_t)sms * 8 / col_blocks;
+  if (most < 1) most = 1;
+  if (row_blocks > most) row_blocks = most;
+  bn_backward_dx<T, RELU><<<dim3(col_blocks, (unsigned)row_blocks),
+                            rhss::kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), p, sums,
+      static_cast<T*>(dx), rows, channels, tx, vecs);
+  return (int)cudaGetLastError();
+}
+
 struct Geometry : rhss::Geometry {
   int stage_rows;
   int smem;
@@ -391,7 +485,8 @@ Geometry geometry(int64_t rows, int channels, int elem_bytes, int sms) {
 
 template <typename T, bool RELU>
 int launch(const void* x, const void* g, Params p, int64_t rows, int channels,
-           float* ws, float* edz, float* eydz, void* dx, cudaStream_t s) {
+           float* ws, float* edz, float* eydz, void* dx, double* sums,
+           cudaStream_t s) {
   auto kernel = bn_backward_fused<T, RELU>;
   static rhss::DeviceOnce once;
   int sms = 0;
@@ -411,7 +506,7 @@ int launch(const void* x, const void* g, Params p, int64_t rows, int channels,
   // n, eydz / n
   if (geo.row_blocks >= rhss::kTargetBlocks) return (int)cudaErrorInvalidValue;
   const Args<T> args{static_cast<const T*>(x), static_cast<const T*>(g), p,
-                     ws, edz, eydz, static_cast<T*>(dx), rows,
+                     ws, edz, eydz, static_cast<T*>(dx), sums, rows,
                      geo.rows_per_block, channels, geo.tx, geo.ty,
                      geo.col_blocks, geo.row_blocks, geo.stage_rows};
   cudaLaunchConfig_t cfg = {};
@@ -429,6 +524,33 @@ int launch(const void* x, const void* g, Params p, int64_t rows, int channels,
   return (int)cudaGetLastError();
 }
 
+// The checks every entry shares; 0 when the arguments are taken.
+int check(int64_t rows, int channels, int dtype, int act) {
+  if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
+      (dtype != 0 && dtype != 1) || (act != 0 && act != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+Params params(const void* scale, const void* shift, const void* mean,
+              const void* rstd) {
+  return Params{static_cast<const float*>(scale),
+                static_cast<const float*>(shift),
+                static_cast<const float*>(mean),
+                static_cast<const float*>(rstd)};
+}
+
+// launch<T, RELU>(args...) for the dtype and act codes
+template <typename... A>
+int dispatch(int dtype, int act, A... args) {
+  if (dtype == 1) {
+    return act ? launch<__nv_bfloat16, true>(args...)
+               : launch<__nv_bfloat16, false>(args...);
+  }
+  return act ? launch<float, true>(args...) : launch<float, false>(args...);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 none, 1 relu. x, g: rows *
@@ -442,25 +564,53 @@ extern "C" int rhss_bn_backward(const void* x, const void* g, int64_t rows,
                                 const void* mean, const void* rstd,
                                 void* workspace, void* edz, void* eydz,
                                 void* dx, void* stream) {
-  if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
-      (dtype != 0 && dtype != 1) || (act != 0 && act != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Params p{static_cast<const float*>(scale),
-                 static_cast<const float*>(shift),
-                 static_cast<const float*>(mean),
-                 static_cast<const float*>(rstd)};
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(workspace);
-  float* e0 = static_cast<float*>(edz);
-  float* e1 = static_cast<float*>(eydz);
+  const int bad = check(rows, channels, dtype, act);
+  if (bad) return bad;
+  return dispatch(dtype, act, x, g, params(scale, shift, mean, rstd), rows,
+                  channels, static_cast<float*>(workspace),
+                  static_cast<float*>(edz), static_cast<float*>(eydz), dx,
+                  static_cast<double*>(nullptr),
+                  reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The reduce entry: rhss_bn_backward without dx, and sums (2 * channels + 1
+// doubles) gets [Σdy, Σdy·x̂, n] in double.
+extern "C" int rhss_bn_backward_reduce(const void* x, const void* g,
+                                       int64_t rows, int channels, int dtype,
+                                       int act, const void* scale,
+                                       const void* shift, const void* mean,
+                                       const void* rstd, void* workspace,
+                                       void* edz, void* eydz, void* sums,
+                                       void* stream) {
+  const int bad = check(rows, channels, dtype, act);
+  if (bad) return bad;
+  return dispatch(dtype, act, x, g, params(scale, shift, mean, rstd), rows,
+                  channels, static_cast<float*>(workspace),
+                  static_cast<float*>(edz), static_cast<float*>(eydz),
+                  static_cast<void*>(nullptr), static_cast<double*>(sums),
+                  reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The dx entry: dx = scale * (dy - (x̂ * eydz / n + edz / n)) from sums =
+// [Σdy, Σdy·x̂, n] (2 * channels + 1 doubles), the reduce entry's sums added
+// over a group. x, g, dx: rows * channels elements, 16-byte aligned; scale,
+// shift, mean, rstd: channels floats, 16-byte aligned.
+extern "C" int rhss_bn_backward_dx(const void* x, const void* g, int64_t rows,
+                                   int channels, int dtype, int act,
+                                   const void* scale, const void* shift,
+                                   const void* mean, const void* rstd,
+                                   const void* sums, void* dx, void* stream) {
+  const int bad = check(rows, channels, dtype, act);
+  if (bad) return bad;
+  const Params p = params(scale, shift, mean, rstd);
+  const double* s = static_cast<const double*>(sums);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    return act ? launch<__nv_bfloat16, true>(x, g, p, rows, channels, ws, e0,
-                                             e1, dx, s)
-               : launch<__nv_bfloat16, false>(x, g, p, rows, channels, ws, e0,
-                                              e1, dx, s);
+    return act ? launch_dx<__nv_bfloat16, true>(x, g, p, s, dx, rows,
+                                                channels, st)
+               : launch_dx<__nv_bfloat16, false>(x, g, p, s, dx, rows,
+                                                 channels, st);
   }
-  return act ? launch<float, true>(x, g, p, rows, channels, ws, e0, e1, dx, s)
-             : launch<float, false>(x, g, p, rows, channels, ws, e0, e1, dx,
-                                    s);
+  return act ? launch_dx<float, true>(x, g, p, s, dx, rows, channels, st)
+             : launch_dx<float, false>(x, g, p, s, dx, rows, channels, st);
 }

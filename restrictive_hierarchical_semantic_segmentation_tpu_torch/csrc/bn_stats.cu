@@ -41,6 +41,14 @@
 // zeroed buffer per (device, stream), and every launch leaves it at 0 again,
 // so a launch captured in a CUDA graph replays.
 //
+// The sums entry (rhss_bn_stats_sums) is the same launch with another last
+// step: the column groups' last blocks write the double sums (Σx, Σx²) and n
+// instead of mean and var, for a caller that adds them over the ranks of a
+// data-parallel group before forming the statistics (global-batch BatchNorm,
+// ops/fused_bn_act.py:sync_batch_norm_act). Mean and var are formed with
+// explicit __dmul_rn / __dsub_rn (no contraction into an fma), so the caller's
+// f64 arithmetic on the sums of one rank gives the same bits as this kernel.
+//
 // What it cannot do: the smallest calls (under ~1 MB) still pay a launch,
 // one round trip to device memory and one or two through L2 and the
 // atomics, several times their bound (PERF.md). C must be a multiple of 8
@@ -80,6 +88,7 @@ struct Args {
   int* counters;   // [col_blocks][kGroupCounters]: 0 before and after
   float* mean;
   float* var;
+  double* sums;  // non-null: [Σx (C), Σx² (C), n] instead of mean and var
   int64_t rows;
   int64_t rows_per_block;
   int channels;
@@ -330,11 +339,21 @@ bn_stats_one_pass(const Args a) {
             lanes, d0, d1);
   }
   if (y == 0 && active) {
+    if (a.sums != nullptr) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        a.sums[c + k] = d0[k];
+        a.sums[C + c + k] = d1[k];
+      }
+      // n once: by the last block of column group 0
+      if (blockIdx.x == 0 && t == 0) a.sums[2 * C] = (double)a.rows;
+      return;
+    }
     const double inv_n = 1.0 / (double)a.rows;
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const double m = d0[k] * inv_n;
-      const double var = d1[k] * inv_n - m * m;
+      const double m = __dmul_rn(d0[k], inv_n);
+      const double var = __dsub_rn(__dmul_rn(d1[k], inv_n), __dmul_rn(m, m));
       a.mean[c + k] = (float)m;
       a.var[c + k] = (float)(var > 0.0 ? var : 0.0);
     }
@@ -368,7 +387,8 @@ Geometry geometry(int64_t rows, int channels, int in_flight, int sms) {
 
 template <typename T>
 int launch(const void* x, int64_t rows, int channels, float* ws,
-           int* counters, float* mean, float* var, cudaStream_t s) {
+           int* counters, float* mean, float* var, double* sums,
+           cudaStream_t s) {
   static rhss::DeviceOnce once;
   int sms = 0;
   const int set = once.get(&sms, [] { return cudaSuccess; });
@@ -379,12 +399,27 @@ int launch(const void* x, int64_t rows, int channels, float* ws,
   // the chunks' sums follow the strips' partials in the workspace
   double* chunks = reinterpret_cast<double*>(
       ws + 2 * (int64_t)rhss::kTargetBlocks * channels);
-  const Args args{x,    ws,   chunks, counters,         mean,
-                  var,  rows, g.rows_per_block, channels, g.tx,
-                  g.ty, g.row_blocks, g.vecs};
+  const Args args{x,    ws,   chunks, counters, mean,
+                  var,  sums, rows,   g.rows_per_block, channels,
+                  g.tx, g.ty, g.row_blocks, g.vecs};
   bn_stats_one_pass<T>
       <<<dim3(g.col_blocks, g.row_blocks), kThreads, 0, s>>>(args);
   return (int)cudaGetLastError();
+}
+
+// The checks both entries share; 0 when the arguments are taken.
+int check(int64_t rows, int channels, int dtype) {
+  if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
+      channels > kMaxGroups * 32 * kVec || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+template <typename... A>
+int dispatch(int dtype, A... args) {
+  if (dtype == 1) return launch<__nv_bfloat16>(args...);
+  return launch<float>(args...);
 }
 
 }  // namespace
@@ -397,16 +432,23 @@ int launch(const void* x, int64_t rows, int channels, float* ws,
 extern "C" int rhss_bn_stats(const void* x, int64_t rows, int channels,
                              int dtype, void* workspace, void* counters,
                              void* mean, void* var, void* stream) {
-  if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
-      channels > kMaxGroups * 32 * kVec || (dtype != 0 && dtype != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(workspace);
-  int* cnt = static_cast<int*>(counters);
-  float* m = static_cast<float*>(mean);
-  float* v = static_cast<float*>(var);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, rows, channels, ws, cnt, m, v, s);
-  return launch<float>(x, rows, channels, ws, cnt, m, v, s);
+  const int bad = check(rows, channels, dtype);
+  if (bad) return bad;
+  return dispatch(dtype, x, rows, channels, static_cast<float*>(workspace),
+                  static_cast<int*>(counters), static_cast<float*>(mean),
+                  static_cast<float*>(var), static_cast<double*>(nullptr),
+                  reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The sums entry: as rhss_bn_stats, but sums (2 * channels + 1 doubles,
+// 16-byte aligned) gets [Σx, Σx², n] in double in place of mean and var.
+extern "C" int rhss_bn_stats_sums(const void* x, int64_t rows, int channels,
+                                  int dtype, void* workspace, void* counters,
+                                  void* sums, void* stream) {
+  const int bad = check(rows, channels, dtype);
+  if (bad) return bad;
+  return dispatch(dtype, x, rows, channels, static_cast<float*>(workspace),
+                  static_cast<int*>(counters), static_cast<float*>(nullptr),
+                  static_cast<float*>(nullptr), static_cast<double*>(sums),
+                  reinterpret_cast<cudaStream_t>(stream));
 }

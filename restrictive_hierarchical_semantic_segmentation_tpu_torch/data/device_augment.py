@@ -25,8 +25,13 @@ index) and nothing else, so a resumed run redraws the same epoch. The
 streams are not JAX's: ``tests/test_torch_device_augment.py`` holds the
 port to JAX at fixed parameters.
 
+Data-parallel training (``shard``): every rank draws and augments the
+same global batch and keeps its rows of it (JAX ``train/loop.py:285-290``,
+where each process assembles the same global batch), so the ranks' rows
+together are the single-process batch.
+
 Not ported: the JAX ``DeviceDataset.place``/``set_sharding``, which serve
-fold-parallel meshes over several devices.
+fold-parallel meshes over several devices of one process.
 """
 from __future__ import annotations
 
@@ -287,7 +292,7 @@ class DeviceDataset:
 
     def __init__(self, input_paths, target_paths, tree: ClassTree,
                  img_size: int, hierarchical: bool, batch_size: int,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, shard=None):
         self.device = resolve_device(device)
         images, masks = load_base_arrays(
             input_paths, target_paths, tree, img_size, hierarchical)
@@ -298,6 +303,11 @@ class DeviceDataset:
         self._n = images.shape[0]
         self._fn = make_augment_fn(tree, hierarchical)
         self._epoch = 0
+        # this rank's rows of each global batch (data/loader.py:shard_rows)
+        from .loader import shard_rows
+
+        self._rows = (None if shard is None
+                      else shard_rows(self.batch_size, shard))
 
     @property
     def nbytes(self) -> int:
@@ -322,4 +332,8 @@ class DeviceDataset:
         for b in range(len(self)):
             idx = perm[b * self.batch_size:(b + 1) * self.batch_size]
             gen.manual_seed(batch_seed(self.seed, self._epoch, b))
-            yield self._fn(gen, self._images[idx], self._masks[idx].float())
+            x, y = self._fn(gen, self._images[idx], self._masks[idx].float())
+            if self._rows is not None:
+                x = torch.cat([x[a:b] for a, b in self._rows])
+                y = torch.cat([y[a:b] for a, b in self._rows])
+            yield x, y

@@ -11,21 +11,26 @@ counterpart of the JAX package's ``data/loader.py``.
   while the caller uses the current one; every sample's generator is
   seeded from (seed, epoch, index), so both modes give the same batches;
 * ``prefetch_to_device``: keeps ``size`` batches in flight on the device,
-  copied from pinned host memory without blocking the host.
+  copied from pinned host memory without blocking the host;
+* ``shard_rows``: the rows of every global batch that one rank of a
+  data-parallel group loads (``BatchLoader(shard=...)``): each sample's
+  seed depends on (seed, epoch, dataset index) alone, so the ranks' rows,
+  concatenated, are the single-process batch bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
 import copy
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .dataset import ByteCappedCache, SegDataset
 
-__all__ = ["split_ids", "BatchLoader", "to_device", "prefetch_to_device"]
+__all__ = ["split_ids", "BatchLoader", "to_device", "prefetch_to_device",
+           "shard_rows"]
 
 _WORKER_DS = None
 
@@ -99,8 +104,32 @@ def split_ids(
     return train_idx, test_idx, val_idx
 
 
+def shard_rows(batch_size: int, shard: Optional[Tuple[int, int, int]]
+               ) -> List[Tuple[int, int]]:
+    """The ``[start, stop)`` row ranges of a global batch that rank
+    ``index`` of a data group of ``size`` ranks takes, for ``shard = (index,
+    size, micro)``: with ``micro`` microbatches of gradient accumulation,
+    its share of each microbatch (so microbatch ``a`` of every rank,
+    together, is microbatch ``a`` of the global batch); ``micro = 1``
+    gives rows ``[index B / size, (index + 1) B / size)``. None: the whole
+    batch."""
+    if shard is None:
+        return [(0, batch_size)]
+    index, size, micro = shard
+    if batch_size % (size * micro) or not 0 <= index < size:
+        raise ValueError(
+            f"batch {batch_size} does not split over {size} ranks x "
+            f"{micro} microbatches (rank {index})")
+    per = batch_size // (size * micro)
+    step = batch_size // micro
+    return [(a * step + index * per, a * step + (index + 1) * per)
+            for a in range(micro)]
+
+
 class BatchLoader:
-    """Iterable over (image, target) numpy batches with static shapes."""
+    """Iterable over (image, target) numpy batches with static shapes.
+    With ``shard`` (:func:`shard_rows`), each batch holds this rank's rows
+    of the global batch of ``batch_size``, and only those are loaded."""
 
     def __init__(
         self,
@@ -112,6 +141,7 @@ class BatchLoader:
         num_workers: int = 8,
         indices: Optional[Sequence[int]] = None,
         worker_mode: str = "thread",
+        shard: Optional[Tuple[int, int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -125,6 +155,10 @@ class BatchLoader:
             else np.arange(len(dataset))
         )
         self.epoch = 0
+        if shard is not None and not drop_last:
+            raise ValueError("a sharded loader drops the last partial batch")
+        self._rows = None if shard is None else np.concatenate(
+            [np.arange(a, b) for a, b in shard_rows(self.batch_size, shard)])
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode: {worker_mode!r}")
         self.worker_mode = worker_mode
@@ -171,6 +205,8 @@ class BatchLoader:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         chunks = [order[b * self.batch_size:(b + 1) * self.batch_size]
                   for b in range(len(self))]
+        if self._rows is not None:  # this rank's rows
+            chunks = [c[self._rows] for c in chunks]
         # the workers load batch b + 1 while the caller uses batch b
         pending = self._submit(chunks[0]) if chunks else None
         for b in range(len(chunks)):

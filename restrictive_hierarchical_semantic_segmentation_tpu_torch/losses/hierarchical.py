@@ -19,6 +19,17 @@ same conventions:
 
 Every reduction is f32 whatever the compute dtype (f64 inputs stay f64,
 for reference runs). Maps are NHWC.
+
+Over a data-parallel ``group`` (each rank holds an equal share of the
+global batch, and the trainer takes the mean of the ranks' gradients), the
+loss must be one whose mean over the ranks is the global batch's loss.
+Every term is a mean over items, pixels or parents of equal-sized shards
+(cross-entropy and OHEM per image, consistency, KL), whose rank mean is the
+global mean, except soft Dice: it divides by the number of items whose
+union is non-zero, which differs between shards. That count is
+all-reduced over the group (forward only, no gradient: a count) and each
+rank's Dice sum is scaled by the group size, so the ranks' mean is the
+global sum over the global count.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..hierarchy.tree import ClassTree
 from ..ops.restrictive import grouped_conditional_kl
@@ -152,12 +164,14 @@ def hierarchical_loss(
         q_per_level=None, tree: Optional[ClassTree] = None,
         level_mask: Optional[Sequence[float]] = None,
         lambda_cons: float = 1.0, lambda_kl: float = 0.0,
-        dice_smooth: float = 0.0, ohem: Optional[tuple] = None
-) -> tuple[torch.Tensor, torch.Tensor]:
+        dice_smooth: float = 0.0, ohem: Optional[tuple] = None,
+        group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``sum_L m_L * (CE_L + Dice_L) + lambda_cons * consistency
     [+ lambda_kl * KL]``; returns ``(total, per_level)`` with ``per_level``
     the (L,) CE + Dice of every level, masked or not. ``level_mask`` may be
-    a sequence or a tensor of 0/1 per level."""
+    a sequence or a tensor of 0/1 per level. ``group``: the data-parallel
+    process group of more than one rank this batch is a shard of (module
+    docstring); one all-reduce of the levels' Dice counts."""
     n_levels = len(logits_per_level)
     device = logits_per_level[0].device
     if level_mask is None:
@@ -166,7 +180,7 @@ def hierarchical_loss(
         mask = torch.as_tensor(level_mask, dtype=torch.float32,
                                device=device)
     total = torch.zeros((), dtype=torch.float32, device=device)
-    per_level = []
+    terms = []
     for L in range(n_levels):
         w = None if level_weights is None else level_weights[L]
         ce_targets = targets_per_level[L]
@@ -180,6 +194,17 @@ def hierarchical_loss(
         ce = masked_cross_entropy(logits_per_level[L], ce_targets, w)
         dsum, dcnt = masked_soft_dice(logits_per_level[L],
                                       targets_per_level[L], w, dice_smooth)
+        terms.append((ce, dsum, dcnt))
+    if group is not None:
+        # the group's count of kept items per level, and each rank's share
+        # of the Dice sum scaled by the group size
+        counts = torch.stack([t[2] for t in terms]).detach().clone()
+        dist.all_reduce(counts, group=group)
+        ranks = dist.get_world_size(group)
+        terms = [(ce, dsum * ranks, counts[L])
+                 for L, (ce, dsum, _) in enumerate(terms)]
+    per_level = []
+    for L, (ce, dsum, dcnt) in enumerate(terms):
         lvl = ce + dsum / dcnt.clamp_min(1.0)
         per_level.append(lvl)
         total = total + mask[L] * lvl

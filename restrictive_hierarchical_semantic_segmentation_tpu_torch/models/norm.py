@@ -28,7 +28,11 @@ is the BN backward kernel), then update the running buffers under
 
 with the flax momentum ``m = 0.9`` (torch's 0.1) and the unbiased (Bessel)
 batch variance in the running buffer, as ``LeanBatchNorm`` stores it. The
-statistics are those of the local batch. Train mode takes act "none" or
+statistics are those of the local batch, or, with a data-parallel group of
+more than one rank (:func:`set_bn_group`), of the whole batch of the group
+(``LeanBatchNorm`` under a ``data`` mesh axis: SyncBatchNorm), through
+:func:`..ops.fused_bn_act.sync_batch_norm_act`; ``n`` is then the group's
+row count. The group is used in train mode only. Train mode takes act "none" or
 "relu": the JAX backward treats every other act as the identity, which is
 wrong for ``leaky_relu``, so the port raises for it instead.
 
@@ -45,11 +49,13 @@ eps is 1e-5.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from ..ops.fused_bn_act import ACTS, batch_norm_act, fused_scale_bias_act
+from ..ops.fused_bn_act import (ACTS, batch_norm_act, fused_scale_bias_act,
+                                sync_batch_norm_act)
 
-__all__ = ["BatchNormAct", "BN_MOMENTUM"]
+__all__ = ["BatchNormAct", "BN_MOMENTUM", "set_bn_group"]
 
 BN_MOMENTUM = 0.9  # flax convention; torch's momentum 0.1
 
@@ -61,6 +67,9 @@ class BatchNormAct(nn.Module):
     def __init__(self, num_features: int, act: str = "none",
                  eps: float = 1e-5):
         super().__init__()
+        # the data-parallel process group whose batch the train-mode
+        # statistics span (None: this rank's batch); see set_bn_group
+        self.group = None
         if act not in ACTS:
             raise ValueError(f"unknown act {act!r}")
         self.act = act
@@ -108,10 +117,15 @@ class BatchNormAct(nn.Module):
 
     def _train(self, xn: torch.Tensor) -> torch.Tensor:
         # fused_bn_act raises for an act other than "none" and "relu"
-        y, mean, var = batch_norm_act(xn, self.weight, self.bias, self.eps,
-                                      self.act)
-        n = xn.numel() // xn.shape[-1]
-        bessel = n / (n - 1) if n > 1 else 1.0
+        if self.group is None:
+            y, mean, var = batch_norm_act(xn, self.weight, self.bias,
+                                          self.eps, self.act)
+            n = xn.numel() // xn.shape[-1]
+            bessel = n / (n - 1) if n > 1 else 1.0
+        else:  # n: the group's rows, a 0-dim f64 tensor on the device
+            y, mean, var, n = sync_batch_norm_act(
+                xn, self.weight, self.bias, self.group, self.eps, self.act)
+            bessel = torch.where(n > 1, n / (n - 1), 1.0)
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -121,3 +135,16 @@ class BatchNormAct(nn.Module):
 
     def extra_repr(self) -> str:
         return f"{self.weight.shape[0]}, act={self.act}, eps={self.eps}"
+
+
+def set_bn_group(model: nn.Module, group) -> nn.Module:
+    """Make every :class:`BatchNormAct` of ``model`` take its train-mode
+    statistics over the batch of every rank of the process ``group`` (None,
+    or a group of one rank: this rank's batch alone, through the
+    single-launch kernels). Eval mode ignores it."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    for m in model.modules():
+        if isinstance(m, BatchNormAct):
+            m.group = group
+    return model

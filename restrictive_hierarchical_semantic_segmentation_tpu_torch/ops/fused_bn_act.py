@@ -41,6 +41,31 @@ forward is the scale-bias-act kernel, it saves only x and ``(C,)`` vectors,
 and its backward is the BN backward kernel (one launch per call).
 :func:`batch_norm_act` takes the statistics first, on ``x.detach()``.
 
+Global-batch BatchNorm over a data-parallel group of ranks
+(:func:`sync_batch_norm_act`, :class:`SyncFusedBNAct`; the JAX
+``LeanBatchNorm``'s statistics over the batch of the whole ``data`` mesh
+axis) splits kernels 1 and 3 at their reductions, through three more entry
+points, each counted in ``TRAIN_LAUNCHES`` under its own name and each with
+a plain version here:
+
+=================================  ==========================================
+entry (CUDA source)                plain version
+=================================  ==========================================
+``bn_stats_sums`` (bn_stats.cu)    :func:`_bn_stats_sums_ref`: f64 Σx, Σx², n
+``bn_backward_reduce``             :func:`_bn_backward_reduce_ref`: the local
+(bn_backward.cu)                   dgamma, dbeta, and f64 Σdy, Σdy·x̂, n
+``bn_backward_dx``                 :func:`_bn_backward_dx_ref`: dx from the
+(bn_backward.cu)                   group's sums
+=================================  ==========================================
+
+The forward all-reduces the ``(2C + 1)`` f64 sums of kernel 1 over the
+group and forms mean and var from them in f64 (:func:`stats_from_sums`, the
+kernel's own arithmetic), then runs kernel 2 as a single rank does; the
+backward all-reduces the sums of the reduce entry between it and the dx
+entry. dgamma and dbeta stay the local sums: the trainer's gradient
+all-reduce adds them. On one rank the split equals the fused kernels bit
+for bit (mean, var, dx, dgamma, dbeta); a group of one rank never takes it.
+
 The kernels write new tensors (out of place): the eval-mode caller could
 let scale-bias-act overwrite the dead conv output, but the saving is one
 allocation from PyTorch's caching allocator, not device traffic.
@@ -63,10 +88,13 @@ import ctypes
 import threading
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["fused_scale_bias_act", "bn_stats", "bn_act_backward",
-           "FusedBNAct", "fused_bn_act", "batch_norm_act", "ACTS",
-           "TRAIN_ACTS", "LAUNCHES", "TRAIN_LAUNCHES", "GRAD_COPIES"]
+           "FusedBNAct", "fused_bn_act", "batch_norm_act", "bn_stats_sums",
+           "stats_from_sums", "bn_backward_reduce", "bn_backward_dx",
+           "SyncFusedBNAct", "sync_batch_norm_act", "ACTS", "TRAIN_ACTS",
+           "LAUNCHES", "TRAIN_LAUNCHES", "GRAD_COPIES"]
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 # the train-mode backward differentiates these two only
@@ -74,7 +102,8 @@ TRAIN_ACTS = ("none", "relu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
-TRAIN_LAUNCHES = {"bn_stats": 0, "bn_backward": 0}
+TRAIN_LAUNCHES = {"bn_stats": 0, "bn_backward": 0, "bn_stats_sums": 0,
+                  "bn_backward_reduce": 0, "bn_backward_dx": 0}
 GRAD_COPIES = 0
 
 
@@ -104,6 +133,11 @@ _SIGNATURES = {
     ("bn_stats", "rhss_bn_stats"): [_P, _I64, _I, _I, _P, _P, _P, _P, _P],
     ("bn_backward", "rhss_bn_backward"):
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    ("bn_stats", "rhss_bn_stats_sums"): [_P, _I64, _I, _I, _P, _P, _P, _P],
+    ("bn_backward", "rhss_bn_backward_reduce"):
+        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    ("bn_backward", "rhss_bn_backward_dx"):
+        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 _FNS = {}
 
@@ -303,18 +337,23 @@ def _stats_workspace(x: torch.Tensor, c: int) -> torch.Tensor:
                        dtype=torch.float32, device=x.device)
 
 
-def _launch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    c = _check_rows_c(x, "bn_stats")
+def _stats_args(x: torch.Tensor, what: str):
+    """The checks and scratch of a statistics launch: (rows, C, stream,
+    workspace, counters)."""
+    c = _check_rows_c(x, what)
     rows = x.numel() // c
     if rows == 0:
-        raise ValueError("bn_stats needs at least one row")
+        raise ValueError(f"{what} needs at least one row")
     if c > 8 * 32 * _STATS_GROUPS:
-        raise ValueError(f"bn_stats takes C <= {8 * 32 * _STATS_GROUPS}, "
+        raise ValueError(f"{what} takes C <= {8 * 32 * _STATS_GROUPS}, "
                          f"got C = {c}")
     stream = _stream(x)
-    counters = _counters(x, stream)
+    return rows, c, stream, _stats_workspace(x, c), _counters(x, stream)
+
+
+def _launch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    rows, c, stream, ws, counters = _stats_args(x, "bn_stats")
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
-    ws = _stats_workspace(x, c)
     _call(x, "bn_stats", _fn("bn_stats", "rhss_bn_stats"), x.data_ptr(),
           rows, c, _DTYPES[x.dtype], ws.data_ptr(), counters.data_ptr(),
           out[0].data_ptr(), out[1].data_ptr(), stream)
@@ -330,6 +369,51 @@ def bn_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if _device_of(x, "bn_stats") == "cpu":
         return _bn_stats_ref(x)
     return _launch_stats(x)
+
+
+# ------------------------------------- statistics over a data-parallel group
+def _bn_stats_sums_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sums entry: ``[Σx, Σx², n]`` (2C + 1,) in f64
+    over the rows of (rows, C)."""
+    xd = x.reshape(-1, x.shape[-1]).double()
+    n = xd.new_full((1,), float(xd.shape[0]))
+    return torch.cat([xd.sum(0), (xd * xd).sum(0), n])
+
+
+def _launch_stats_sums(x: torch.Tensor) -> torch.Tensor:
+    rows, c, stream, ws, counters = _stats_args(x, "bn_stats_sums")
+    sums = torch.empty(2 * c + 1, dtype=torch.float64, device=x.device)
+    _call(x, "bn_stats_sums", _fn("bn_stats", "rhss_bn_stats_sums"),
+          x.data_ptr(), rows, c, _DTYPES[x.dtype], ws.data_ptr(),
+          counters.data_ptr(), sums.data_ptr(), stream)
+    TRAIN_LAUNCHES["bn_stats_sums"] += 1
+    return sums
+
+
+def bn_stats_sums(x: torch.Tensor) -> torch.Tensor:
+    """``[Σx, Σx², n]`` of ``x`` (..., C) per channel over every other
+    axis, one (2C + 1,) f64 tensor: kernel 1's sums before it divides, for
+    an all-reduce over the ranks of a group (:func:`stats_from_sums` then
+    forms the statistics). One launch per call."""
+    if _device_of(x, "bn_stats_sums") == "cpu":
+        return _bn_stats_sums_ref(x)
+    return _launch_stats_sums(x)
+
+
+def stats_from_sums(sums: torch.Tensor,
+                    dtype: torch.dtype = torch.float32
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, var)`` in ``dtype`` from ``[Σx, Σx², n]``: ``mean = Σx ·
+    (1/n)``, ``var = max(Σx² · (1/n) − mean², 0)`` in f64, each operation
+    rounded once, then one rounding to ``dtype``: kernel 1's last step
+    (``csrc/bn_stats.cu``), so one rank's sums give its statistics bit for
+    bit."""
+    c = (sums.shape[0] - 1) // 2
+    inv_n = 1.0 / sums[2 * c:]
+    mean = sums[:c] * inv_n
+    var = sums[c:2 * c] * inv_n - mean * mean
+    var = torch.where(var > 0.0, var, 0.0)
+    return mean.to(dtype), var.to(dtype)
 
 
 # ---------------------------------------------------------------- BN backward
@@ -354,27 +438,43 @@ def _bn_backward_ref(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     return dx, eydz, edz
 
 
-def _launch_backward(x: torch.Tensor, g: torch.Tensor, scale, shift, mean,
-                     rstd, act: str, need_dx: bool):
+def _grad_layout(g: torch.Tensor) -> torch.Tensor:
+    """g in the contiguous, 16-byte aligned (rows, C) layout the kernels
+    read: the gradient autograd brings back may come in another layout (a
+    slice of a concat's gradient, a resize's scatter); a copy is counted in
+    ``GRAD_COPIES``."""
     global GRAD_COPIES
-    c = _check_rows_c(x, "bn_backward")
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f"bn_backward needs g like x {tuple(x.shape)} "
-                         f"{x.dtype} {x.device}; got {tuple(g.shape)} "
-                         f"{g.dtype} {g.device}")
     if not g.is_contiguous() or g.data_ptr() % 16:
-        # the gradient autograd brings back may come in another layout (a
-        # slice of a concat's gradient, a resize's scatter): copy it into
-        # the (rows, C) layout the kernels read
         g = g.contiguous() if not g.is_contiguous() else g.clone()
         GRAD_COPIES += 1
+    return g
+
+
+def _backward_args(x: torch.Tensor, g: torch.Tensor, scale, shift, mean,
+                   rstd, what: str):
+    """The checks of a BN-backward launch: (C, rows, g in the (rows, C)
+    layout, the pointers of scale, shift, mean, rstd)."""
+    c = _check_rows_c(x, what)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"{what} needs g like x {tuple(x.shape)} "
+                         f"{x.dtype} {x.device}; got {tuple(g.shape)} "
+                         f"{g.dtype} {g.device}")
+    g = _grad_layout(g)
     vecs = [_per_channel(t, c, x.device, name) for t, name in
             ((scale, "scale"), (shift, "shift"), (mean, "mean"),
              (rstd, "rstd"))]
-    ptrs = [t.data_ptr() for t in vecs]
     rows = x.numel() // c
     if rows == 0:
-        raise ValueError("bn_backward needs at least one row")
+        raise ValueError(f"{what} needs at least one row")
+    # the vectors stay referenced by the caller until its launch returns
+    return c, rows, g, vecs
+
+
+def _launch_backward(x: torch.Tensor, g: torch.Tensor, scale, shift, mean,
+                     rstd, act: str, need_dx: bool):
+    c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
+                                      "bn_backward")
+    ptrs = [t.data_ptr() for t in vecs]
     sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
     edz, eydz = sums[0], sums[1]
     dx = torch.empty_like(x) if need_dx else None
@@ -396,15 +496,136 @@ def bn_act_backward(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     Returns ``(dx, dgamma, dbeta)``: dx in x's dtype (None unless
     ``need_dx``), ``dgamma = Σ dy·x̂`` and ``dbeta = Σ dy`` in f32.
     ``act``: "none" or "relu"."""
-    if act not in TRAIN_ACTS:
-        raise ValueError(f"the train-mode BN backward takes act in "
-                         f"{TRAIN_ACTS}, not {act!r}")
+    _check_train_act(act)
     if _device_of(x, "bn_backward") == "cpu":
         c = x.shape[-1]
         dx, dg, db = _bn_backward_ref(x.reshape(-1, c), g.reshape(-1, c),
                                       scale, shift, mean, rstd, act, need_dx)
         return (None if dx is None else dx.reshape(x.shape)), dg, db
     return _launch_backward(x, g, scale, shift, mean, rstd, act, need_dx)
+
+
+def _bn_backward_reduce_ref(x: torch.Tensor, g: torch.Tensor,
+                            scale: torch.Tensor, shift: torch.Tensor,
+                            mean: torch.Tensor, rstd: torch.Tensor, act: str):
+    """Plain version of the reduce entry on (rows, C): ``(dgamma, dbeta,
+    sums)`` with the f32 products of the fused version summed in f64,
+    ``sums = [Σdy, Σdy·x̂, n]`` (2C + 1,) f64 and ``dgamma``, ``dbeta`` its
+    first two rows rounded to f32 (f64 for f64 x)."""
+    xf = _wide(x)
+    gf = _wide(g)
+    if act == "relu":
+        dy = torch.where(xf * scale + shift > 0, gf, 0.0)
+    else:
+        dy = gf
+    xhat = (xf - mean) * rstd
+    n = dy.new_full((1,), float(xf.shape[0]), dtype=torch.float64)
+    sums = torch.cat([dy.double().sum(0), (dy * xhat).double().sum(0), n])
+    c = xf.shape[1]
+    return sums[c:2 * c].to(xf.dtype), sums[:c].to(xf.dtype), sums
+
+
+def _bn_backward_dx_ref(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor, mean: torch.Tensor,
+                        rstd: torch.Tensor, sums: torch.Tensor,
+                        act: str) -> torch.Tensor:
+    """Plain version of the dx entry on (rows, C): ``dx = scale · (dy −
+    (x̂ · eydz/n + edz/n))`` with ``edz/n`` and ``eydz/n`` formed in f64 from
+    the group's ``sums = [Σdy, Σdy·x̂, n]`` and rounded once; dx in x's
+    dtype."""
+    xf = _wide(x)
+    gf = _wide(g)
+    if act == "relu":
+        dy = torch.where(xf * scale + shift > 0, gf, 0.0)
+    else:
+        dy = gf
+    xhat = (xf - mean) * rstd
+    c = xf.shape[1]
+    scaled = (sums[:2 * c] / sums[2 * c]).to(xf.dtype)
+    return (scale * (dy - (xhat * scaled[c:] + scaled[:c]))).to(x.dtype)
+
+
+def _launch_backward_reduce(x, g, scale, shift, mean, rstd, act: str):
+    c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
+                                      "bn_backward_reduce")
+    out = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2 * c + 1, dtype=torch.float64, device=x.device)
+    _call(x, "bn_backward_reduce",
+          _fn("bn_backward", "rhss_bn_backward_reduce"), x.data_ptr(),
+          g.data_ptr(), rows, c, _DTYPES[x.dtype], ACTS[act],
+          *[t.data_ptr() for t in vecs], _workspace(x, c).data_ptr(),
+          out[0].data_ptr(), out[1].data_ptr(), sums.data_ptr(), _stream(x))
+    TRAIN_LAUNCHES["bn_backward_reduce"] += 1
+    return out[1], out[0], sums
+
+
+def _launch_backward_dx(x, g, scale, shift, mean, rstd, sums, act: str):
+    c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
+                                      "bn_backward_dx")
+    if (sums.shape != (2 * c + 1,) or sums.dtype != torch.float64
+            or sums.device != x.device):
+        raise ValueError(f"bn_backward_dx needs sums ({2 * c + 1},) f64 on "
+                         f"{x.device}; got {tuple(sums.shape)} {sums.dtype} "
+                         f"{sums.device}")
+    sums = sums.contiguous()
+    dx = torch.empty_like(x)
+    _call(x, "bn_backward_dx", _fn("bn_backward", "rhss_bn_backward_dx"),
+          x.data_ptr(), g.data_ptr(), rows, c, _DTYPES[x.dtype], ACTS[act],
+          *[t.data_ptr() for t in vecs], sums.data_ptr(), dx.data_ptr(),
+          _stream(x))
+    TRAIN_LAUNCHES["bn_backward_dx"] += 1
+    return dx
+
+
+def _check_train_act(act: str) -> None:
+    if act not in TRAIN_ACTS:
+        raise ValueError(f"the train-mode BN backward takes act in "
+                         f"{TRAIN_ACTS}, not {act!r}")
+
+
+def bn_backward_reduce(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor, mean: torch.Tensor,
+                       rstd: torch.Tensor, act: str):
+    """The sums of :func:`bn_act_backward` without dx: ``(dgamma, dbeta,
+    sums)``, ``dgamma = Σ dy·x̂`` and ``dbeta = Σ dy`` in f32 as the fused
+    call returns them, and ``sums = [Σdy, Σdy·x̂, n]`` (2C + 1,) in f64 for
+    an all-reduce over a group. One (cooperative) launch per call."""
+    _check_train_act(act)
+    if _device_of(x, "bn_backward_reduce") == "cpu":
+        c = x.shape[-1]
+        return _bn_backward_reduce_ref(x.reshape(-1, c), g.reshape(-1, c),
+                                       scale, shift, mean, rstd, act)
+    return _launch_backward_reduce(x, g, scale, shift, mean, rstd, act)
+
+
+def bn_backward_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, sums: torch.Tensor,
+                   act: str) -> torch.Tensor:
+    """dx of :func:`bn_act_backward` from ``sums = [Σdy, Σdy·x̂, n]`` of
+    the whole group (the reduce entry's sums, all-reduced): dx in x's dtype
+    and shape. One launch per call."""
+    _check_train_act(act)
+    if _device_of(x, "bn_backward_dx") == "cpu":
+        c = x.shape[-1]
+        return _bn_backward_dx_ref(x.reshape(-1, c), g.reshape(-1, c), scale,
+                                   shift, mean, rstd, sums,
+                                   act).reshape(x.shape)
+    return _launch_backward_dx(x, g, scale, shift, mean, rstd, sums, act)
+
+
+def _bn_forward(ctx, x, mean, var, gamma, beta, eps: float, act: str):
+    """The forward both autograd Functions share: kernel 2 with (C,)
+    vectors in f32 (f64 for an f64 reference), autocast off."""
+    with torch.autocast(x.device.type, enabled=False):
+        mean, var, gamma, beta = map(_wide, (mean, var, gamma, beta))
+        rstd = torch.rsqrt(var + eps)
+        scale = gamma * rstd
+        shift = beta - mean * gamma * rstd
+        y = fused_scale_bias_act(x, scale, shift, act)
+    ctx.save_for_backward(x, mean, rstd, scale, shift)
+    ctx.act = act
+    return y
 
 
 class FusedBNAct(torch.autograd.Function):
@@ -420,15 +641,7 @@ class FusedBNAct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mean, var, gamma, beta, eps: float, act: str):
-        with torch.autocast(x.device.type, enabled=False):
-            mean, var, gamma, beta = map(_wide, (mean, var, gamma, beta))
-            rstd = torch.rsqrt(var + eps)
-            scale = gamma * rstd
-            shift = beta - mean * gamma * rstd
-            y = fused_scale_bias_act(x, scale, shift, act)
-        ctx.save_for_backward(x, mean, rstd, scale, shift)
-        ctx.act = act
-        return y
+        return _bn_forward(ctx, x, mean, var, gamma, beta, eps, act)
 
     @staticmethod
     def backward(ctx, g):
@@ -459,3 +672,52 @@ def batch_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     the backward's dx) and returned for the running-statistics update."""
     mean, var = bn_stats(x.detach())
     return fused_bn_act(x, mean, var, gamma, beta, eps, act), mean, var
+
+
+class SyncFusedBNAct(torch.autograd.Function):
+    """:class:`FusedBNAct` whose statistics are those of the whole batch of
+    a data-parallel ``group`` (mean and var from
+    :func:`sync_batch_norm_act`). The forward is the same kernel 2 launch.
+    The backward splits kernel 3: the reduce entry, one all-reduce of its
+    (2C + 1) f64 sums over the group, then the dx entry. dgamma and dbeta
+    are this rank's sums (the gradient all-reduce adds them). Without dx
+    (the input needs no gradient; the same on every rank) the backward is
+    the reduce entry alone, with no all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, gamma, beta, eps: float, act: str, group):
+        ctx.group = group
+        return _bn_forward(ctx, x, mean, var, gamma, beta, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale, shift = ctx.saved_tensors
+        with torch.autocast(x.device.type, enabled=False):
+            if x.device.type == "cuda":  # one copy for both entries
+                g = _grad_layout(g)
+            dgamma, dbeta, sums = bn_backward_reduce(x, g, scale, shift,
+                                                     mean, rstd, ctx.act)
+            dx = None
+            if ctx.needs_input_grad[0]:
+                dist.all_reduce(sums, group=ctx.group)
+                dx = bn_backward_dx(x, g, scale, shift, mean, rstd, sums,
+                                    ctx.act)
+        return dx, None, None, dgamma, dbeta, None, None, None
+
+
+def sync_batch_norm_act(x: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, group, eps: float = 1e-5,
+                        act: str = "relu"):
+    """:func:`batch_norm_act` over the batch of every rank of ``group``:
+    ``(y, mean, var, n)`` with mean and var (f32) those of the concatenated
+    batches and ``n`` (a 0-dim f64 tensor on x's device) the group's row
+    count. One all-reduce of kernel 1's (2C + 1) f64 sums in the forward,
+    one of kernel 3's in the backward."""
+    if act not in TRAIN_ACTS:
+        raise ValueError(f"train-mode BN takes act in {TRAIN_ACTS}, not "
+                         f"{act!r} (the backward differentiates those only)")
+    sums = bn_stats_sums(x.detach())
+    dist.all_reduce(sums, group=group)
+    mean, var = stats_from_sums(sums, _wide(x).dtype)
+    y = SyncFusedBNAct.apply(x, mean, var, gamma, beta, eps, act, group)
+    return y, mean, var, sums[-1]

@@ -124,7 +124,10 @@ class CheckpointManager:
 
     def __init__(self, save_dir: str, async_save: bool = True,
                  ckpt_every: int = 1, final_epoch: Optional[int] = None,
-                 best_save: str = "every"):
+                 best_save: str = "every",
+                 defer_snapshot: Optional[Callable[[TrainState], Any]] = None,
+                 defer_fetch: Optional[Callable[[Any], Dict]] = None,
+                 write: bool = True):
         """``ckpt_every``/``final_epoch``: the last.ckpt cadence — last saves
         on every ``ckpt_every``-th epoch and on the final one (best.ckpt
         saves on every improvement regardless).
@@ -135,18 +138,37 @@ class CheckpointManager:
         once in ``finalize()``. A pending deferred best is also flushed to
         disk on every last.ckpt cadence epoch, so a crash loses at most
         ``ckpt_every`` epochs of best-tracking, and ``--auto-resume``
-        re-seeds the gate from the flushed best.ckpt meta."""
+        re-seeds the gate from the flushed best.ckpt meta.
+
+        ``defer_snapshot``/``defer_fetch``: owner-managed storage of the
+        deferred best (``best_save="end"``): ``defer_snapshot(state) ->
+        handle`` replaces the default copy on the state's device and
+        ``defer_fetch(handle) -> snapshot`` gives it back on the host at
+        flush or finalize time (the fold-parallel trainer keeps its folds'
+        bests this way).
+
+        ``write``: a data-parallel group passes ``write=False`` on every
+        rank but its first. A non-writing manager makes the same best/last
+        decisions (the trainer gives every rank the first rank's metrics,
+        and the first rank's gate: ``prev_best``) and calls the same hooks,
+        but touches no file and copies no state to the host."""
+        if (defer_snapshot is None) != (defer_fetch is None):
+            raise ValueError("defer_snapshot and defer_fetch come together")
         if ckpt_every < 1:
             raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
         if best_save not in ("every", "end"):
             raise ValueError(f"best_save must be 'every'|'end', {best_save!r}")
         self.save_dir = save_dir
-        os.makedirs(save_dir, exist_ok=True)
-        self._async = async_save
+        self.write = bool(write)
+        if self.write:
+            os.makedirs(save_dir, exist_ok=True)
+        self._async = async_save and self.write
         self.ckpt_every = int(ckpt_every)
         self.final_epoch = final_epoch
         self.best_save = best_save
-        self._deferred_best: Optional[Tuple[Dict, Dict]] = None
+        self._deferred_best: Optional[Tuple[Any, Dict]] = None
+        self._defer_snapshot = defer_snapshot
+        self._defer_fetch = defer_fetch
         self._executor = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
             if self._async else None
@@ -201,23 +223,29 @@ class CheckpointManager:
             return False
         defer_best = is_best and self.best_save == "end"
         if defer_best:
-            # a copy on the state's own device: the next step updates the
-            # live tensors in place
-            self._deferred_best = (snapshot(state, device=None), meta)
+            if self._defer_snapshot is not None:
+                self._deferred_best = (self._defer_snapshot(state), meta)
+            else:
+                # a copy on the state's own device: the next step updates
+                # the live tensors in place
+                self._deferred_best = (snapshot(state, device=None), meta)
             if not save_last:
                 self._surface_failed_save()
                 return True
         write_best = is_best and not defer_best
         # cadence epoch with a deferred best pending: flush it to disk along
         # with last.ckpt
-        flush: Optional[Tuple[Dict, Dict]] = None
+        flush: Optional[Tuple[Any, Dict]] = None
         if save_last and self._deferred_best is not None:
             flush, self._deferred_best = self._deferred_best, None
+        if not self.write:  # the same decisions, no file and no host copy
+            return is_best
         tasks = []
         if self._async:
             self.wait()  # one save in flight; surfaces worker errors
         if flush is not None:
-            tasks.append((self.best_path, _to_host(flush[0]), flush[1]))
+            tasks.append((self.best_path, self._defer_to_host(flush[0]),
+                          flush[1]))
         host_state = snapshot(state)
         if write_best:
             tasks.append((self.best_path, host_state, meta))
@@ -233,6 +261,13 @@ class CheckpointManager:
         for path, st, meta in tasks:
             save_checkpoint(path, st, **meta)
 
+    def _defer_to_host(self, snap) -> Dict:
+        """A deferred best (a device-side snapshot or the owner's handle)
+        on the host."""
+        if self._defer_fetch is not None:
+            return self._defer_fetch(snap)
+        return _to_host(snap)
+
     def wait(self) -> None:
         """Block until the in-flight async save (if any) has finished; raises
         if it failed."""
@@ -247,7 +282,9 @@ class CheckpointManager:
         if self._deferred_best is not None:
             snap, meta = self._deferred_best
             self._deferred_best = None
-            save_checkpoint(self.best_path, _to_host(snap), **meta)
+            if self.write:
+                save_checkpoint(self.best_path, self._defer_to_host(snap),
+                                **meta)
 
 
 def _to_host(snap: Dict) -> Dict:

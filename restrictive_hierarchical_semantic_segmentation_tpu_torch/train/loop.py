@@ -6,12 +6,32 @@ the reference's ``train``/``train_epoch``/``test`` behaviours
 (train.py:161-710) with the JAX package's fixes: every fold trains, the loss
 takes the level weights, and the consistency term sees soft probabilities.
 
-One device, no mesh: the model lives on ``device`` (``cuda`` unless the
-caller asks for the CPU) in ``torch.channels_last``, where every BatchNorm
-runs the port's kernels. With ``device_data`` the training set lives on
-that device too and is augmented there (``data/device_augment.py``);
-validation keeps the host chain. Options of the JAX trainer that the port
-does not have raise (:func:`check_supported`).
+The model lives on ``device`` (``cuda`` unless the caller asks for the
+CPU) in ``torch.channels_last``, where every BatchNorm runs the port's
+kernels. With ``device_data`` the training set lives on that device too
+and is augmented there (``data/device_augment.py``); validation keeps the
+host chain. Options of the JAX trainer that the port does not have raise
+(:func:`check_supported`).
+
+Data parallelism (the JAX trainer's ``data`` mesh axis): in a run of
+several ranks (``parallel/mesh.py:init_distributed``) a :class:`Trainer`
+spans a data group of ranks (every rank by default, or the group the
+fold-parallel trainer gives it) and computes what one process computes on
+the global batch: each rank loads its rows of every batch
+(``data/loader.py:shard_rows``), BatchNorm takes the group's statistics,
+the step all-reduces the Dice counts, the gradients and its aux
+(``train/steps.py``). Parameters start from the group's first rank (a
+broadcast) and stay the same bits on every rank. Validation runs on every
+rank over the whole validation set (the JAX batch replicated over
+``data``), and the host's decisions (the plateau learning rate, the
+best-save gate, the NaN probe, the scheduler's state in the checkpoint
+meta) come from the first rank's numbers, broadcast; a rank whose learning
+rate differs from the first rank's raises. Only the first rank writes
+``metrics.csv``, checkpoints, logs and image dumps, and prints progress
+(``CheckpointManager(write=False)`` on the others).
+
+``train`` runs the folds one after another, or all of them in lockstep
+with ``fold_parallel`` (``train/fold_parallel.py``).
 
 ``model_weights``: a ``<name>.ckpt`` directory of the port's trainer
 resumes (model, optimizer, epoch, scheduler); a ``.pt``/``.pth`` file
@@ -31,6 +51,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.run import RunConfig
 from ..data.dataset import SegDataset
@@ -40,6 +61,8 @@ from ..data.png import encode_png_gray8
 from ..hierarchy.tree import ClassTree
 from ..metrics.segmentation import MetricAccumulator
 from ..models.hierarchical import build_model
+from ..models.norm import set_bn_group
+from ..parallel.mesh import DataGroup, make_mesh, single, world
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, load_checkpoint
@@ -69,16 +92,13 @@ def _fold_ids(cfg: RunConfig) -> List[int]:
 def check_supported(cfg: RunConfig) -> None:
     """Raise for the JAX trainer's options that the port does not have:
     grain, which has no counterpart, and those of ROADMAP queue 1, item 8
-    (scale-out)."""
+    still to port (spatial sharding, rematerialization, profiling)."""
     if cfg.loader == "grain":
         raise NotImplementedError(
             "--loader grain: grain is a JAX input pipeline with no "
             "counterpart in the PyTorch port; use --loader threads or "
             "process")
     refused = []
-    if cfg.fold_parallel and len(_fold_ids(cfg)) > 1:
-        refused.append("--fold-parallel True over several folds "
-                       "(queue 1, item 8)")
     if cfg.n_space > 1:
         refused.append(f"--n-space {cfg.n_space} (queue 1, item 8)")
     if cfg.remat:
@@ -102,10 +122,13 @@ def list_pairs(root: str) -> Tuple[List[str], List[str]]:
 
 
 def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
-                 val_root: Optional[str], device=None):
+                 val_root: Optional[str], device=None, shard=None):
     """One fold's (train, val) loaders. With ``cfg.device_data`` the train
     loader is a :class:`DeviceDataset` on ``device`` (``cuda`` unless the
-    caller asks for the CPU), which yields tensors already there."""
+    caller asks for the CPU), which yields tensors already there.
+    ``shard``: ``(index, size, grad_accum)`` of this rank in its data group
+    (``data/loader.py:shard_rows``); the train loader yields its rows of
+    every batch, the validation loader every image."""
     check_supported(cfg)
     hier = cfg.hierarchical
     tr_imgs, tr_labs = list_pairs(train_root)
@@ -129,13 +152,14 @@ def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
         # per-epoch work is a permutation
         train_loader = DeviceDataset(
             tr_imgs, tr_labs, tree, cfg.img_size, hier,
-            batch_size=cfg.batch_size, seed=cfg.seed, device=device)
+            batch_size=cfg.batch_size, seed=cfg.seed, device=device,
+            shard=shard)
     else:
         train_loader = BatchLoader(
             SegDataset(tr_imgs, tr_labs, tree, cfg.img_size, hier,
                        augment=True, **ds_kw),
             cfg.batch_size, shuffle=True, drop_last=True, seed=cfg.seed,
-            **loader_kw,
+            shard=shard, **loader_kw,
         )
     val_loader = BatchLoader(
         SegDataset(va_imgs, va_labs, tree, cfg.img_size, hier,
@@ -212,17 +236,42 @@ def run_validation(eval_step, val_loader, device, num_classes_per_level,
     }
 
 
+def default_data_group(cfg: RunConfig) -> DataGroup:
+    """The data group of a :class:`Trainer` built without one: every rank
+    of the run (the JAX multi-process trainer's mesh spans every process),
+    or this process alone."""
+    _, size = world()
+    if size == 1:
+        return single()
+    return make_mesh(n_data=size).data_group()
+
+
 class Trainer:
-    """One fold's build + epoch machinery on one device."""
+    """One fold's build + epoch machinery, on one device or over the ranks
+    of a data group (module docstring).
+
+    ``data_group``: the ranks this fold's batch is split over (default:
+    :func:`default_data_group`). ``defer``: ``(defer_snapshot,
+    defer_fetch)`` for the checkpoint manager's deferred best."""
 
     def __init__(self, cfg: RunConfig, tree: ClassTree,
                  train_root: str, val_root: Optional[str], save_loc: str,
-                 device=None):
+                 device=None, data_group: Optional[DataGroup] = None,
+                 defer=None):
         self.cfg = cfg
         self.tree = tree
         self.save_loc = save_loc
         self.device = resolve_device(device)
-        os.makedirs(save_loc, exist_ok=True)
+        self.data = (default_data_group(cfg) if data_group is None
+                     else data_group)
+        self.is_main = self.data.is_main
+        ranks = self.data.size
+        if cfg.batch_size % (ranks * cfg.grad_accum):
+            raise ValueError(
+                f"batch {cfg.batch_size} does not split over a data group "
+                f"of {ranks} ranks x {cfg.grad_accum} microbatches")
+        if self.is_main:
+            os.makedirs(save_loc, exist_ok=True)
 
         hier = cfg.hierarchical
         self.num_classes_per_level = (
@@ -254,14 +303,24 @@ class Trainer:
         elif cfg.model_weights:  # one of the port's own .ckpt directories
             self.state, self._resume_meta = load_checkpoint(
                 cfg.model_weights, self.state)
-            print(f"Resumed from {cfg.model_weights}: {self._resume_meta}")
+            if self.is_main:
+                print(f"Resumed from {cfg.model_weights}: "
+                      f"{self._resume_meta}")
+        group = self.data.group
+        if group is not None:
+            # every rank starts from the first rank's parameters and
+            # statistics, and its BatchNorms span the group's batch
+            with torch.no_grad():
+                for t in self.model.state_dict().values():
+                    dist.broadcast(t, src=self.data.root, group=group)
+            set_bn_group(self.model, group)
 
         lw = cfg.level_weights
         ohem = (cfg.ohem_thres, cfg.ohem_keep) if cfg.use_ohem else None
         self.train_step = make_train_step(
             self.model, tree, hier, lw, cfg.lambda_cons, cfg.lambda_kl,
             ohem=ohem, grad_accum=cfg.grad_accum,
-            compute_dtype=cfg.compute_dtype,
+            compute_dtype=cfg.compute_dtype, group=group,
         )
         self.eval_step = make_eval_step(
             self.model, tree, hier, lw, cfg.lambda_cons, cfg.lambda_kl,
@@ -271,9 +330,15 @@ class Trainer:
         self.scheduler = ReduceLROnPlateau(
             cfg.lr, "max", 0.5, 3, min_lr=cfg.lrs_min
         ) if cfg.lrs else None
+        snap, fetch = defer if defer is not None else (None, None)
         self.ckpt = CheckpointManager(
             save_loc, ckpt_every=cfg.ckpt_every, final_epoch=cfg.epochs,
-            best_save=cfg.best_save)
+            best_save=cfg.best_save, defer_snapshot=snap, defer_fetch=fetch,
+            write=self.is_main)
+        if group is not None:  # the gate starts where the writer's does
+            best = self.agree([np.nan if self.ckpt.prev_best is None
+                               else self.ckpt.prev_best])[0]
+            self.ckpt.prev_best = None if np.isnan(best) else best
 
         # --- exact resume: the epoch counter and the plateau scheduler from
         # the checkpoint's meta, so the LR trajectory and best-ckpt
@@ -291,12 +356,24 @@ class Trainer:
                 })
 
         # --- data, last: its worker pools are released by close() ----------
+        shard = ((self.data.index, ranks, cfg.grad_accum) if ranks > 1
+                 else None)
         self.train_loader, self.val_loader = make_loaders(
-            cfg, tree, train_root, val_root, device=self.device
+            cfg, tree, train_root, val_root, device=self.device, shard=shard
         )
 
     def lr(self) -> float:
         return float(self.state.optimizer.param_groups[0]["lr"])
+
+    def agree(self, values: List[float]) -> List[float]:
+        """The data group's first rank's ``values`` on every rank of the
+        group (a broadcast; the values themselves on one rank): every host
+        decision is taken from them."""
+        if self.data.group is None:
+            return [float(v) for v in values]
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=self.data.root, group=self.data.group)
+        return t.tolist()
 
     def _check_finite(self, loss_val: float, epoch: int, step_idx: int,
                       per_level):
@@ -309,35 +386,41 @@ class Trainer:
             )
 
     # ------------------------------------------------------------- epochs
-    def train_epoch(self, epoch: int):
-        cfg = self.cfg
+    def epoch_batches(self, epoch: int):
+        """The epoch's (x, y) batches on the device (this rank's rows)."""
         self.train_loader.set_epoch(epoch)
-        mask = torch.tensor(cfg.level_mask_for_epoch(epoch, self.n_levels),
-                            dtype=torch.float32, device=self.device)
-        acc = MetricAccumulator(self.num_classes_per_level)
-        t0 = time.time()
-        n = 0
-        # per-step aux stays on the device during the epoch (reading it
-        # would synchronize every step); it is fetched once after the last
-        device_aux = []
-        probe = max(0, int(cfg.nan_probe_every))
-        batches = (self.train_loader if cfg.device_data else
-                   prefetch_to_device(self.train_loader, 2, self.device))
-        for x, y in batches:
-            self.state, aux = self.train_step(self.state, x, y, mask)
-            device_aux.append(aux)
-            n += 1
-            if probe and n % probe == 0:
-                # one scalar fetch every `probe` steps bounds a bad run
-                self._check_finite(float(aux["loss"]), epoch, n - 1,
-                                   aux["per_level"].cpu())
+        if self.cfg.device_data:
+            return self.train_loader
+        return prefetch_to_device(self.train_loader, 2, self.device)
+
+    def level_mask(self, epoch: int) -> torch.Tensor:
+        return torch.tensor(
+            self.cfg.level_mask_for_epoch(epoch, self.n_levels),
+            dtype=torch.float32, device=self.device)
+
+    def step(self, x, y, mask, epoch: int, n: int):
+        """The epoch's ``n``-th train step (from 1); its aux stays on the
+        device (reading it would synchronize every step), but every
+        ``nan_probe_every`` steps one scalar fetch, the first rank's, bounds
+        a bad run."""
+        self.state, aux = self.train_step(self.state, x, y, mask)
+        probe = max(0, int(self.cfg.nan_probe_every))
+        if probe and n % probe == 0:
+            loss = self.agree([float(aux["loss"])])[0]
+            self._check_finite(loss, epoch, n - 1, aux["per_level"].cpu())
+        return aux
+
+    def epoch_result(self, epoch: int, device_aux: list, dt: float,
+                     batches: int) -> dict:
+        """The epoch's numbers from its steps' aux (one host transfer); the
+        per-level losses are divided by ``batches`` global batches."""
         losses, level, confmats = _fetch(device_aux, self.n_levels)
-        dt = time.time() - t0
+        acc = MetricAccumulator(self.num_classes_per_level)
         for step_idx in range(len(losses)):
             self._check_finite(float(losses[step_idx]), epoch, step_idx,
                                level[step_idx])
             acc.update([cm[step_idx] for cm in confmats])
-        denom = max(1, len(self.train_loader) * cfg.batch_size)
+        denom = max(1, batches * self.cfg.batch_size)
         return {
             "loss": float(np.mean(losses)) if len(losses) else 0.0,
             "level_loss": (level.sum(0) / denom).tolist() if len(losses)
@@ -345,14 +428,23 @@ class Trainer:
             "overall": acc.epoch_overall(),
             "per_class": acc.epoch_per_class(),
             "time": dt,
-            "steps": n,
+            "steps": len(losses),
         }
+
+    def train_epoch(self, epoch: int):
+        mask = self.level_mask(epoch)
+        t0 = time.time()
+        device_aux = []
+        for n, (x, y) in enumerate(self.epoch_batches(epoch), 1):
+            device_aux.append(self.step(x, y, mask, epoch, n))
+        return self.epoch_result(epoch, device_aux, time.time() - t0,
+                                 len(self.train_loader))
 
     def evaluate(self, epoch: int, dump_images: bool = False):
         dump_fn = (
             (lambda outputs: dump_prediction_images(outputs, self.save_loc,
                                                     epoch))
-            if dump_images else None
+            if dump_images and self.is_main else None
         )
         return run_validation(
             self.eval_step, self.val_loader, self.device,
@@ -364,8 +456,13 @@ class Trainer:
         for ld in (self.train_loader, self.val_loader):
             ld.close()
 
-    def run(self):
-        cfg = self.cfg
+    # ------------------------------------------------ records and decisions
+    def open_records(self):
+        """``(metrics.csv path, logger)``: the csv kept up to the resumed
+        epoch (or removed on a fresh run) and the JSONL logger, on the
+        writing rank; ``(None, None)`` on the others."""
+        if not self.is_main:
+            return None, None
         csv_path = os.path.join(self.save_loc, "metrics.csv")
         if os.path.exists(csv_path):
             if self.start_epoch > 1:
@@ -375,8 +472,47 @@ class Trainer:
             else:
                 os.remove(csv_path)  # fresh run (train.py:599-600)
         logger = MetricsLogger(os.path.join(self.save_loc, "logs"),
-                               tensorboard=cfg.tensorboard)
+                               tensorboard=self.cfg.tensorboard)
         logger.truncate_after(self.start_epoch - 1)
+        return csv_path, logger
+
+    def record(self, csv_path, logger, epoch: int, tr: dict, va: dict,
+               **train_log) -> None:
+        """The epoch's metrics.csv row and logs (the writing rank only)."""
+        if not self.is_main:
+            return
+        append_csv(csv_path, epoch, tr, va)
+        logger.log(epoch, {
+            "loss": tr["loss"], "dice": tr["overall"]["dice"],
+            "iou": tr["overall"]["iou"],
+            "sec_per_epoch": tr["time"], **train_log, "lr": self.lr(),
+        }, prefix="train")
+        logger.log(epoch, {
+            "loss": va["loss"], "dice_no_bg": va["measure_mean"],
+            "iou": va["overall"]["iou"], "dice": va["overall"]["dice"],
+        }, prefix="val")
+
+    def decide(self, epoch: int, tr: dict, va: dict) -> None:
+        """The plateau step and the checkpoints, from the first rank's
+        numbers on every rank."""
+        loss, mean, std, lr = self.agree([tr["loss"], va["measure_mean"],
+                                          va["measure_std"], self.lr()])
+        if lr != self.lr():
+            raise RuntimeError(
+                f"learning rate {self.lr()} on rank {self.data.rank} "
+                f"differs from {lr} on rank {self.data.root}")
+        if self.scheduler:
+            self.scheduler.step(mean)
+        sched_meta = (
+            {f"sched_{k}": (v if v is not None else float("nan"))
+             for k, v in self.scheduler.state_dict().items()}
+            if self.scheduler else {}
+        )
+        self.ckpt.update(self.state, epoch, loss, mean, std, **sched_meta)
+
+    def run(self):
+        cfg = self.cfg
+        csv_path, logger = self.open_records()
         for epoch in range(self.start_epoch, cfg.epochs + 1):
             if self.scheduler:
                 set_learning_rate(self.state, self.scheduler.lr)
@@ -385,37 +521,19 @@ class Trainer:
                 epoch % cfg.save_images_batch_num == 0 or epoch == 1
             )
             va = self.evaluate(epoch, dump_images=dump)
-            append_csv(csv_path, epoch, tr, va)
-            print(
-                f"Epoch {epoch}: train loss {tr['loss']:.4f} "
-                f"({tr['steps']} steps, {tr['time']:.1f}s) | "
-                f"val dice(no bg) {va['measure_mean']:.4f} "
-                f"iou {va['overall']['iou']:.4f} "
-                f"lr {self.lr():.5f} | "
-                f"val {va.get('sec_total', 0.0):.1f}s "
-                f"(dispatch {va.get('sec_dispatch', 0.0):.1f}s)",
-                flush=True,
-            )
-            logger.log(epoch, {
-                "loss": tr["loss"], "dice": tr["overall"]["dice"],
-                "iou": tr["overall"]["iou"],
-                "sec_per_epoch": tr["time"], "lr": self.lr(),
-            }, prefix="train")
-            logger.log(epoch, {
-                "loss": va["loss"], "dice_no_bg": va["measure_mean"],
-                "iou": va["overall"]["iou"], "dice": va["overall"]["dice"],
-            }, prefix="val")
-            if self.scheduler:
-                self.scheduler.step(va["measure_mean"])
-            sched_meta = (
-                {f"sched_{k}": (v if v is not None else float("nan"))
-                 for k, v in self.scheduler.state_dict().items()}
-                if self.scheduler else {}
-            )
-            self.ckpt.update(
-                self.state, epoch, tr["loss"], va["measure_mean"],
-                va["measure_std"], **sched_meta,
-            )
+            if self.is_main:
+                print(
+                    f"Epoch {epoch}: train loss {tr['loss']:.4f} "
+                    f"({tr['steps']} steps, {tr['time']:.1f}s) | "
+                    f"val dice(no bg) {va['measure_mean']:.4f} "
+                    f"iou {va['overall']['iou']:.4f} "
+                    f"lr {self.lr():.5f} | "
+                    f"val {va.get('sec_total', 0.0):.1f}s "
+                    f"(dispatch {va.get('sec_dispatch', 0.0):.1f}s)",
+                    flush=True,
+                )
+            self.record(csv_path, logger, epoch, tr, va)
+            self.decide(epoch, tr, va)
         self.ckpt.finalize()  # drain async saves; write a deferred best
         return self.ckpt.prev_best
 
@@ -452,13 +570,21 @@ def append_csv(path, epoch, tr, va):
 
 def train(cfg: RunConfig, device=None) -> List[Optional[float]]:
     """All folds (train.py:536-710; every fold runs), one fold after
-    another on ``device``.
+    another on ``device`` (each over every rank of a multi-process run), or
+    with ``cfg.fold_parallel`` all of them in lockstep
+    (``train/fold_parallel.py``; JAX ``train/loop.py:535-538``).
 
     Cross-val layout: ``data_root/fold_N/{train,val}`` (train.py:796-803)."""
     check_supported(cfg)
     tree = ClassTree.from_json(cfg.tree_root, cfg.class_map)
+    fold_ids = _fold_ids(cfg)
+    if cfg.fold_parallel and len(fold_ids) > 1:
+        from .fold_parallel import train_folds_parallel
+
+        return train_folds_parallel(cfg, tree, fold_ids, device=device)
+    main = world()[0] == 0
     results = []
-    for fold in _fold_ids(cfg):
+    for fold in fold_ids:
         if cfg.inc_cross_val and cfg.folds > 0:
             train_root = os.path.join(cfg.data_root, f"fold_{fold}", "train")
             val_root = os.path.join(cfg.data_root, f"fold_{fold}", "val")
@@ -469,13 +595,16 @@ def train(cfg: RunConfig, device=None) -> List[Optional[float]]:
                 cand = os.path.join(cfg.data_root, "val")
                 val_root = cand if os.path.exists(cand) else None
         save_loc = os.path.join(cfg.save_path, f"fold_{fold}")
-        print(f"Fold {fold}: train={train_root} val={val_root} -> {save_loc}")
+        if main:
+            print(f"Fold {fold}: train={train_root} val={val_root} -> "
+                  f"{save_loc}")
         fold_cfg = cfg
         if cfg.auto_resume and not cfg.model_weights:
             last = os.path.join(save_loc, "last.ckpt")
             if os.path.exists(last):
                 fold_cfg = replace(cfg, model_weights=last)
-                print(f"Auto-resuming fold {fold} from {last}")
+                if main:
+                    print(f"Auto-resuming fold {fold} from {last}")
         trainer = Trainer(fold_cfg, tree, train_root, val_root, save_loc,
                           device=device)
         try:

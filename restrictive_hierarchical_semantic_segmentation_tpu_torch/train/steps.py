@@ -14,12 +14,26 @@ tree level, so each BatchNorm updates its running buffers D times a step
 with the same batch values; the shared-backbone forward updates them once,
 and :func:`bn_ema_correction` turns that one update into D
 (``model.bn_updates_per_step``).
+
+Data parallelism (``group``: the process group of a data group of more
+than one rank, each holding an equal share of the global batch): the
+BatchNorms take the group's statistics (``models/norm.py:set_bn_group``,
+set by the caller), the loss divides by the group's Dice counts
+(``losses/hierarchical.py``), and after the microbatches the gradients are
+all-reduced to their mean over the group, flattened into buckets of at
+most ``GRAD_BUCKET_BYTES``. Every rank then applies the same update, so
+parameters and running buffers stay the same bits on every rank. The
+step's aux is reduced too (one all-reduce): loss and per-level losses are
+means over the group, confusion matrices sums, so every rank sees the
+global step's numbers. Gradient accumulation keeps its meaning: each rank
+holds its share of every microbatch (``data/loader.py:shard_rows``).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..hierarchy.tree import ClassTree
 from ..losses.hierarchical import hierarchical_loss
@@ -28,9 +42,11 @@ from ..models.norm import BN_MOMENTUM, BatchNormAct
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "split_targets",
-           "bn_ema_correction"]
+           "bn_ema_correction", "GRAD_BUCKET_BYTES"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the most gradient bytes one all-reduce carries (DDP's default bucket)
+GRAD_BUCKET_BYTES = 25 * 2 ** 20
 
 
 def bn_ema_correction(old_stats: Sequence[torch.Tensor],
@@ -93,8 +109,11 @@ class TrainStep:
                  level_weights=None, lambda_cons: float = 1.0,
                  lambda_kl: float = 0.0, dice_smooth: float = 0.0,
                  ohem=None, compute_metrics: bool = True,
-                 grad_accum: int = 1, compute_dtype: str = "float32"):
+                 grad_accum: int = 1, compute_dtype: str = "float32",
+                 group=None):
         self.model = model
+        self.group = group
+        self.ranks = 1 if group is None else dist.get_world_size(group)
         self.tree = tree
         self.hierarchical = hierarchical
         self.loss_kw = dict(level_weights=level_weights,
@@ -106,6 +125,7 @@ class TrainStep:
         self.bn_d = int(getattr(model, "bn_updates_per_step", 1))
         self.buffers = _running_buffers(model)
         self.params = [p for p in model.parameters() if p.requires_grad]
+        self.buckets = _buckets(self.params, GRAD_BUCKET_BYTES)
 
     def _micro(self, images, targets, level_mask):
         """Forward, loss and backward of one microbatch: gradients add into
@@ -123,7 +143,7 @@ class TrainStep:
             out.logits_per_level, tgt,
             probs_per_level=out.probs_per_level, q_per_level=out.q_per_level,
             tree=self.tree if self.hierarchical else None,
-            level_mask=level_mask, **self.loss_kw)
+            level_mask=level_mask, group=self.group, **self.loss_kw)
         total.backward()
         if old is not None:
             with torch.no_grad():
@@ -170,6 +190,8 @@ class TrainStep:
                     p.grad = torch.zeros_like(p)
                 elif a > 1:
                     p.grad.div_(a)
+            if self.group is not None:
+                self._all_reduce_grads()
         state.optimizer.step()
         state.step += 1
         aux = {"loss": torch.stack([r[0] for r in results]).mean(),
@@ -177,7 +199,53 @@ class TrainStep:
         if self.compute_metrics:
             aux["confmats"] = [sum(r[2][L] for r in results)
                                for L in range(len(results[0][2]))]
+        if self.group is not None:
+            aux = self._reduce_aux(aux)
         return state, aux
+
+    def _all_reduce_grads(self) -> None:
+        """Every gradient to its mean over the group, a bucket per
+        all-reduce."""
+        for bucket in self.buckets:
+            grads = [p.grad for p in bucket]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self.group)
+            flat.div_(self.ranks)
+            parts = flat.split([g.numel() for g in grads])
+            torch._foreach_copy_(grads, [v.view(g.shape)
+                                         for v, g in zip(parts, grads)])
+
+    def _reduce_aux(self, aux: dict) -> dict:
+        """The group's aux in one f64 all-reduce (counts stay exact): loss
+        and per-level losses averaged, confusion matrices added."""
+        parts = [aux["loss"].reshape(1), aux["per_level"]]
+        parts += aux.get("confmats", [])
+        flat = torch.cat([t.reshape(-1).double() for t in parts])
+        dist.all_reduce(flat, group=self.group)
+        out = [v.view(t.shape).to(t.dtype)
+               for v, t in zip(flat.split([t.numel() for t in parts]),
+                               parts)]
+        reduced = {"loss": out[0].reshape(()) / self.ranks,
+                   "per_level": out[1] / self.ranks}
+        if "confmats" in aux:
+            reduced["confmats"] = out[2:]
+        return reduced
+
+
+def _buckets(params, most_bytes: int) -> List[list]:
+    """``params`` in order, cut into runs of at most ``most_bytes`` of
+    gradient (a larger tensor alone)."""
+    out, cur, size = [], [], 0
+    for p in params:
+        nb = p.numel() * p.element_size()
+        if cur and size + nb > most_bytes:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(p)
+        size += nb
+    if cur:
+        out.append(cur)
+    return out
 
 
 def make_train_step(model, tree: ClassTree, hierarchical: bool,
@@ -185,17 +253,19 @@ def make_train_step(model, tree: ClassTree, hierarchical: bool,
                     lambda_cons: float = 1.0, lambda_kl: float = 0.0,
                     dice_smooth: float = 0.0, ohem=None,
                     compute_metrics: bool = True, grad_accum: int = 1,
-                    compute_dtype: str = "float32") -> TrainStep:
+                    compute_dtype: str = "float32",
+                    group=None) -> TrainStep:
     """The train step of ``model`` (see :class:`TrainStep`).
 
     ``grad_accum = A`` takes one optimizer step from A sequential
     microbatches: the gradient is their mean, each microbatch normalizes
     with its own BN statistics and updates the running buffers in turn,
     loss and per-level losses are microbatch means and confusion matrices
-    sum."""
+    sum. ``group``: the data-parallel process group (module docstring);
+    None on one rank."""
     return TrainStep(model, tree, hierarchical, level_weights, lambda_cons,
                      lambda_kl, dice_smooth, ohem, compute_metrics,
-                     grad_accum, compute_dtype)
+                     grad_accum, compute_dtype, group)
 
 
 def make_eval_step(model, tree: ClassTree, hierarchical: bool,

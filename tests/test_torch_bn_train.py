@@ -227,11 +227,17 @@ def test_step_gradients_against_float64():
 @pytest.mark.parametrize("act", ["none", "relu"])
 def test_bn_backward_is_one_counted_entry(act):
     """The BN backward is one C entry (one launch per call on the card) with
-    dx optional, counted under one name; on the CPU the plain version runs,
-    counts nothing, and gives the same dgamma, dbeta with or without dx."""
-    assert set(tfba.TRAIN_LAUNCHES) == {"bn_stats", "bn_backward"}
+    dx optional, counted under one name (the split entries of a
+    data-parallel group, reduce and dx, under their own); on the CPU the
+    plain version runs, counts nothing, and gives the same dgamma, dbeta
+    with or without dx."""
+    assert set(tfba.TRAIN_LAUNCHES) == {"bn_stats", "bn_backward",
+                                        "bn_stats_sums", "bn_backward_reduce",
+                                        "bn_backward_dx"}
     bwd = [k for k in tfba._SIGNATURES if k[0] == "bn_backward"]
-    assert bwd == [("bn_backward", "rhss_bn_backward")]
+    assert bwd == [("bn_backward", "rhss_bn_backward"),
+                   ("bn_backward", "rhss_bn_backward_reduce"),
+                   ("bn_backward", "rhss_bn_backward_dx")]
     # x, g, rows, C, dtype, act, 4 vectors, workspace, edz, eydz, dx, stream
     assert len(tfba._SIGNATURES[bwd[0]]) == 15
     rng = np.random.default_rng(7)

@@ -6,8 +6,11 @@ CPU, kernel launches per forward), the int8 conv's card path (cuBLASLt's
 int8 GEMM through ``torch._int_mm``) against its plain version at the
 shapes its rules make it pad, fold ensembles and the quantized Predictor,
 a ``torch.export`` artifact launching kernel 2 (the operator's fake
-implementation against the kernel's output), and the device-resident
-training set (augmentation on the card against the CPU). Marked
+implementation against the kernel's output), the device-resident
+training set (augmentation on the card against the CPU), and the split
+entries of kernels 1 and 3 for a data-parallel group (bit for bit to the
+fused launches, each against its plain version; two gloo ranks sharing
+the card). Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -277,6 +280,109 @@ def test_bn_backward_kernel_equals_plain(cuda, shape, dtype, act):
     assert torch.equal(dg2, dgamma) and torch.equal(db2, dbeta)
 
 
+# ------------------------------------------- the split entries of a group
+# Global-batch BatchNorm over ranks splits kernels 1 and 3 at their
+# reductions (the sums entry, the reduce and dx entries). On one rank the
+# split gives the fused launches' bits; each entry is held to its plain
+# version with the tolerances above (f64 sums of f32 strips against f64
+# sums: 1e-5 of the sums of |x| and x^2).
+SPLIT_SHAPES = [(16, 352, 352, 64), (16, 155, 155, 48), (2, 155, 155, 720),
+                (16, 22, 22, 512), (1001, 48), (3, 7, 720), (1, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_stats_equal_the_fused_kernel(cuda, shape, dtype):
+    x = _train_inputs(shape, dtype, cuda, seed=4)[0]
+    c = shape[-1]
+    mean, var = fba.bn_stats(x)
+    before = dict(fba.TRAIN_LAUNCHES)
+    sums = fba.bn_stats_sums(x)
+    torch.cuda.synchronize()
+    assert fba.TRAIN_LAUNCHES["bn_stats_sums"] == before["bn_stats_sums"] + 1
+    assert fba.TRAIN_LAUNCHES["bn_stats"] == before["bn_stats"]
+    assert sums.dtype == torch.float64 and sums.shape == (2 * c + 1,)
+    m2, v2 = fba.stats_from_sums(sums)
+    assert torch.equal(m2, mean) and torch.equal(v2, var)
+    ref = fba._bn_stats_sums_ref(x)
+    assert float(sums[-1]) == float(ref[-1]) == x.numel() // c
+    xd = x.reshape(-1, c).double()
+    for got, want, size in ((sums[:c], ref[:c], xd.abs().sum(0)),
+                            (sums[c:2 * c], ref[c:2 * c], (xd * xd).sum(0))):
+        assert bool(((got - want).abs() <= 1e-5 * size + 1e-12).all())
+    _counters_zero(cuda)
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_backward_equals_the_fused_kernel(cuda, shape, dtype, act):
+    x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=6)
+    c = shape[-1]
+    dx, dgamma, dbeta = fba.bn_act_backward(x, grad, *vecs, act)
+    before = dict(fba.TRAIN_LAUNCHES)
+    dg2, db2, sums = fba.bn_backward_reduce(x, grad, *vecs, act)
+    dx2 = fba.bn_backward_dx(x, grad, *vecs, sums, act)
+    torch.cuda.synchronize()
+    for name in ("bn_backward_reduce", "bn_backward_dx"):
+        assert fba.TRAIN_LAUNCHES[name] == before[name] + 1
+    assert fba.TRAIN_LAUNCHES["bn_backward"] == before["bn_backward"]
+    assert torch.equal(dx2, dx)
+    assert torch.equal(dg2, dgamma) and torch.equal(db2, dbeta)
+    assert float(sums[-1]) == x.numel() // c
+    rdg, rdb, rsums = fba._bn_backward_reduce_ref(
+        x.reshape(-1, c), grad.reshape(-1, c), *vecs, act)
+    _sums_ok(dg2, rdg)
+    _sums_ok(db2, rdb)
+    assert float((sums - rsums).abs().max()) <= 1e-5 * float(
+        rsums[:2 * c].abs().max())
+    rdx = fba._bn_backward_dx_ref(x.reshape(-1, c), grad.reshape(-1, c),
+                                  *vecs, sums, act)
+    _dx_ok(dx2, rdx.reshape(shape))
+
+
+def test_bn_over_two_ranks_on_one_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (gloo's all-reduce and broadcast
+    take CUDA tensors; NCCL refuses two ranks on one device): each
+    BatchNorm's output and input gradient, concatenated over the ranks,
+    against one process on the whole batch."""
+    from torch_dist_common import bn_job, run_ranks
+
+    g = torch.Generator().manual_seed(8)
+    cases = []
+    for shape, act in (((4, 24, 24, 64), "relu"), ((2, 9, 7, 48), "none")):
+        x = torch.randn(shape, generator=g) * 1.5 + 0.4
+        cases.append((x.numpy(), (torch.rand(shape[-1], generator=g) + 0.5)
+                      .numpy(), torch.randn(shape[-1], generator=g).numpy(),
+                      torch.randn(shape, generator=g).numpy(), act))
+    ranks = run_ranks(bn_job, 2, tmp_path, cases, "cuda:0")
+    for k, (x, gamma, beta, cot, act) in enumerate(cases):
+        bn = BatchNormAct(x.shape[-1], act).to(cuda).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(gamma))
+            bn.bias.copy_(torch.from_numpy(beta))
+        xt = torch.from_numpy(x).to(cuda).permute(0, 3, 1, 2)
+        xt = xt.contiguous(memory_format=torch.channels_last)
+        xt.requires_grad_()
+        y = bn(xt)
+        (y * torch.from_numpy(cot).to(cuda).permute(0, 3, 1, 2)).sum(
+        ).backward()
+        y2 = torch.cat([r[0][k][0] for r in ranks])
+        dx2 = torch.cat([r[0][k][1] for r in ranks])
+        torch.testing.assert_close(y2, y.detach().permute(0, 2, 3, 1).cpu(),
+                                   rtol=0, atol=1e-5)
+        dx = xt.grad.permute(0, 2, 3, 1).cpu()
+        torch.testing.assert_close(dx2, dx, rtol=0,
+                                   atol=1e-4 * float(dx.abs().max()))
+        torch.testing.assert_close(ranks[0][0][k][5], bn.running_var.cpu(),
+                                   rtol=1e-5, atol=1e-6)
+    for r in ranks:  # the split entries ran, the fused ones did not
+        launched = r[1]
+        assert launched["bn_stats_sums"] == launched["bn_backward_reduce"] \
+            == launched["bn_backward_dx"] == len(cases)
+        assert launched["bn_stats"] == launched["bn_backward"] == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 155, 155, 48), (2, 155, 155, 720),
                                    (1001, 48)])
@@ -351,7 +457,9 @@ def test_train_mode_batchnorm_on_card_equals_cpu(cuda, act):
         (y * ct.to(xx.device)).sum().backward()
         outs.append(y)
     torch.cuda.synchronize()
-    assert all(fba.TRAIN_LAUNCHES[k] == before[k] + 1 for k in before)
+    fused = ("bn_stats", "bn_backward")  # no group: the fused entries only
+    assert all(fba.TRAIN_LAUNCHES[k] == before[k] + (k in fused)
+               for k in before)
     torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(xs[1].grad.cpu(), xs[0].grad, rtol=1e-4,
                                atol=1e-5)

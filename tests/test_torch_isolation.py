@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and its serve, train,
 predict_eval, export and agreement CLIs, its exporter, its donor importer,
-its device-resident training set and its native sample factory) pulls in
+its device-resident training set, its native sample factory, its rank mesh
+and its fold-parallel trainer) pulls in
 neither jax nor any module of the JAX package,
 and the train and offline-eval paths load no cv2, sklearn, orbax or
 tensorflow (the card's machine has none of them); no source file of the
@@ -111,6 +112,18 @@ def test_train_cli_path_imports_no_cv2_sklearn_orbax_or_jax():
         f"import {PORT}.data.loader, {PORT}.data.dataset\n"
         f"import {PORT}.data.transforms, {PORT}.utils.logging")
     assert f"{PORT}.train.loop" in mods and f"{PORT}.data.loader" in mods
+    assert [m for m in mods if _forbidden_on_train_path(m)] == []
+
+
+def test_scale_out_modules_import_no_jax():
+    """The rank mesh, the fold-parallel trainer and the multi-rank check:
+    no jax, no JAX package, nothing the card's machine lacks."""
+    mods = _modules_after(f"import {PORT}.parallel.mesh\n"
+                          f"import {PORT}.train.fold_parallel\n"
+                          f"import {PORT}.tools.multirank_check")
+    for name in ("parallel.mesh", "train.fold_parallel",
+                 "tools.multirank_check"):
+        assert f"{PORT}.{name}" in mods
     assert [m for m in mods if _forbidden_on_train_path(m)] == []
 
 

@@ -9,9 +9,12 @@ Held: two folds train and dump prediction images (``tests/test_e2e.py``);
 (``tests/test_resume.py``); the same seed writes a byte-identical
 metrics.csv; the ``Predictor`` and the serve CLI read the trainer's
 ``best.ckpt``; the CLI has every flag of the JAX CLI with its default and
-choices, and refuses grain and the scale-out options (donor ``.pth``
-weights are read: ``tests/test_torch_donor_import.py``); ``--device-data
-True`` trains, and resumes as an unbroken run.
+choices, and refuses grain and the scale-out options still to port
+(``--n-space`` above 1, ``--remat``, ``--profile-dir``, also beside
+``--fold-parallel`` and ``--dist-coordinator``, which train:
+``tests/test_torch_fold_parallel.py``, ``tests/test_torch_distributed.py``;
+donor ``.pth`` weights are read: ``tests/test_torch_donor_import.py``);
+``--device-data True`` trains, and resumes as an unbroken run.
 """
 import argparse
 import csv
@@ -228,9 +231,10 @@ def test_cli_has_every_jax_flag_with_its_default():
 @pytest.mark.parametrize("flags,item", [
     (["--loader", "grain"], "grain is a JAX input pipeline with no "
                             "counterpart"),
-    (["--fold-parallel", "True", "--folds", "2"], "item 8"),
+    (["--fold-parallel", "True", "--folds", "2", "--n-space", "2"],
+     "item 8"),
     (["--n-space", "2"], "item 8"),
-    (["--dist-coordinator", "localhost:1234"], "item 8"),
+    (["--dist-coordinator", "localhost:1234", "--remat", "True"], "item 8"),
     (["--remat", "conv"], "item 8"),
     (["--remat", "True"], "item 8"),
     (["--profile-dir", "/nonexistent/prof"], "item 8"),
