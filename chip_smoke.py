@@ -7,7 +7,8 @@ UNet through the train CLI for 2 + 1 epochs, runs the fused 1x1 conv + BN +
 ReLU tool, evaluates the trained UNet through the predict_eval CLI, serves
 fold ensembles, TTA and int8 quantization, exports and loads deployment
 artifacts, imports donor checkpoints, trains over two ranks sharing the
-card and fold-parallel, and checks what comes out.
+card and fold-parallel, trains with rematerialization, serves and
+evaluates over ranks, traces an epoch, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -139,6 +140,23 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     folds against the sequential CLI (metrics.csv equal row for row), and
     its lockstep ``--auto-resume`` to epoch 3; the train CLI with
     ``--dist-coordinator`` at a world size of 1 under NCCL.
+20. remat and the inference meshes (``build/chip_smoke/remat/``, after
+    phases 13 and 15): one W48 (620 px) and one UNet (352 px) train step
+    of the bench.py recipe with ``remat`` False, "module" and "conv" from
+    the same weights and batch under deterministic algorithms (each mode
+    against False after step 1, launches of kernels 1-3 per step, peak
+    memory, median step ms of 5; the cuDNN forward convolutions inside the
+    backward under ``torch.profiler``: none for "conv"); two ranks sharing
+    the card over gloo, in one spawned pair: remat "conv" with global-batch
+    BatchNorm against one process (a bf16 and an f32 step, the
+    recompute's all-reduces counted), a 4-fold UNet ensemble over a
+    ``fold`` mesh against one process's (with and without TTA), and the
+    predict_eval CLI over the data mesh against one process (metrics.csv
+    and PNGs byte-equal, only rank 0 writes); phase 13's train CLI for 3
+    epochs with ``--profile-dir`` (one trace, of epoch 2, whose device
+    kernels of kernels 1-3 equal the counters of that epoch); a
+    ``DeviceDataset`` built on the CPU and placed on the card against one
+    built there.
 
 The serving profiles (phases 4 and 9) go through ``profile_call``, whose
 marker kernels keep a trace from losing the call's first device events.
@@ -750,10 +768,10 @@ def synthetic_batch(tree, n: int, size: int, seed: int):
 
 
 def train_setup(tree, sd, device, compute_dtype: str, double: bool = False,
-                model_select: int = 1):
+                model_select: int = 1, remat=False):
     """The hierarchical model of one donor (``MODELS``) in train mode on
     ``device`` from ``sd`` (in float64 with ``double``, a reference on the
-    CPU), its AdamW state and its train step."""
+    CPU), with ``remat``, its AdamW state and its train step."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
         import build_model
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
@@ -761,7 +779,7 @@ def train_setup(tree, sd, device, compute_dtype: str, double: bool = False,
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
         .steps import make_train_step
 
-    model = build_model(tree, model_select, 1)
+    model = build_model(tree, model_select, 1, remat=remat)
     model.load_state_dict(sd, strict=True)
     model = model.to(device=device, memory_format=torch.channels_last,
                      dtype=torch.float64 if double else None).train()
@@ -3222,14 +3240,14 @@ def _significant_update(new: dict, ref: dict, old: dict, lr: float):
 
 
 def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
-             plan=DP_PLAN, device: str = "cuda") -> dict:
+             plan=DP_PLAN, remat=False, device: str = "cuda") -> dict:
     """For each ``(compute dtype, steps)`` of ``plan``, that many train
-    steps of the full-width hierarchical UNet from the weights at
-    ``sd_path`` on this rank's rows of the global batch at ``batch_path``,
-    over the WORLD group when ``world`` > 1 (the BatchNorms' statistics and
-    the gradients span the group); f32 without TF32. The launches of every
-    kernel entry and the all-reduces are counted per step (counts 0 just
-    before, read just after)."""
+    steps of the full-width hierarchical UNet (with ``remat``) from the
+    weights at ``sd_path`` on this rank's rows of the global batch at
+    ``batch_path``, over the WORLD group when ``world`` > 1 (the
+    BatchNorms' statistics and the gradients span the group); f32 without
+    TF32. The launches of every kernel entry and the all-reduces are
+    counted per step (counts 0 just before, read just after)."""
     import torch.distributed as dist
 
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
@@ -3264,7 +3282,7 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
     results = {}
     try:
         for dtype, steps in plan:
-            model = build_model(tree, 0, 1)
+            model = build_model(tree, 0, 1, remat=remat)
             model.load_state_dict(torch.load(sd_path), strict=True)
             model = model.to(device, memory_format=torch.channels_last)
             set_bn_group(model.train(), group)
@@ -3308,9 +3326,10 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
 
 
 def _dp_rank(rank: int, world: int, init: str, args: tuple, out: str,
-             device: str):
-    """One rank of :func:`phase_scale_out`'s data-parallel run: a gloo
-    process group on ``init``, the card shared with the other ranks."""
+             device: str, job=None):
+    """One rank of :func:`phase_scale_out`'s data-parallel run (or of
+    ``job(rank, world, *args)``): a gloo process group on ``init``, the card
+    shared with the other ranks."""
     import torch.distributed as dist
 
     if device == "cuda":
@@ -3318,15 +3337,18 @@ def _dp_rank(rank: int, world: int, init: str, args: tuple, out: str,
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank)
     try:
-        with deterministic_algorithms():
-            res = dp_steps(rank, world, *args, device=device)
+        if job is None:
+            with deterministic_algorithms():
+                res = dp_steps(rank, world, *args, device=device)
+        else:
+            res = job(rank, world, *args)
         torch.save(res, f"{out}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 def run_dp_ranks(world: int, args: tuple, out: str, device: str = "cuda",
-                 timeout: float = 300):
+                 timeout: float = 300, job=None):
     """:func:`_dp_rank` on ``world`` spawned processes; joins them with a
     time limit and kills what is left; returns their results."""
     import multiprocessing as mp
@@ -3335,7 +3357,7 @@ def run_dp_ranks(world: int, args: tuple, out: str, device: str = "cuda",
     init = f"file://{os.path.abspath(out)}/rendezvous"
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_dp_rank,
-                         args=(r, world, init, args, out, device))
+                         args=(r, world, init, args, out, device, job))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -3351,7 +3373,9 @@ def run_dp_ranks(world: int, args: tuple, out: str, device: str = "cuda",
     assert not hung, f"{len(hung)} ranks still running after {timeout} s"
     codes = [p.exitcode for p in procs]
     assert codes == [0] * world, f"rank exit codes {codes}"
-    return [torch.load(f"{out}/rank{r}.pt") for r in range(world)]
+    # the ranks' own results (numpy arrays among them): not weights only
+    return [torch.load(f"{out}/rank{r}.pt", weights_only=False)
+            for r in range(world)]
 
 
 def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
@@ -3765,6 +3789,603 @@ def phase_scale_out(card: str, train_shapes: dict,
     return out
 
 
+# ------------------------------------------------------------- phase 20
+REMAT_ROOT = "build/chip_smoke/remat"
+REMAT_MODES = (False, "module", "conv")
+REMAT_TIMED = 5
+# two ranks with remat "conv" against one process, phase 19's criteria:
+# a bf16 step whose loss is held to 1e-4 and an f32 step (TF32 off) whose
+# significant updates may be 0.5 % off
+REMAT_DP_PLAN = (("bfloat16", 1), ("float32", 1))
+REMAT_DP_LOSS1 = 1e-4
+REMAT_DP_SIG_BAD = 0.005
+MESH_FOLDS = 4
+MESH_BATCH = 4
+MESH_TIMED = 3
+MESH_PROB_RTOL, MESH_PROB_ATOL = 1e-5, 1e-6  # JAX test_round3_safety.py:321
+MESH_EVAL_BATCH = 4
+
+
+def _region_counts(model):
+    """(BatchNorms, convolutions) inside the model's recomputed regions:
+    HRNet's ``HighResolutionModule`` s, else the UNet's backbone pass."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import BatchNormAct
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .backbones.hrnet import HighResolutionModule
+
+    regions = [m for m in model.modules()
+               if isinstance(m, HighResolutionModule)] or [model.backbone]
+    mods = [m for r in regions for m in r.modules()]
+    return (sum(isinstance(m, BatchNormAct) for m in mods),
+            sum(isinstance(m, torch.nn.Conv2d) for m in mods))
+
+
+def _backward_convs(model, x) -> dict:
+    """Forward convolutions computed inside one backward of ``model`` on
+    ``x`` (bf16 autocast, the forward outside the trace), from
+    ``torch.profiler``: ``aten::_convolution`` host ops, which compute a
+    convolution (the profiler records ``aten::convolution`` also where the
+    "conv" policy hands back the saved output; the backward of a
+    convolution is ``aten::convolution_backward``), the
+    ``aten::cudnn_convolution`` ops among them, and device kernels whose
+    name holds ``fprop`` (cuDNN's forward kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = x.is_cuda
+    with torch.autocast(x.device.type, dtype=torch.bfloat16):
+        out = model(x)
+    loss = sum(z.float().sum() for z in out.logits_per_level)
+    del out
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        loss.backward()
+        if cuda:
+            torch.cuda.synchronize()
+    avg = prof.key_averages()
+    model.zero_grad(set_to_none=True)
+
+    def host(key):
+        return sum(e.count for e in avg
+                   if e.device_type == DeviceType.CPU and e.key == key)
+
+    return {"convolution_ops": host("aten::_convolution"),
+            "cudnn_convolution_ops": host("aten::cudnn_convolution"),
+            "fprop_kernels": sum(
+                e.count for e in avg if e.device_type == DeviceType.CUDA
+                and "fprop" in e.key)}
+
+
+def _remat_mode(tree, sd, model_select: int, mode, x, y) -> tuple:
+    """One remat mode of phase 20 (a) on x's device: step 1 (its loss,
+    gradients, state after AdamW, launches), then ``REMAT_TIMED`` timed
+    steps (launches per step, peak memory), then the backward's forward
+    convolutions."""
+    model, state, step = train_setup(tree, sd, x.device, "bfloat16",
+                                     model_select=model_select, remat=mode)
+    mask = torch.ones(tree.num_levels, device=x.device)
+    set_counts_to_zero()
+    state, aux = step(state, x, y, mask)
+    torch.cuda.synchronize()
+    first = read_counts()
+    ref = {"loss": aux["loss"].float().cpu(),
+           "per_level": aux["per_level"].float().cpu(),
+           "grads": {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()},
+           "state": {k: v.detach().cpu()
+                     for k, v in model.state_dict().items()}}
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], []
+    for _ in range(REMAT_TIMED):
+        set_counts_to_zero()  # the main path: counts 0 just before ...
+        t0 = time.perf_counter()
+        state, aux = step(state, x, y, mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())  # ... and read just after
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(float(aux["loss"]))
+    del aux
+    convs = _backward_convs(model, x)
+    region = _region_counts(model)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return ref, {"first_counts": first, "counts": counts, "step_ms": times,
+                 "median_ms": float(np.median(times)), "peak_bytes": peak,
+                 "backward_convs": convs, "region_bns": region[0],
+                 "region_convs": region[1]}
+
+
+def _against(got: dict, want: dict) -> dict:
+    """Step 1 of a remat mode against remat False: whether each part is the
+    same bits, and the largest absolute difference where it is not."""
+    out = {"loss_equal": torch.equal(got["loss"], want["loss"]),
+           "loss_abs": float((got["loss"] - want["loss"]).abs()),
+           "per_level_equal": torch.equal(got["per_level"],
+                                          want["per_level"])}
+    for part in ("grads", "state"):
+        diffs = {k: float((got[part][k].double() - v.double()).abs().max())
+                 for k, v in want[part].items()
+                 if not torch.equal(got[part][k], v)}
+        out[f"{part}_differing"] = len(diffs)
+        out[f"{part}_max_abs"] = max(diffs.values(), default=0.0)
+    out["bit_for_bit"] = (out["loss_equal"] and out["per_level_equal"]
+                          and not out["grads_differing"]
+                          and not out["state_differing"])
+    return out
+
+
+def phase_remat(card: str, tree, model_select: int,
+                device: str = "cuda") -> dict:
+    """Phase 20 (a) for one donor at full width: the bench.py recipe
+    (batch 16, bf16, AdamW at lr 0.018) with remat False, "module" and
+    "conv" from the same seeded weights and batch, under deterministic
+    algorithms. Each mode against False after step 1 (loss, per-level
+    losses, every gradient, parameters and running buffers); launches of
+    kernels 1 / 2 / 3 per step (n_bn plus the regions' BatchNorms for 1 and
+    2 under remat, n_bn for 3); peak memory below False's; the median step
+    ms of ``REMAT_TIMED`` (host clock with a synchronize); cuDNN forward
+    convolutions in the backward: the regions' count for "module", 0 for
+    "conv" and False."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+
+    info = MODELS[model_select]
+    name, n_bn, size = info["name"], info["n_bn"], info["img"]
+    model = build_model(tree, model_select, 1)
+    sd = random_state_dict(model, SEED + 20, info["conv_gain"])
+    del model
+    x, y = synthetic_batch(tree, TRAIN_BATCH, size, SEED + 20)
+    x, y = x.to(device), y.to(device)
+    refs, runs = {}, {}
+    with deterministic_algorithms():
+        for mode in REMAT_MODES:
+            refs[mode], runs[mode] = _remat_mode(tree, sd, model_select,
+                                                 mode, x, y)
+    out = {}
+    for mode in REMAT_MODES:
+        r = runs[mode]
+        k12 = n_bn + (r["region_bns"] if mode else 0)
+        for c in [r["first_counts"]] + r["counts"]:
+            assert (c["bn_stats"], c["scale_bias_act"], c["bn_backward"]) \
+                == (k12, k12, n_bn), (name, mode, c)
+        want_convs = r["region_convs"] if mode == "module" else 0
+        assert r["backward_convs"]["convolution_ops"] == want_convs, \
+            (name, mode, r["backward_convs"])
+        if device == "cuda":
+            assert r["backward_convs"]["cudnn_convolution_ops"] == \
+                want_convs, (name, mode, r["backward_convs"])
+        r["launches_per_step"] = [k12, k12, n_bn]
+        if mode:
+            r["against_false"] = _against(refs[mode], refs[False])
+            assert r["peak_bytes"] < runs[False]["peak_bytes"], (name, mode)
+            # the recompute runs the same ops on the same inputs: the step
+            # is the same bits unless an op of the card is not repeatable
+            assert r["against_false"]["loss_abs"] <= 1e-4 * float(
+                refs[False]["loss"].abs()), r["against_false"]
+        log(f"remat {mode} ({name}, {size} px, batch {TRAIN_BATCH}, bf16, "
+            f"deterministic algorithms) on {card}: launches per step of "
+            f"kernels 1 / 2 / 3 {r['launches_per_step']} ({n_bn} BNs, "
+            f"{r['region_bns']} in the recomputed regions); step ms "
+            f"{[round(t, 3) for t in r['step_ms']]}, median "
+            f"{r['median_ms']:.3f}; peak memory "
+            f"{r['peak_bytes'] / 2 ** 30:.3f} GiB; forward convolutions in "
+            f"the backward {r['backward_convs']} (the regions hold "
+            f"{r['region_convs']} convs)"
+            + (f"; against remat False after step 1: "
+               f"{json.dumps(r['against_false'])}" if mode else ""))
+        out[str(mode)] = r
+    del refs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fold_mesh_forwards(rank: int, fold_paths, images, mesh,
+                        device: str = "cuda") -> dict:
+    """The fold ensemble of the full-width UNet (352 px, bf16) over the
+    state_dicts at ``fold_paths`` on uint8 ``images``, sharded over
+    ``mesh``'s fold axis (or in one process without one), with and without
+    TTA: a warm-up call, then ``MESH_TIMED`` calls with their kernel-2
+    launches counted (the last call's outputs kept), and what
+    ``export_predictor`` raises for the sharded one."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .export import export_predictor
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .serving import Predictor
+
+    cfg = RunConfig(tree_root="assets/class_tree_tl.json",
+                    class_map="assets/class_map.csv", model_select=0,
+                    model_type=1, img_size=MODELS[0]["img"],
+                    compute_dtype="bfloat16")
+    sds = [torch.load(p) for p in fold_paths]
+    out = {}
+    for tta in (False, True):
+        pred = Predictor(cfg, sds, device=device, mesh=mesh, tta=tta)
+        pred(images)
+        ms, launches = [], []
+        for _ in range(MESH_TIMED):
+            set_counts_to_zero()
+            t0 = time.perf_counter()
+            res = pred(images)  # numpy out: synchronized
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(read_counts()["scale_bias_act"])
+        err = None
+        if mesh is not None:
+            try:
+                export_predictor(pred, f"{REMAT_ROOT}/r{rank}_tta{tta}.pt2")
+            except ValueError as e:
+                err = str(e)
+        out[f"tta={tta}"] = {"probs": res["probs"],
+                             "class_maps": res["class_maps"],
+                             "ms": ms, "launches": launches,
+                             "local_folds": len(pred.models),
+                             "export_error": err}
+        del pred
+        torch.cuda.empty_cache()
+    return out
+
+
+def _eval_cli(where: str, argv) -> dict:
+    """The predict_eval CLI from ``where`` (its ``./Predictions``), its
+    kernel-2 launches counted."""
+    import os
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        predict_eval as cli,
+    )
+
+    os.makedirs(where, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(where)
+    try:
+        set_counts_to_zero()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    return {"wall_s": wall, "counts": counts,
+            "result": res[0] and res[0]["overall"]}
+
+
+def mesh_rank_job(rank: int, world: int, dp_args, fold_paths, images,
+                  eval_argv, eval_root, device: str = "cuda") -> dict:
+    """One rank of phase 20 (b, d, e), the card shared with the other rank
+    over gloo: :func:`dp_steps` with remat "conv" (deterministic
+    algorithms), the fold-mesh Predictor over a ``fold`` mesh of every rank,
+    and the predict_eval CLI over the data mesh of the process group, from
+    ``eval_root/rank{rank}``."""
+    import os
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel \
+        .mesh import FOLD_AXIS, RankMesh
+
+    with deterministic_algorithms():
+        dp = dp_steps(rank, world, *dp_args, device=device)
+    mesh = RankMesh(np.arange(world), (FOLD_AXIS,))
+    fold = _fold_mesh_forwards(rank, fold_paths, images, mesh, device)
+    ev = _eval_cli(os.path.join(eval_root, f"rank{rank}"), eval_argv)
+    return {"dp": dp, "fold": fold, "eval": ev}
+
+
+def _trace_kernels(path: str) -> dict:
+    """Device kernels of a Chrome trace file, by port kernel, and the
+    marker kernels that lead it."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"markers": 0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        if PROFILE_MARKER in name:
+            counts["markers"] += 1
+        k = classify_kernel(name)
+        if k:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def phase_profile_dir(card: str, n_bn: int, device: str = "cuda") -> dict:
+    """Phase 20 (c): phase 13's train-CLI recipe for 3 epochs with
+    ``--profile-dir``: one trace file, of epoch 2; its device kernels of
+    kernels 1, 2 and 3 number as many as the launch counters moved in
+    epoch 2's steps (the trace leads with marker kernels, so the device
+    events it may lose are theirs)."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        train as cli,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        import loop
+
+    prof_dir = f"{REMAT_ROOT}/profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    epoch2 = {}
+    real = loop.Trainer.train_epoch
+
+    def counted(self, epoch):
+        if epoch == 2:
+            set_counts_to_zero()
+        res = real(self, epoch)
+        if epoch == 2:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            epoch2.update(read_counts())
+        return res
+
+    loop.Trainer.train_epoch = counted
+    try:
+        t0 = time.perf_counter()
+        cli.main(train_cli_argv(f"{CLI_ROOT}/data",
+                                f"{REMAT_ROOT}/profile_run")
+                 + ["--epochs", "3", "--profile-dir", prof_dir])
+        wall = time.perf_counter() - t0
+    finally:
+        loop.Trainer.train_epoch = real
+    files = os.listdir(prof_dir)
+    assert len(files) == 1 and files[0].startswith("rank0.") \
+        and files[0].endswith(".pt.trace.json"), files
+    kernels = _trace_kernels(f"{prof_dir}/{files[0]}")
+    steps = CLI_TRAIN_IMAGES // TRAIN_BATCH
+    log(f"--profile-dir on {card}: phase 13's recipe, 3 epochs in "
+        f"{wall:.2f} s; one trace file ({files[0]}, "
+        f"{os.path.getsize(f'{prof_dir}/{files[0]}') / 2 ** 20:.1f} MiB), "
+        f"of epoch 2; its device kernels {kernels}; the counters over epoch "
+        f"2's {steps} steps {epoch2}")
+    for k in TRAIN_COUNTS:
+        assert epoch2[k] == n_bn * steps, epoch2
+        if device == "cuda":  # a trace of the host alone holds no kernel
+            assert kernels.get(k) == epoch2[k], (k, kernels, epoch2)
+    assert kernels["markers"] >= 1 or device != "cuda", kernels
+    return {"file": files[0], "kernels": kernels, "counters": epoch2,
+            "wall_s": wall}
+
+
+def phase_place(card: str, tree, device: str = "cuda") -> dict:
+    """Phase 20 (f): a ``DeviceDataset`` built on the CPU and placed on the
+    card yields, for one epoch, the batches of one built on the card."""
+    import glob
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
+        .device_augment import DeviceDataset
+
+    base = f"{CLI_ROOT}/data/fold_1/train"
+    imgs = sorted(glob.glob(f"{base}/images/*"))
+    labs = sorted(glob.glob(f"{base}/labels/*"))
+    kw = dict(batch_size=TRAIN_BATCH, seed=SEED)
+    size = MODELS[0]["img"]
+    card_ds = DeviceDataset(imgs, labs, tree, size, True, device=device,
+                            **kw)
+    placed = DeviceDataset(imgs, labs, tree, size, True, device="cpu", **kw)
+    placed.place(device)
+    n = 0
+    for ds in (card_ds, placed):
+        ds.set_epoch(2)
+    for (x, y), (xc, yc) in zip(placed, card_ds):
+        assert x.device == xc.device and torch.equal(x, xc) \
+            and torch.equal(y, yc)
+        n += 1
+    assert n == len(card_ds) == len(imgs) // TRAIN_BATCH
+    log(f"DeviceDataset.place on {card}: {len(imgs)} images at {size} px "
+        f"built on the CPU and placed on the card yield epoch 2's {n} "
+        "batches of a set built on the card, bit for bit")
+    return {"batches": n}
+
+
+def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
+    """Phase 20: rematerialization, the inference meshes, --profile-dir and
+    ``DeviceDataset.place`` on the card (``build/chip_smoke/remat/``, after
+    phases 13 and 15, whose fold and trained run it reuses).
+
+    (a) :func:`phase_remat` for W48 at 620 px and the UNet at 352 px;
+    (b) two ranks on ``cuda:0`` over gloo, the full-width UNet at 352 px,
+        batch 16 as 8 + 8, remat "conv": a bf16 and an f32 step against
+        one process with remat "conv" (phase 19's criteria), the recompute's
+        all-reduces counted;
+    (c) :func:`phase_profile_dir`;
+    (d) the same two ranks: a 4-fold UNet ensemble (bf16, batch 4, 2 folds
+        a rank) over a ``fold`` mesh against one process's ensemble, with
+        and without TTA (probabilities within rtol 1e-5, atol 1e-6, class
+        maps equal), 36 kernel-2 launches a rank a forward, the export
+        refused;
+    (e) the same two ranks: the predict_eval CLI over phase 15's fold, f32,
+        ``--val-batch 4``, against one process at batch 4: metrics.csv and
+        PNG dumps byte-equal, only rank 0 wrote files;
+    (f) :func:`phase_place`.
+    Step and forward ms are on the host clock; two ranks sharing one card
+    is not a scaling number."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(REMAT_ROOT, ignore_errors=True)
+    os.makedirs(REMAT_ROOT)
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    out = {"remat": {MODELS[ms]["name"]: phase_remat(card, tree, ms, device)
+                     for ms in (1, 0)}}
+
+    # (b, d, e): one spawned pair of ranks for the three paths
+    n_bn = MODELS[0]["n_bn"]
+    unet = build_model(tree, 0, 1)
+    sd = random_state_dict(unet, SEED + 21, MODELS[0]["conv_gain"])
+    sd_path, batch_path = f"{REMAT_ROOT}/unet.pt", f"{REMAT_ROOT}/batch.pt"
+    torch.save(sd, sd_path)
+    torch.save(synthetic_batch(tree, TRAIN_BATCH, MODELS[0]["img"],
+                               SEED + 21), batch_path)
+    fold_paths = []
+    for f in range(MESH_FOLDS):
+        fold_paths.append(f"{REMAT_ROOT}/fold{f}.pt")
+        torch.save(random_state_dict(unet, SEED + 30 + f,
+                                     MODELS[0]["conv_gain"]), fold_paths[-1])
+    del unet
+    images = gray_images(MESH_BATCH, MODELS[0]["img"], SEED + 22)
+    eval_root = os.path.abspath(f"{REMAT_ROOT}/eval")
+    eval_argv = [
+        "--save-loc", "mesh", "--full-ds", os.path.abspath(f"{CLI_ROOT}/data"),
+        "--model-weights", os.path.abspath(f"{CLI_ROOT}/run"),
+        "--model-type", "1", "--folds", "1", "--inc-cross-val", "True",
+        "--val-batch", str(MESH_EVAL_BATCH),
+        "--img-size", str(MODELS[0]["img"]), "--device", device,
+        "--tree-root", os.path.abspath("assets/class_tree_tl.json"),
+        "--class-map", os.path.abspath("assets/class_map.csv")]
+    dp_args = (sd_path, batch_path, REMAT_DP_PLAN, "conv")
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks(DP_RANKS, (dp_args, fold_paths, images, eval_argv,
+                                    eval_root, device), REMAT_ROOT, device,
+                         job=mesh_rank_job)
+    ranks_s = time.perf_counter() - t0
+    with deterministic_algorithms():
+        one_dp = dp_steps(0, 1, *dp_args, device=device)
+    one_fold = _fold_mesh_forwards(0, fold_paths, images, None, device)
+    one_eval = _eval_cli(f"{eval_root}/one", eval_argv)
+
+    if device == "cuda":  # no plain version ran where a kernel could
+        for r in ranks:
+            assert all(v == 0 for v in r["dp"]["plain_calls"].values()), r
+        assert all(v == 0 for v in one_dp["plain_calls"].values()), one_dp
+
+    # (b) remat over the data group
+    dp = {}
+    for dtype, _ in REMAT_DP_PLAN:
+        rk = [r["dp"][dtype] for r in ranks]
+        on = one_dp[dtype]
+        for r in rk:
+            c = r["counts"][0]
+            assert c["bn_stats_sums"] == c["scale_bias_act"] == 2 * n_bn, c
+            assert c["bn_backward_reduce"] == c["bn_backward_dx"] == n_bn, c
+            assert c["bn_stats"] == c["bn_backward"] == 0, c
+            # 2 per BN call, the Dice count, the buckets, the aux, and the
+            # recompute's forward all-reduce of each BN
+            assert r["all_reduces"] == [3 * n_bn + r["buckets"] + 2], \
+                r["all_reduces"]
+        c = on["counts"][0]
+        assert (c["bn_stats"], c["scale_bias_act"], c["bn_backward"]) == \
+            (2 * n_bn, 2 * n_bn, n_bn), c
+        differ = [k for k, v in rk[0]["state"].items()
+                  if not torch.equal(v, rk[1]["state"][k])]
+        assert not differ, f"the ranks' states differ: {differ[:5]}"
+        loss_err = abs(rk[0]["loss"][0] - on["loss"][0]) / abs(on["loss"][0])
+        n_sig, bad = _significant_update(rk[0]["params1"], on["params1"],
+                                         torch.load(sd_path), TRAIN_LR)
+        log(f"remat conv over {DP_RANKS} ranks on {card}, {dtype}: UNet "
+            f"{MODELS[0]['img']} px, batch {TRAIN_BATCH} as "
+            f"{TRAIN_BATCH // DP_RANKS} + "
+            f"{TRAIN_BATCH // DP_RANKS}, against one process with remat "
+            f"conv: loss {rk[0]['loss'][0]:.6f} against {on['loss'][0]:.6f} "
+            f"(rel {loss_err:.2e}); significant updates {n_sig}, "
+            f"{bad:.4%} off; launches per rank {rk[0]['counts'][0]}; "
+            f"all-reduces per rank and step {rk[0]['all_reduces'][0]} "
+            f"({n_bn} more than without remat: the recompute's); step ms "
+            f"{[r['ms'][0] for r in rk]} against {on['ms'][0]:.3f}")
+        if dtype == "bfloat16":
+            assert loss_err <= REMAT_DP_LOSS1, loss_err
+        else:
+            assert n_sig > 1000 and bad < REMAT_DP_SIG_BAD, (n_sig, bad)
+        dp[dtype] = {"loss_rel_err": loss_err, "sig_updates": n_sig,
+                     "sig_bad": bad, "launches": rk[0]["counts"][0],
+                     "all_reduces": rk[0]["all_reduces"][0],
+                     "rank_ms": [r["ms"] for r in rk], "one_ms": on["ms"]}
+    out["remat_data_group"] = dp
+
+    # (d) the fold mesh
+    fm = {}
+    for tta in (False, True):
+        key = f"tta={tta}"
+        got = [r["fold"][key] for r in ranks]
+        one = one_fold[key]
+        err = 0.0
+        for L in range(tree.num_levels):
+            for g in got:
+                np.testing.assert_allclose(g["probs"][L], one["probs"][L],
+                                           rtol=MESH_PROB_RTOL,
+                                           atol=MESH_PROB_ATOL)
+                np.testing.assert_array_equal(g["class_maps"][L],
+                                              one["class_maps"][L])
+                err = max(err, float(np.abs(g["probs"][L]
+                                            - one["probs"][L]).max()))
+        for g in got:
+            assert g["local_folds"] == MESH_FOLDS // DP_RANKS
+            assert g["launches"] == [n_bn * MESH_FOLDS // DP_RANKS] \
+                * MESH_TIMED, g["launches"]
+            assert "mesh-sharded" in g["export_error"], g["export_error"]
+        assert one["launches"] == [n_bn * MESH_FOLDS] * MESH_TIMED
+        log(f"fold mesh on {card} ({key}): {MESH_FOLDS} UNet folds, "
+            f"{MESH_FOLDS // DP_RANKS} a rank, bf16, batch {MESH_BATCH}, "
+            f"{MODELS[0]['img']} px: probs within {err:.3e} of one "
+            f"process's ensemble, class maps equal; kernel-2 launches per "
+            f"forward {got[0]['launches']}"
+            f" a rank, {one['launches'][0]} in one process; forward ms rank "
+            f"0 {[round(v, 3) for v in got[0]['ms']]}, rank 1 "
+            f"{[round(v, 3) for v in got[1]['ms']]}, one process "
+            f"{[round(v, 3) for v in one['ms']]} (host clock, two ranks "
+            f"sharing the card); export refused")
+        fm[key] = {"max_abs_err": err, "launches": got[0]["launches"][0],
+                   "rank_ms": [g["ms"] for g in got], "one_ms": one["ms"]}
+    out["fold_mesh"] = fm
+
+    # (e) the data mesh
+    one_dir = f"{eval_root}/one/Predictions/mesh/fold_1"
+    rank_dir = f"{eval_root}/rank0/Predictions/mesh/fold_1"
+    files = sorted(os.path.relpath(os.path.join(d, f), one_dir)
+                   for d, _, fs in os.walk(one_dir) for f in fs)
+    assert files == sorted(os.path.relpath(os.path.join(d, f), rank_dir)
+                           for d, _, fs in os.walk(rank_dir) for f in fs)
+    differ = []
+    for f in files:
+        with open(f"{one_dir}/{f}", "rb") as a, \
+                open(f"{rank_dir}/{f}", "rb") as b:
+            if a.read() != b.read():
+                differ.append(f)
+    assert not os.path.exists(f"{eval_root}/rank1/Predictions")
+    n_val = CLI_TRAIN_IMAGES // 4
+    ev_launches = [r["eval"]["counts"]["scale_bias_act"] for r in ranks]
+    log(f"data mesh on {card}: the predict_eval CLI over phase 15's fold "
+        f"({n_val} images, f32, --val-batch {MESH_EVAL_BATCH}) on "
+        f"{DP_RANKS} ranks: {len(files)} files (metrics.csv and PNGs), "
+        f"{len(differ)} differing from one process's at batch "
+        f"{MESH_EVAL_BATCH} {differ[:4]}; rank 1 wrote none; kernel-2 "
+        f"launches per rank {ev_launches}, one process "
+        f"{one_eval['counts']['scale_bias_act']}; wall s per rank "
+        f"{[round(r['eval']['wall_s'], 3) for r in ranks]}, one process "
+        f"{one_eval['wall_s']:.3f}")
+    assert not differ, differ
+    assert "metrics.csv" in files and len(files) == 1 + 8 * n_val
+    assert ev_launches == [n_bn * n_val // MESH_EVAL_BATCH] * DP_RANKS
+    assert one_eval["counts"]["scale_bias_act"] == \
+        n_bn * n_val // MESH_EVAL_BATCH
+    assert ranks[1]["eval"]["result"] == ranks[0]["eval"]["result"] == \
+        one_eval["result"]
+    out["data_mesh"] = {"files": len(files), "launches": ev_launches,
+                        "rank_wall_s": [r["eval"]["wall_s"] for r in ranks],
+                        "one_wall_s": one_eval["wall_s"]}
+    out["ranks_s"] = ranks_s
+    del ranks, one_dp, one_fold
+    torch.cuda.empty_cache()
+
+    out["profile_dir"] = phase_profile_dir(card, n_bn, device)
+    torch.cuda.empty_cache()
+    out["place"] = phase_place(card, tree, device)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"remat and meshes on {card}: the phase took {out['seconds']:.1f} s "
+        f"(the two ranks {ranks_s:.1f} s)")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, tot, work,
                  bound_by="bytes", **extra):
     """One row of the kernels line; ``source`` is a file of ``csrc/``,
@@ -3888,6 +4509,11 @@ def main() -> int:
                                    "UNet step": utrain["shapes"]})
     torch.cuda.empty_cache()
 
+    remat = phase_remat_and_meshes(card)
+    torch.cuda.empty_cache()
+    w48_conv = remat["remat"]["W48"]["conv"]["launches_per_step"]
+    unet_conv = remat["remat"]["UNet"]["conv"]["launches_per_step"]
+
     def split_entry(name, source, replaces):
         """A split entry of kernel 1 or 3 (phase 19): launches over the
         two-rank run (rank 0's three steps), the rest summed over one
@@ -3936,6 +4562,9 @@ def main() -> int:
         "options_launches": opt["launches"],
         "export_launches": dep["launches"],
         "device_data_launches": dd_launches["scale_bias_act"],
+        "remat_launches": w48_conv[1], "unet_remat_launches": unet_conv[1],
+        "fold_mesh_launches": remat["fold_mesh"]["tta=False"]["launches"],
+        "data_mesh_launches": remat["data_mesh"]["launches"][0],
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             epath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
@@ -3963,7 +4592,12 @@ def main() -> int:
                 "counted runs of loaded torch.export artifacts (the kernel "
                 "as the operator torch.ops.rhss.scale_bias_act); "
                 "device_data_launches: the train CLI's 2 epochs and resume "
-                "to 3 with --device-data True (phase 18), as cli_launches",
+                "to 3 with --device-data True (phase 18), as cli_launches; "
+                "remat_launches / unet_remat_launches: one W48 / UNet train "
+                "step with --remat conv (phase 20); fold_mesh_launches: one "
+                "rank's forward of a 4-fold UNet ensemble over two ranks; "
+                "data_mesh_launches: one rank's predict_eval run over two "
+                "ranks (phase 20)",
         **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
         **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
@@ -3985,6 +4619,7 @@ def main() -> int:
         unet_launches=utrain["counts"]["bn_stats"],
         cli_launches=cli["launches"]["bn_stats"],
         device_data_launches=dd_launches["bn_stats"],
+        remat_launches=w48_conv[0], unet_remat_launches=unet_conv[0],
         split_entries=[split_entry("bn_stats_sums", "bn_stats.cu",
                                    f"{BN_FILE}:51")],
         fused_vs_split_ms=fused_split, **unet("bn_stats")),
@@ -4003,6 +4638,7 @@ def main() -> int:
         unet_grad_copies=utrain["grad_copies"][0],
         cli_launches=cli["launches"]["bn_backward"],
         device_data_launches=dd_launches["bn_backward"],
+        remat_launches=w48_conv[2], unet_remat_launches=unet_conv[2],
         split_entries=[split_entry(e, "bn_backward.cu", f"{BN_FILE}:173")
                        for e in ("bn_backward_reduce", "bn_backward_dx")],
         fused_vs_split_ms=fused_split, **unet("bn_backward")),
@@ -4034,7 +4670,8 @@ def main() -> int:
                     "predict_eval": {k: v for k, v in ev.items()
                                      if k != "shapes"},
                     "serving_options": opt, "deployment": dep,
-                    "data_side": data_side, "scale_out": scale},
+                    "data_side": data_side, "scale_out": scale,
+                    "remat_and_meshes": remat},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

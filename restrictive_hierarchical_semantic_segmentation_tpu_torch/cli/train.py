@@ -33,9 +33,12 @@ every file. Each rank takes ``cuda:{LOCAL_RANK or i % device_count}``
 unless ``--device`` names another device; the backend is NCCL on the card
 and gloo on the CPU. The JAX CLI's ``RHSS_PLATFORM``/``RHSS_CPU_DEVICES``
 overrides (JAX's platform and virtual CPU device count) have no
-counterpart: ``--device`` picks the device. Still raising, and naming
-ROADMAP queue 1, item 8: ``--n-space`` above 1, ``--remat`` other than
-False and ``--profile-dir``. Two ranks on one machine::
+counterpart: ``--device`` picks the device. ``--remat True|module|conv``
+recomputes the backbone's regions in the backward (``models/remat.py``);
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of epoch 2's steps
+into DIR, one file per rank that trains (``utils/profiling.py``). Still
+raising, and naming ROADMAP queue 1, item 8: ``--n-space`` above 1. Two
+ranks on one machine::
 
     for i in 0 1; do python -m \
       restrictive_hierarchical_semantic_segmentation_tpu_torch.cli.train \

@@ -25,13 +25,13 @@ index) and nothing else, so a resumed run redraws the same epoch. The
 streams are not JAX's: ``tests/test_torch_device_augment.py`` holds the
 port to JAX at fixed parameters.
 
-Data-parallel training (``shard``): every rank draws and augments the
-same global batch and keeps its rows of it (JAX ``train/loop.py:285-290``,
-where each process assembles the same global batch), so the ranks' rows
-together are the single-process batch.
-
-Not ported: the JAX ``DeviceDataset.place``/``set_sharding``, which serve
-fold-parallel meshes over several devices of one process.
+Data-parallel training (``shard``, or :meth:`DeviceDataset.set_sharding`
+as the trainer calls it, JAX ``train/loop.py:287-290``): every rank draws
+and augments the same global batch and keeps its rows of it (as each JAX
+process assembles the same global batch), so the ranks' rows together are
+the single-process batch. :meth:`DeviceDataset.place` moves the base
+arrays, and with them the augmentation, to another device (JAX
+``data/device_augment.py:310-316``).
 """
 from __future__ import annotations
 
@@ -303,11 +303,7 @@ class DeviceDataset:
         self._n = images.shape[0]
         self._fn = make_augment_fn(tree, hierarchical)
         self._epoch = 0
-        # this rank's rows of each global batch (data/loader.py:shard_rows)
-        from .loader import shard_rows
-
-        self._rows = (None if shard is None
-                      else shard_rows(self.batch_size, shard))
+        self.set_sharding(shard)
 
     @property
     def nbytes(self) -> int:
@@ -320,6 +316,22 @@ class DeviceDataset:
 
     def set_epoch(self, epoch: int):
         self._epoch = int(epoch)
+
+    def set_sharding(self, shard) -> None:
+        """Yield this rank's rows of every global batch: ``shard = (index,
+        size, grad_accum)`` in its data group (``data/loader.py:
+        shard_rows``), or None for the whole batch."""
+        from .loader import shard_rows
+
+        self._rows = (None if shard is None
+                      else shard_rows(self.batch_size, shard))
+
+    def place(self, device) -> None:
+        """Move the base arrays, and so the augmentation and the batches it
+        yields, to ``device``."""
+        self.device = resolve_device(device)
+        self._images = self._images.to(self.device)
+        self._masks = self._masks.to(self.device)
 
     def close(self):
         """Release the device arrays."""

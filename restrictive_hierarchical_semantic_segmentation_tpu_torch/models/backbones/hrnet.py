@@ -27,6 +27,7 @@ from torch import nn
 from ...config.hrnet import HRNetConfig, HRNetStage
 from ...ops.resize import resize_nchw
 from ..norm import BatchNormAct
+from ..remat import remat_mode, run_region
 
 __all__ = ["HRNetBackbone"]
 
@@ -296,14 +297,19 @@ class HRNetBackbone(nn.Module):
     flavours of the JAX package compute the same function, and the port
     runs its kernel for either. ``head_mode``: "concat", "sum" or "auto"
     (the default: ``$RHSS_HRNET_HEAD``, else "concat", read when the
-    backbone is built); an unknown mode raises (see :class:`SharedHead1x1`)."""
+    backbone is built); an unknown mode raises (see :class:`SharedHead1x1`).
+    ``remat`` (False, True / "module", "conv") makes each
+    ``HighResolutionModule`` a recomputed region (``models/remat.py``), as
+    the JAX backbone does."""
 
     feature_stride = 4
 
     def __init__(self, config: HRNetConfig, in_channels: int = 3,
-                 use_pallas_bn: bool = False, head_mode: str = "auto"):
+                 use_pallas_bn: bool = False, head_mode: str = "auto",
+                 remat=False):
         super().__init__()
         self.config = config
+        self.remat = remat_mode(remat)
         self.use_pallas_bn = use_pallas_bn
         ac = config.align_corners
         self.stem_conv0 = _conv(in_channels, 64, 3, 2)
@@ -344,6 +350,7 @@ class HRNetBackbone(nn.Module):
         for si, n_modules in self.stage_modules:
             xs = getattr(self, f"transition{si - 1}")(xs)
             for m in range(n_modules):
-                xs = getattr(self, f"stage{si}_m{m}")(xs)
+                xs = run_region(getattr(self, f"stage{si}_m{m}"), xs,
+                                mode=self.remat)
         return self.shared_head_bn(
             self.shared_head_conv(xs, xs[0].shape[-2:]))

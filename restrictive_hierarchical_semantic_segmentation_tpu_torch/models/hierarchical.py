@@ -14,6 +14,12 @@ argument). ``concat_prev_probs`` concatenates the previous level's
 probabilities (resized, zero at level 0, right-padded to the widest level)
 to the input, and then pays one backbone pass per level.
 
+``remat`` (False, True / "module", "conv"; ``models/remat.py``) makes each
+backbone pass of the UNet one recomputed region, as the JAX
+``_run_backbone`` does; HRNet remats per ``HighResolutionModule`` inside
+its backbone, and ``build_model`` gives this module ``remat=False`` for
+it, as JAX's ``seg_remat`` does.
+
 In train mode every BatchNorm of a backbone pass updates its running
 statistics once. The reference runs the backbone D times per step (D tree
 levels), so its running statistics see D updates with the same batch
@@ -38,6 +44,7 @@ from ..hierarchy.tree import ClassTree
 from ..ops.resize import resize_nchw
 from ..ops.restrictive import gated_grouped_softmax
 from .film import FiLM
+from .remat import remat_mode, run_region
 
 __all__ = ["HierarchicalSegmenter", "SegmenterOutput", "build_model"]
 
@@ -64,10 +71,11 @@ class HierarchicalSegmenter(nn.Module):
     def __init__(self, tree: ClassTree, backbone: nn.Module,
                  hierarchical: bool = True, final_conv_kernel: int = 1,
                  align_corners: bool = True, concat_prev_probs: bool = False,
-                 share_backbone: bool = True):
+                 share_backbone: bool = True, remat=False):
         super().__init__()
         self.tree = tree
         self.backbone = backbone
+        self.remat = remat_mode(remat)
         self.hierarchical = hierarchical
         self.align_corners = align_corners
         self.concat_prev_probs = concat_prev_probs
@@ -116,6 +124,10 @@ class HierarchicalSegmenter(nn.Module):
         return torch.cat([x, extra], dim=1).contiguous(
             memory_format=torch.channels_last)
 
+    def _run_backbone(self, x: torch.Tensor) -> torch.Tensor:
+        """One backbone pass, a recomputed region under ``remat``."""
+        return run_region(self.backbone, x, mode=self.remat)
+
     def _logits(self, feats, name: str, hw) -> torch.Tensor:
         z = resize_nchw(getattr(self, name)(feats), hw, self.align_corners)
         return z if z.dtype == torch.float64 else z.float()
@@ -127,18 +139,18 @@ class HierarchicalSegmenter(nn.Module):
         t = self.tree
 
         if not self.hierarchical:
-            feats = self.backbone(self._backbone_input(x, None))
+            feats = self._run_backbone(self._backbone_input(x, None))
             z = self._logits(feats, "head_flat", hw)
             return SegmenterOutput(None, [_nhwc(z)], None)
 
-        feats = self.backbone(self._backbone_input(x, None))
+        feats = self._run_backbone(self._backbone_input(x, None))
         z0 = self._logits(feats, "head_l0", hw)
         probs = [torch.sigmoid(z0)]            # NCHW
         logits = [_nhwc(z0)]
         qs: List[Optional[torch.Tensor]] = [None]
         share = self.share_backbone and not self.concat_prev_probs
         for L in range(1, t.num_levels):
-            feats_l = feats if share else self.backbone(
+            feats_l = feats if share else self._run_backbone(
                 self._backbone_input(x, probs[L - 1]))
             feats_l = getattr(self, f"film_l{L}")(
                 feats_l, probs[L - 1].to(feats_l.dtype))
@@ -155,11 +167,15 @@ class HierarchicalSegmenter(nn.Module):
 def build_model(tree: ClassTree, model_select: int = 0, model_type: int = 1,
                 hrnet_config=None, concat_prev_probs: bool = False,
                 use_pallas_bn: bool = False,
-                share_backbone: bool = True) -> HierarchicalSegmenter:
+                share_backbone: bool = True,
+                remat=False) -> HierarchicalSegmenter:
     """Factory matching the reference CLI conventions (train.py:456-462):
     ``model_select`` 0 = UNet, 1 = HRNet; ``model_type`` 0 = flat, 1 = hier.
     The model is built on the CPU in train mode; callers move it and call
-    ``.eval()``. ``hrnet_config`` and ``use_pallas_bn`` apply to HRNet only."""
+    ``.eval()``. ``hrnet_config`` and ``use_pallas_bn`` apply to HRNet only.
+    ``remat``: the UNet's backbone pass is one region, each
+    ``HighResolutionModule`` of HRNet one (``models/remat.py``)."""
+    seg_remat = remat
     in_ch = 3 + (max(tree.classes_per_level) if concat_prev_probs else 0)
     if model_select == 0:
         from .backbones.unet import UNetBackbone
@@ -172,9 +188,11 @@ def build_model(tree: ClassTree, model_select: int = 0, model_type: int = 1,
 
         cfg = hrnet_config or hrnet_w48()
         backbone = HRNetBackbone(cfg, in_channels=in_ch,
-                                 use_pallas_bn=use_pallas_bn)
+                                 use_pallas_bn=use_pallas_bn, remat=remat)
+        seg_remat = False  # HRNet remats per module, inside its backbone
         final_k, ac = cfg.final_conv_kernel, cfg.align_corners
     return HierarchicalSegmenter(
         tree=tree, backbone=backbone, hierarchical=model_type == 1,
         final_conv_kernel=final_k, align_corners=ac,
-        concat_prev_probs=concat_prev_probs, share_backbone=share_backbone)
+        concat_prev_probs=concat_prev_probs, share_backbone=share_backbone,
+        remat=seg_remat)

@@ -32,9 +32,12 @@ statistics are those of the local batch, or, with a data-parallel group of
 more than one rank (:func:`set_bn_group`), of the whole batch of the group
 (``LeanBatchNorm`` under a ``data`` mesh axis: SyncBatchNorm), through
 :func:`..ops.fused_bn_act.sync_batch_norm_act`; ``n`` is then the group's
-row count. The group is used in train mode only. Train mode takes act "none" or
-"relu": the JAX backward treats every other act as the identity, which is
-wrong for ``leaky_relu``, so the port raises for it instead.
+row count. The group is used in train mode only. Inside the recompute of a
+rematerialized region (``models/remat.py``) the buffers are left as they
+are: the region's forward already moved them, once. Train mode takes act
+"none" or "relu": the JAX backward treats every other act as the
+identity, which is wrong for ``leaky_relu``, so the port raises for it
+instead.
 
 Export: the ``folded()`` cache is keyed on storage addresses and version
 counters, which the tensors ``torch.export`` traces with do not have, so
@@ -54,6 +57,7 @@ from torch import nn
 
 from ..ops.fused_bn_act import (ACTS, batch_norm_act, fused_scale_bias_act,
                                 sync_batch_norm_act)
+from .remat import recomputing
 
 __all__ = ["BatchNormAct", "BN_MOMENTUM", "set_bn_group"]
 
@@ -126,6 +130,8 @@ class BatchNormAct(nn.Module):
             y, mean, var, n = sync_batch_norm_act(
                 xn, self.weight, self.bias, self.group, self.eps, self.act)
             bessel = torch.where(n > 1, n / (n - 1), 1.0)
+        if recomputing():  # the forward of this step updated them already
+            return y
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

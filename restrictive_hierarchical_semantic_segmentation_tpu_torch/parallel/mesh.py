@@ -6,17 +6,21 @@ In the JAX package a mesh entry is a device of one SPMD program, and XLA
 compiles the collectives from sharding annotations. In the port a mesh
 entry is a **rank**: one process driving one card (or the CPU). A
 :class:`RankMesh` holds the array of ranks over its named axes and one
-``torch.distributed`` process group per data group (the ranks that share
-the ``data`` axis at one position of the other axes), made with
-``dist.new_group`` by every rank in the same order, as ``new_group``
-requires. A group of one rank is None: there is nothing to reduce.
+``torch.distributed`` process group per line of its ``data`` axis (a data
+group: the ranks that differ only in their ``data`` position) and per line
+of its ``fold`` axis (a fold group), made with ``dist.new_group`` by every
+rank in the same order, as ``new_group`` requires: the data groups first,
+then the fold groups. A group of one rank is None: there is nothing to
+reduce.
 
 * ``data``: each rank takes its rows of every global batch; the BatchNorm
   statistics span the group's batch (``models/norm.py:set_bn_group``, the
   JAX ``LeanBatchNorm`` over the data axis), and the gradients are
   all-reduced over the group (``train/steps.py``);
 * ``fold``: independent folds over groups of ranks
-  (``train/fold_parallel.py``);
+  (``train/fold_parallel.py``); a fold ensemble's folds over the ranks of a
+  fold group, whose per-level probabilities are averaged over it
+  (``train/serving.py:Predictor``'s ``mesh``);
 * ``space``: spatial sharding of H. It has no counterpart in the port:
   ``n_space`` above 1 raises (ROADMAP.md queue 1, item 8).
 
@@ -96,23 +100,31 @@ def single() -> DataGroup:
 class RankMesh:
     """Ranks over named axes (the JAX ``Mesh`` with ranks for devices):
     ``devices`` is the integer array of ranks, ``shape`` the axis sizes by
-    name. ``data_groups`` maps the position of every axis but ``data`` to
-    its :class:`DataGroup`'s process group (None for one rank)."""
+    name. ``data_groups`` (``fold_groups``) maps the position of every axis
+    but ``data`` (``fold``) to the process group of the ranks along that
+    axis there (None for one rank, or a mesh without the axis)."""
 
     def __init__(self, ranks: np.ndarray, axis_names: Sequence[str]):
         self.devices = np.asarray(ranks)
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               self.devices.shape))
-        d = self.axis_names.index(DATA_AXIS)
-        lines = np.moveaxis(self.devices, d, -1)
-        self._lines = {idx: tuple(int(r) for r in lines[idx])
-                       for idx in np.ndindex(*lines.shape[:-1])}
         # every rank makes every group, in the same order; without a
         # process group (a mesh only sized, as the tests do) there are none
+        self._lines, self.data_groups = self._axis_groups(DATA_AXIS)
+        self._fold_lines, self.fold_groups = self._axis_groups(FOLD_AXIS)
+
+    def _axis_groups(self, axis: str):
+        """``(lines, groups)`` of ``axis``: the ranks along it at each
+        position of the other axes, and their process groups."""
+        if axis not in self.axis_names:
+            return {}, {}
+        lines = np.moveaxis(self.devices, self.axis_names.index(axis), -1)
+        lines = {idx: tuple(int(r) for r in lines[idx])
+                 for idx in np.ndindex(*lines.shape[:-1])}
         live = dist.is_available() and dist.is_initialized()
-        self.data_groups = {idx: _group(r) if live and len(r) > 1 else None
-                            for idx, r in self._lines.items()}
+        return lines, {idx: _group(r) if live and len(r) > 1 else None
+                       for idx, r in lines.items()}
 
     def position(self, rank: Optional[int] = None) -> Optional[tuple]:
         """The index of ``rank`` (this process's by default) in
@@ -124,18 +136,34 @@ class RankMesh:
     def data_group(self, rank: Optional[int] = None) -> DataGroup:
         """The :class:`DataGroup` ``rank`` (this process's by default)
         belongs to."""
+        return self._axis_group(DATA_AXIS, self._lines, self.data_groups,
+                                rank)
+
+    def fold_group(self, rank: Optional[int] = None) -> DataGroup:
+        """The ranks of ``rank``'s fold group (this process's by default):
+        those that share every position with it but ``fold``, in fold-axis
+        order, as a :class:`DataGroup` (its ``index`` is the rank's fold
+        position)."""
+        return self._axis_group(FOLD_AXIS, self._fold_lines,
+                                self.fold_groups, rank)
+
+    def _axis_group(self, axis: str, lines: dict, groups: dict,
+                    rank: Optional[int]) -> DataGroup:
+        if axis not in self.axis_names:
+            raise ValueError(f"this mesh has no '{axis}' axis; got "
+                             f"{self.axis_names}")
         rank = world()[0] if rank is None else rank
         pos = self.position(rank)
         if pos is None:
             raise ValueError(f"rank {rank} is idle in this mesh")
-        d = self.axis_names.index(DATA_AXIS)
+        d = self.axis_names.index(axis)
         idx = pos[:d] + pos[d + 1:]
-        group = self.data_groups[idx]
-        if group is None and len(self._lines[idx]) > 1:
+        group = groups[idx]
+        if group is None and len(lines[idx]) > 1:
             raise RuntimeError(
-                f"a data group of {len(self._lines[idx])} ranks needs "
+                f"a {axis} group of {len(lines[idx])} ranks needs "
                 "torch.distributed (init_distributed) before the mesh")
-        return DataGroup(self._lines[idx], rank, group)
+        return DataGroup(lines[idx], rank, group)
 
 
 def _group(ranks: Tuple[int, ...]):

@@ -23,6 +23,21 @@ directory written by the port's trainer, the port's own ``.pt``/``.pth``
 the JAX Evaluator imports it; unmatched leaves keep the initialization
 drawn from seed 0). A JAX orbax checkpoint is refused
 (``train/checkpoint.py:load_state``).
+
+The data mesh (JAX ``train/evaluate.py:151-164``, ``:225-237``): in a run
+of several ranks (an initialized ``torch.distributed`` process group) the
+batch is split over a data group of ``n_data`` ranks, the largest divisor
+of the batch that is at most the world size (``mesh``, a
+:class:`..parallel.mesh.RankMesh` with a ``data`` axis, overrides it). Each
+rank of the group loads every padded batch and runs the forward on its
+rows; the per-image confusion matrices, and the maps the host needs (PNG
+dumps, a flat model's reconstruction), come back to every rank of the group
+in image order (an all-reduce of the rows each rank fills, zeros elsewhere:
+gloo reduces CUDA tensors but gathers none). The group's first rank scores
+them and is the only one to print and write ``metrics.csv`` and PNGs; every
+rank of the group returns its result. Ranks outside the group idle: they
+build nothing, enter no collective of the group and return None. With one
+rank everything is as without a process group.
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.run import RunConfig
 from ..data.dataset import SegDataset
@@ -42,6 +58,7 @@ from ..data.png import encode_png_gray8
 from ..hierarchy.tree import ClassTree
 from ..metrics.segmentation import MetricAccumulator, level_confusion_matrices
 from ..models.hierarchical import SegmenterOutput, build_model
+from ..parallel.mesh import DATA_AXIS, make_mesh, single, world
 from ..utils.device import float32_convs as _float32_convs
 from ..utils.device import resolve_device
 from .torch_import import load_model_weights
@@ -108,22 +125,30 @@ class Evaluator:
 
     def __init__(self, cfg: RunConfig, tree: ClassTree, data_root: str,
                  weights_path: str, save_dir: Optional[str] = None,
-                 save_images: bool = True, device=None):
+                 save_images: bool = True, device=None, mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tree = tree
         self.save_dir = save_dir
         self.save_images = save_images and save_dir is not None
         hier = cfg.hierarchical
-
-        imgs, labs = list_pairs(data_root)
-        self.target_paths = labs
         # The reference runs offline eval at batch=1 (predictEval.py:222).
         # The forward runs at cfg.val_batch and each image is scored
         # separately (per_image_metrics), so metrics.csv equals the batch=1
         # run's.
         self.batch = max(1, cfg.val_batch)
         self.inflight = max(1, cfg.eval_inflight)
+        self.data = self._data_group(mesh)
+        if self.data is None:  # idle in the data mesh
+            self.is_main = False
+            return
+        self.is_main = self.data.is_main
+        n = self.data.size
+        per = self.batch // n
+        self.rows = slice(self.data.index * per, (self.data.index + 1) * per)
+
+        imgs, labs = list_pairs(data_root)
+        self.target_paths = labs
 
         hrnet_cfg = None
         if cfg.hrnet_yaml:
@@ -136,7 +161,8 @@ class Evaluator:
                                 hrnet_cfg,
                                 concat_prev_probs=cfg.concat_prev_probs)
         n_params = sum(p.numel() for p in model.parameters())
-        print("Number of model parameters: ", n_params)  # predictEval.py:259
+        if self.is_main:
+            print("Number of model parameters: ", n_params)  # :259
         load_model_weights(model, weights_path, cfg.model_select)
         self.model = model.eval().to(self.device,
                                      memory_format=torch.channels_last)
@@ -170,6 +196,45 @@ class Evaluator:
             per_image_metrics=True, compute_dtype=cfg.compute_dtype,
             apply_fn=apply_fn,
         )
+
+    def _data_group(self, mesh):
+        """This rank's data group (module docstring), or None for a rank
+        the mesh leaves idle."""
+        if mesh is None:
+            _, size = world()
+            if size == 1:
+                return single()
+            n_data = max(d for d in range(1, size + 1)
+                         if self.batch % d == 0)
+            mesh = make_mesh(n_data=n_data)  # every rank makes its groups
+        n_data = mesh.shape.get(DATA_AXIS, 0)
+        if not n_data or self.batch % n_data:
+            raise ValueError(
+                f"the Evaluator's mesh needs a '{DATA_AXIS}' axis dividing "
+                f"the batch {self.batch}; got {mesh.shape}")
+        if mesh.position() is None:
+            return None
+        return mesh.data_group()
+
+    def _gather(self, res: dict) -> dict:
+        """The group's results of a batch, in image order: each rank's rows
+        in a zero tensor of the whole batch, all-reduced (exact: every
+        element is one rank's value plus zeros)."""
+        group = self.data.group
+        if group is None:
+            return res
+        out = {}
+        for k in ("confmats", "outputs"):
+            if k not in res:
+                continue
+            whole = []
+            for t in res[k]:
+                full = t.new_zeros((self.batch,) + tuple(t.shape[1:]))
+                full[self.rows] = t
+                dist.all_reduce(full, group=group)
+                whole.append(full)
+            out[k] = whole
+        return out
 
     def _f32_on_card(self) -> bool:
         return (self.device.type == "cuda"
@@ -205,14 +270,17 @@ class Evaluator:
             self.act_scales = calibrate(self.model, calib, apply_fn=forward)
         return quantized_apply(self.model, self.act_scales)
 
-    def run(self) -> dict:
+    def run(self) -> Optional[dict]:
         """Score every image; returns ``{overall, per_class, measure,
         seconds}``, ``seconds`` holding the run's host-clock time
         (``total``) and the part spent waiting for the loader
-        (``loader_wait``)."""
+        (``loader_wait``), the group's first rank's on every rank of the
+        data group; None on an idle rank."""
+        if self.data is None:
+            return None
         tree = self.tree
         acc = MetricAccumulator(self.num_classes_per_level)
-        if self.save_images:
+        if self.save_images and self.is_main:
             for c in range(tree.num_classes):
                 os.makedirs(os.path.join(self.save_dir, str(c)), exist_ok=True)
 
@@ -249,15 +317,24 @@ class Evaluator:
                     if len(pending) >= self.inflight:
                         img_idx = self._consume(*pending.popleft(), acc,
                                                 img_idx)
-                    res = self.eval_step(*to_device((x, y), self.device))
-                    pending.append((res, n_valid, y))
+                    res = self._gather(self.eval_step(*to_device(
+                        (x[self.rows], y[self.rows]), self.device)))
+                    if self.is_main:
+                        pending.append((res, n_valid, y))
                 while pending:
                     img_idx = self._consume(*pending.popleft(), acc, img_idx)
             finally:
                 self.loader.close()
-        out = self._write_csv(acc)
-        out["seconds"] = {"total": time.perf_counter() - t0,
-                          "loader_wait": wait}
+        out = None
+        if self.is_main:
+            out = self._write_csv(acc)
+            out["seconds"] = {"total": time.perf_counter() - t0,
+                              "loader_wait": wait}
+        if self.data.group is not None:  # the writer's result on every rank
+            box = [out]
+            dist.broadcast_object_list(box, src=self.data.root,
+                                       group=self.data.group)
+            out = box[0]
         return out
 
     def _consume(self, res, n_valid: int, y, acc: MetricAccumulator,
@@ -340,13 +417,15 @@ class Evaluator:
 
 def predict_eval(cfg: RunConfig, weights: List[str], roots: List[str],
                  save_root: str, save_images: bool = True,
-                 device=None) -> List[dict]:
-    """Every fold in turn (predictEval.py:265-299)."""
+                 device=None) -> List[Optional[dict]]:
+    """Every fold in turn (predictEval.py:265-299), each over the data mesh
+    of the run's ranks (module docstring)."""
     tree = ClassTree.from_json(cfg.tree_root, cfg.class_map)
     results = []
     for fold, (w, r) in enumerate(zip(weights, roots), start=1):
         save_dir = os.path.join(save_root, f"fold_{fold}") if save_root else None
-        print(f"Fold {fold}: root={r} weights={w}")
+        if world()[0] == 0:
+            print(f"Fold {fold}: root={r} weights={w}")
         ev = Evaluator(cfg, tree, r, w, save_dir, save_images, device=device)
         results.append(ev.run())
     return results

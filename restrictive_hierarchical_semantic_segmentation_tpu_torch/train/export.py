@@ -34,8 +34,10 @@ JAX sidecar's keys (``torch_version`` in place of ``jax_version``):
 
 Loading needs only ``torch`` and the port's ``ops`` package, which
 registers the ``rhss::*`` operators: none of the port's model code runs,
-as the JAX docstring says of its own artifact. The mesh-sharded ensembles
-the JAX exporter refuses do not exist in the port.
+as the JAX docstring says of its own artifact. A fold ensemble sharded over
+the ranks of a fold mesh (the ``Predictor``'s ``mesh``) is refused with the
+JAX exporter's words: its program would hold one rank's folds and a
+collective over the exporting run's process group.
 """
 from __future__ import annotations
 
@@ -91,7 +93,7 @@ def export_predictor(
 
     Args:
       predictor: a :class:`~.serving.Predictor`, one fold or a fold
-        ensemble, with any of its options.
+        ensemble, with any of its options but a fold ``mesh``.
       out_path: artifact path (conventionally ``*.pt2``); a JSON sidecar is
         written next to it at ``out_path + ".json"``.
       batch: static batch size, or ``None`` (default) for a symbolic batch
@@ -103,6 +105,11 @@ def export_predictor(
 
     Returns the artifact path.
     """
+    if predictor.ensemble and predictor.mesh is not None:
+        raise ValueError(
+            "mesh-sharded fold-ensemble Predictors are not exportable (the "
+            "artifact would pin the exporting mesh); export the unsharded "
+            "ensemble (mesh=None) or per-fold artifacts instead")
     cfg = predictor.cfg
     plats = _platforms(predictor.device.type, platforms)
     if cfg.compute_dtype != "float32" and len(plats) > 1:

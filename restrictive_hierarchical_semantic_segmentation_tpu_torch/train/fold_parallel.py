@@ -146,10 +146,13 @@ class FoldParallelTrainer:
         device_aux = [[] for _ in self.trainers]
         t0 = time.time()
         n = min(lens)
-        for k in range(1, n + 1):
-            for f, t in enumerate(self.trainers):
-                x, y = next(its[f])
-                device_aux[f].append(t.step(x, y, masks[f], epoch, k))
+        # epoch 2 under --profile-dir: one trace of every local fold's
+        # steps, by each rank that trains (an idle rank has no trainer)
+        with self.trainers[0].profile(epoch):
+            for k in range(1, n + 1):
+                for f, t in enumerate(self.trainers):
+                    x, y = next(its[f])
+                    device_aux[f].append(t.step(x, y, masks[f], epoch, k))
         dt = time.time() - t0
         return [t.epoch_result(epoch, aux, dt, n)
                 for t, aux in zip(self.trainers, device_aux)]

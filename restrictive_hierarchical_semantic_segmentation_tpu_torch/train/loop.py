@@ -10,7 +10,11 @@ The model lives on ``device`` (``cuda`` unless the caller asks for the
 CPU) in ``torch.channels_last``, where every BatchNorm runs the port's
 kernels. With ``device_data`` the training set lives on that device too
 and is augmented there (``data/device_augment.py``); validation keeps the
-host chain. Options of the JAX trainer that the port does not have raise
+host chain. ``remat`` makes the backbone's regions recompute in the
+backward (``models/remat.py``); ``profile_dir`` traces the steps of epoch 2
+and of epoch 2 only, as the JAX trainer does (``utils/profiling.py:trace``;
+in a run of several ranks each rank that trains writes its own file).
+Options of the JAX trainer that the port does not have raise
 (:func:`check_supported`).
 
 Data parallelism (the JAX trainer's ``data`` mesh axis): in a run of
@@ -18,7 +22,8 @@ several ranks (``parallel/mesh.py:init_distributed``) a :class:`Trainer`
 spans a data group of ranks (every rank by default, or the group the
 fold-parallel trainer gives it) and computes what one process computes on
 the global batch: each rank loads its rows of every batch
-(``data/loader.py:shard_rows``), BatchNorm takes the group's statistics,
+(``data/loader.py:shard_rows``; a device-resident set through its
+``set_sharding``), BatchNorm takes the group's statistics,
 the step all-reduces the Dice counts, the gradients and its aux
 (``train/steps.py``). Parameters start from the group's first rank (a
 broadcast) and stay the same bits on every rank. Validation runs on every
@@ -65,6 +70,7 @@ from ..models.norm import set_bn_group
 from ..parallel.mesh import DataGroup, make_mesh, single, world
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
+from ..utils.profiling import trace
 from .checkpoint import CheckpointManager, load_checkpoint
 from .plateau import ReduceLROnPlateau
 from .state import create_train_state, set_learning_rate
@@ -91,23 +97,17 @@ def _fold_ids(cfg: RunConfig) -> List[int]:
 
 def check_supported(cfg: RunConfig) -> None:
     """Raise for the JAX trainer's options that the port does not have:
-    grain, which has no counterpart, and those of ROADMAP queue 1, item 8
-    still to port (spatial sharding, rematerialization, profiling)."""
+    grain, which has no counterpart, and spatial sharding (ROADMAP queue
+    1, item 8: out of scope)."""
     if cfg.loader == "grain":
         raise NotImplementedError(
             "--loader grain: grain is a JAX input pipeline with no "
             "counterpart in the PyTorch port; use --loader threads or "
             "process")
-    refused = []
     if cfg.n_space > 1:
-        refused.append(f"--n-space {cfg.n_space} (queue 1, item 8)")
-    if cfg.remat:
-        refused.append(f"--remat {cfg.remat} (queue 1, item 8)")
-    if cfg.profile_dir:
-        refused.append("--profile-dir (queue 1, item 8)")
-    if refused:
         raise NotImplementedError(
-            "not in the PyTorch port yet (ROADMAP.md): " + "; ".join(refused))
+            "not in the PyTorch port (ROADMAP.md): "
+            f"--n-space {cfg.n_space} (queue 1, item 8)")
 
 
 def list_pairs(root: str) -> Tuple[List[str], List[str]]:
@@ -127,8 +127,10 @@ def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
     loader is a :class:`DeviceDataset` on ``device`` (``cuda`` unless the
     caller asks for the CPU), which yields tensors already there.
     ``shard``: ``(index, size, grad_accum)`` of this rank in its data group
-    (``data/loader.py:shard_rows``); the train loader yields its rows of
-    every batch, the validation loader every image."""
+    (``data/loader.py:shard_rows``); the host train loader yields its rows
+    of every batch (a :class:`DeviceDataset` takes them from the caller's
+    ``set_sharding``, as the JAX trainer lays out its device set), the
+    validation loader every image."""
     check_supported(cfg)
     hier = cfg.hierarchical
     tr_imgs, tr_labs = list_pairs(train_root)
@@ -152,8 +154,7 @@ def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
         # per-epoch work is a permutation
         train_loader = DeviceDataset(
             tr_imgs, tr_labs, tree, cfg.img_size, hier,
-            batch_size=cfg.batch_size, seed=cfg.seed, device=device,
-            shard=shard)
+            batch_size=cfg.batch_size, seed=cfg.seed, device=device)
     else:
         train_loader = BatchLoader(
             SegDataset(tr_imgs, tr_labs, tree, cfg.img_size, hier,
@@ -289,7 +290,8 @@ class Trainer:
             torch.manual_seed(cfg.seed)
             model = build_model(tree, cfg.model_select, cfg.model_type,
                                 hrnet_cfg,
-                                concat_prev_probs=cfg.concat_prev_probs)
+                                concat_prev_probs=cfg.concat_prev_probs,
+                                remat=cfg.remat)
         self.model = model.to(self.device,
                               memory_format=torch.channels_last).train()
         self.state = create_train_state(self.model, cfg.lr, cfg.weight_decay)
@@ -361,6 +363,9 @@ class Trainer:
         self.train_loader, self.val_loader = make_loaders(
             cfg, tree, train_root, val_root, device=self.device, shard=shard
         )
+        if hasattr(self.train_loader, "set_sharding"):
+            # the device-resident set yields this rank's rows at the source
+            self.train_loader.set_sharding(shard)
 
     def lr(self) -> float:
         return float(self.state.optimizer.param_groups[0]["lr"])
@@ -431,12 +436,19 @@ class Trainer:
             "steps": len(losses),
         }
 
+    def profile(self, epoch: int):
+        """The trace around an epoch's steps: epoch 2 (the first steady
+        one) under ``profile_dir``, else nothing."""
+        return trace(self.cfg.profile_dir if epoch == 2 else None,
+                     device=self.device)
+
     def train_epoch(self, epoch: int):
         mask = self.level_mask(epoch)
         t0 = time.time()
         device_aux = []
-        for n, (x, y) in enumerate(self.epoch_batches(epoch), 1):
-            device_aux.append(self.step(x, y, mask, epoch, n))
+        with self.profile(epoch):
+            for n, (x, y) in enumerate(self.epoch_batches(epoch), 1):
+                device_aux.append(self.step(x, y, mask, epoch, n))
         return self.epoch_result(epoch, device_aux, time.time() - t0,
                                  len(self.train_loader))
 

@@ -18,8 +18,19 @@ fold ensemble (a sequence of weights, see :meth:`Predictor.fold_checkpoints`)
 runs each fold's forward in turn on one device and averages the per-level
 probabilities in f32 in fold order (a flat model's are the softmax of its
 logits); its class maps are the argmax of the mean probabilities and its
-``logits`` are None. The JAX Predictor's ``mesh``, which shards the folds
-over chips, is not ported (ROADMAP.md queue 1, item 8).
+``logits`` are None.
+
+``mesh`` (a :class:`..parallel.mesh.RankMesh` with a ``fold`` axis, the
+JAX Predictor's ``mesh``) shards a fold ensemble over the ranks of a run:
+rank ``i`` of its fold group loads only folds ``[i F / n, (i + 1) F / n)``
+of the ``F`` weights (``n`` the fold axis' size), runs their forwards in
+turn with TTA and int8 composed inside as above, and takes their f32 mean;
+the ranks' means are then averaged over the fold group (an all-reduce of
+their sum, divided by ``n``: JAX's ``pmean(p.mean(0))``, a mean of
+means, equal to the fold mean up to f32 rounding). Every rank is called
+with the same images and returns the same probabilities and class maps. A
+mesh without a ``fold`` axis, or folds that do not divide it, raise as in
+JAX; a single set of weights ignores the mesh, as JAX's does.
 
 Weights are a ``state_dict`` in memory (``bridge.state_dict_from_flax``
 makes one from JAX variables) or a path read by the ``--model-weights``
@@ -41,6 +52,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.run import RunConfig
 from ..hierarchy.tree import ClassTree
@@ -92,7 +104,8 @@ class Predictor:
                  outputs: Sequence[str] = _OUTPUTS,
                  class_map_dtype: str = "int32",
                  tta: bool = False,
-                 device=None):
+                 device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tree = tree or ClassTree.from_json(cfg.tree_root, cfg.class_map)
@@ -122,6 +135,11 @@ class Predictor:
             raise ValueError("quantize=True does not compose with a fold "
                              "ensemble (per-fold activation scales); "
                              "quantize single-fold predictors instead")
+        self.ensemble = len(folds) > 1
+        self.mesh = mesh if self.ensemble else None
+        self.fold_group = None  # the ranks a fold-sharded mean spans
+        if self.mesh is not None:
+            self.fold_group, folds = self._local_folds(folds)
         hrnet_cfg = None
         if cfg.hrnet_yaml:
             from ..config.hrnet import resolve_hrnet_config
@@ -141,7 +159,6 @@ class Predictor:
             self.models.append(model.eval().to(
                 self.device, memory_format=torch.channels_last))
         self.model = self.models[0]
-        self.ensemble = len(self.models) > 1
 
         applies = list(self.models)
         if quantize:
@@ -162,6 +179,26 @@ class Predictor:
 
             applies = [tta_apply(a) for a in applies]
         self._applies = applies
+
+    def _local_folds(self, folds: list) -> tuple:
+        """``(fold group, this rank's share of the fold weights)`` under
+        ``mesh`` (JAX ``train/serving.py:256-265`` for the refusals'
+        words)."""
+        from ..parallel.mesh import FOLD_AXIS
+
+        mesh = self.mesh
+        if FOLD_AXIS not in mesh.axis_names:
+            raise ValueError(
+                f"Predictor mesh needs a '{FOLD_AXIS}' axis; got "
+                f"{mesh.axis_names}")
+        n_fold = mesh.shape[FOLD_AXIS]
+        if len(folds) % n_fold != 0:
+            raise ValueError(
+                f"{len(folds)} fold checkpoints do not divide the "
+                f"mesh '{FOLD_AXIS}' axis of size {n_fold}")
+        group = mesh.fold_group()
+        per = len(folds) // n_fold
+        return group, folds[group.index * per:(group.index + 1) * per]
 
     def _autocast(self, apply, x):
         # f32 on the card computes its convolutions in f32, not TF32: under
@@ -211,7 +248,8 @@ class Predictor:
 
     def _fold_mean(self, x: torch.Tensor) -> Dict:
         """Each fold's forward in turn; the per-level probabilities' f32
-        mean over the folds in fold order and its argmax."""
+        mean over the folds in fold order and its argmax (under ``mesh``:
+        this rank's folds' mean, then the mean over the fold group)."""
         fold_probs = []
         for apply in self._applies:
             out = self._autocast(apply, x)
@@ -221,6 +259,13 @@ class Predictor:
                          for z in out.logits_per_level]
             fold_probs.append([p.float() for p in probs])
         probs = [torch.stack(ps).mean(0) for ps in zip(*fold_probs)]
+        group = self.fold_group
+        if group is not None and group.group is not None:
+            flat = torch.cat([p.reshape(-1) for p in probs])
+            dist.all_reduce(flat, group=group.group)
+            flat.div_(group.size)
+            probs = [v.view(p.shape) for v, p in
+                     zip(flat.split([p.numel() for p in probs]), probs)]
         return {"logits": None, "probs": probs,
                 "class_maps": [p.argmax(-1).to(self.class_map_dtype)
                                for p in probs]}

@@ -1,0 +1,1 @@
+from .profiling import StepTimer, annotate, trace  # noqa: F401

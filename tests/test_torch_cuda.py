@@ -10,7 +10,10 @@ implementation against the kernel's output), the device-resident
 training set (augmentation on the card against the CPU), and the split
 entries of kernels 1 and 3 for a data-parallel group (bit for bit to the
 fused launches, each against its plain version; two gloo ranks sharing
-the card). Marked
+the card), ``--remat`` on the card (bit for bit to remat False, the
+recompute's launches, no forward convolution recomputed in "conv"
+mode), and the fold-mesh Predictor and data-mesh Evaluator over two gloo
+ranks sharing the card against one process. Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -1072,3 +1075,206 @@ def test_f32_predictor_on_card_computes_convs_in_f32(cuda, monkeypatch):
         one = np.concatenate([o["probs"][L] for o in b1])
         np.testing.assert_allclose(p, one, rtol=0, atol=1e-5)
         np.testing.assert_allclose(p, cpu["probs"][L], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------ remat and the mesh paths
+@pytest.fixture
+def deterministic():
+    """Deterministic cuDNN and PyTorch algorithms for the test (the
+    resize's index_add_ and cuDNN's atomics otherwise move bits between
+    two runs of one step)."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.backends.cudnn.deterministic = saved[0]
+    torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def _remat_step(mode, sd, x, y, dtype):
+    """One bf16 or f32 train step of the base-width-8 UNet on the card with
+    ``remat``: (model, aux, grads, launches of kernels 1 / 2 / 3)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (  # noqa: E501
+        ClassTree,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import (  # noqa: E501
+        create_train_state,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.steps import (  # noqa: E501
+        make_train_step,
+    )
+    from torch_dist_common import build_small
+
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    model = build_small("unet", mode)
+    model.load_state_dict(sd, strict=True)
+    model = model.to("cuda", memory_format=torch.channels_last)
+    step = make_train_step(model, tree, True, compute_dtype=dtype)
+    before = (fba.TRAIN_LAUNCHES["bn_stats"], fba.LAUNCHES,
+              fba.TRAIN_LAUNCHES["bn_backward"])
+    _, aux = step(create_train_state(model, 0.018), x, y,
+                  torch.ones(2, device="cuda"))
+    torch.cuda.synchronize()
+    after = (fba.TRAIN_LAUNCHES["bn_stats"], fba.LAUNCHES,
+             fba.TRAIN_LAUNCHES["bn_backward"])
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return model, aux, grads, [a - b for a, b in zip(after, before)]
+
+
+def _remat_inputs():
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (  # noqa: E501
+        ClassTree,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.synthetic import (  # noqa: E501
+        synth_sample,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.target_factory import (  # noqa: E501
+        node_masks,
+        ternary_encode,
+    )
+    import numpy as np
+
+    from torch_dist_common import build_small
+
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    torch.manual_seed(3)
+    sd = build_small("unet").state_dict()
+    rng = np.random.default_rng(2)
+    xs, ys = [], []
+    for _ in range(4):
+        img, mask = synth_sample(rng, 64)
+        xs.append((np.stack((img,) * 3, -1).astype(np.float32) / 255.0
+                   - 0.5) / 0.5)
+        ys.append(ternary_encode(node_masks(mask, tree), tree)
+                  .astype(np.int8))
+    return (sd, torch.from_numpy(np.stack(xs)).cuda(),
+            torch.from_numpy(np.stack(ys)).cuda())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode", ["module", "conv"])
+def test_remat_step_on_card_equals_no_remat(cuda, deterministic, mode,
+                                            dtype):
+    """Loss, gradients, parameters after AdamW and running buffers bit for
+    bit to remat False under deterministic algorithms; kernels 1 / 2 / 3
+    launch 36 / 36 / 18 times (the 18 BatchNorms again in the recompute)."""
+    sd, x, y = _remat_inputs()
+    want_m, want, want_g, want_n = _remat_step(False, sd, x, y, dtype)
+    got_m, got, got_g, got_n = _remat_step(mode, sd, x, y, dtype)
+    assert want_n == [18, 18, 18] and got_n == [36, 36, 18]
+    assert torch.equal(got["loss"], want["loss"])
+    assert torch.equal(got["per_level"], want["per_level"])
+    for n, g in want_g.items():
+        assert torch.equal(got_g[n], g), n
+    want_sd = want_m.state_dict()
+    for k, v in got_m.state_dict().items():
+        assert torch.equal(v, want_sd[k]), k
+
+
+@pytest.mark.parametrize("mode", [False, "module", "conv"])
+def test_remat_conv_recomputes_no_convolution_on_card(cuda, mode):
+    """cuDNN forward convolutions inside the backward (``torch.profiler``'s
+    ``aten::cudnn_convolution`` events): 0 for remat False and "conv",
+    the backbone's 18 for "module"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_dist_common import build_small
+
+    sd, x, _ = _remat_inputs()
+    model = build_small("unet", mode)
+    model.load_state_dict(sd, strict=True)
+    model = model.to("cuda", memory_format=torch.channels_last).train()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = model(x)
+    loss = sum(z.sum() for z in out.logits_per_level)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.key == "aten::cudnn_convolution")
+    assert n == (18 if mode == "module" else 0)
+
+
+def test_mesh_inference_on_card_two_ranks(cuda, tmp_path, monkeypatch):
+    """Two gloo ranks sharing ``cuda:0``: the fold-mesh Predictor (4 folds
+    of the base-width-8 UNet, 2 a rank, with and without TTA) against the
+    single-process ensemble on the card (probs within rtol 1e-5, atol 1e-6,
+    class maps equal; 18 kernel-2 launches per fold forward), and
+    ``predict_eval`` over the data mesh at batch 4 (f32): metrics.csv
+    byte-equal to one process's, only rank 0 wrote files."""
+    import os
+
+    import numpy as np
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.synthetic import (  # noqa: E501
+        write_synth_dataset,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        checkpoint as pckpt,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        evaluate,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import (  # noqa: E501
+        create_train_state,
+    )
+    from torch_dist_common import (
+        build_small,
+        mesh_inference_job,
+        run_ranks,
+    )
+
+    serving, cfg, sds = _tiny_unets(monkeypatch, 4)
+    sd_paths = []
+    for f, sd in enumerate(sds):
+        sd_paths.append(str(tmp_path / f"fold{f}.pt"))
+        torch.save(sd, sd_paths[-1])
+    x = np.random.default_rng(7).uniform(
+        -1, 1, (2, EVAL_IMG, EVAL_IMG, 3)).astype(np.float32)
+    data = str(tmp_path / "data")
+    write_synth_dataset(data, EVAL_IMAGES, size=EVAL_IMG, seed=3)
+    torch.manual_seed(9)
+    model = build_small("unet")
+    weights = str(tmp_path / "w" / "best.ckpt")
+    pckpt.save_checkpoint(weights, create_train_state(model, 0.0), epoch=1,
+                          loss=0.0, test_measure_mean=0.5,
+                          test_measure_std=0.0)
+    kw = dict(model_select=0, model_type=1, img_size=EVAL_IMG,
+              num_workers=2, val_batch=4)
+    save = str(tmp_path / "ranks")
+    os.makedirs(save)
+    ranks = run_ranks(mesh_inference_job, 2, tmp_path, sd_paths, x, kw,
+                      weights, data, save, "cuda")
+    for tta in (False, True):
+        one = serving.Predictor(cfg, sds, device="cuda", tta=tta)(x)
+        got = [r[f"tta={tta}"] for r in ranks]
+        assert [g["launches"] for g in got] == [2 * 18] * 2
+        for L in range(2):
+            np.testing.assert_allclose(got[0]["probs"][L], one["probs"][L],
+                                       rtol=1e-5, atol=1e-6)
+            for g in got:
+                np.testing.assert_array_equal(g["class_maps"][L],
+                                              one["class_maps"][L])
+        assert all("mesh-sharded" in r["export"] for r in ranks)
+    monkeypatch.setattr(evaluate, "build_model",
+                        lambda *a, **k: build_small("unet"))
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run import (  # noqa: E501
+        RunConfig,
+    )
+
+    evaluate.predict_eval(
+        RunConfig(tree_root="assets/class_tree_tl.json",
+                  class_map="assets/class_map.csv", **kw),
+        [weights], [data], str(tmp_path / "one"), device="cuda")
+    with open(tmp_path / "one" / "fold_1" / "metrics.csv", "rb") as f:
+        want = f.read()
+    with open(os.path.join(save, "rank0", "fold_1", "metrics.csv"),
+              "rb") as f:
+        assert f.read() == want
+    assert not os.path.exists(os.path.join(save, "rank1"))
+    assert ranks[1]["eval_batch3"] == [None]

@@ -223,6 +223,29 @@ def test_device_dataset_reshuffles_and_repeats(files):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("shard", [(0, 2, 1), (1, 2, 1), (1, 2, 2)])
+def test_place_and_set_sharding_give_the_rows_of_shard(files, shard):
+    """JAX ``DeviceDataset.place``/``set_sharding``: a set built whole and
+    then given its rows and its device yields the batches of a set built
+    with ``shard=``."""
+    imgs, labs = files
+    _, ptree = trees("default")
+    kw = dict(batch_size=4, seed=1, device="cpu")
+    want = PD.DeviceDataset(imgs, labs, ptree, 32, True, shard=shard, **kw)
+    got = PD.DeviceDataset(imgs, labs, ptree, 32, True, **kw)
+    got.set_sharding(shard)
+    got.place("cpu")
+    assert got.device == torch.device("cpu")
+    for ds in (want, got):
+        ds.set_epoch(2)
+    pairs = list(zip(got, want))
+    assert len(pairs) == len(imgs) // 4
+    for (x, y), (xw, yw) in pairs:
+        assert x.shape[0] == 2 and torch.equal(x, xw) and torch.equal(y, yw)
+    got.set_sharding(None)  # the whole batch again
+    assert next(iter(got))[0].shape[0] == 4
+
+
 def test_device_dataset_refuses_colour_and_defaults_to_cuda(files, tmp_path):
     imgs, labs = files
     _, ptree = trees("default")

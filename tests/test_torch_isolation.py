@@ -1,12 +1,12 @@
 """The PyTorch port stands alone: importing it (and its serve, train,
 predict_eval, export and agreement CLIs, its exporter, its donor importer,
-its device-resident training set, its native sample factory, its rank mesh
-and its fold-parallel trainer) pulls in
-neither jax nor any module of the JAX package,
-and the train and offline-eval paths load no cv2, sklearn, orbax or
-tensorflow (the card's machine has none of them); no source file of the
-port imports them at module level, and ``chip_smoke.py`` refuses to run
-without a CUDA device or outside the repository."""
+its device-resident training set, its native sample factory, its rank mesh,
+its fold-parallel trainer, its profiling hooks and its rematerialization)
+pulls in neither jax nor any module of the JAX package, and the train and
+offline-eval paths load no cv2, sklearn, orbax or tensorflow (the card's
+machine has none of them); no source file of the port imports them at
+module level, and ``chip_smoke.py`` refuses to run without a CUDA device
+or outside the repository."""
 import json
 import os
 import pathlib
@@ -116,13 +116,17 @@ def test_train_cli_path_imports_no_cv2_sklearn_orbax_or_jax():
 
 
 def test_scale_out_modules_import_no_jax():
-    """The rank mesh, the fold-parallel trainer and the multi-rank check:
-    no jax, no JAX package, nothing the card's machine lacks."""
+    """The rank mesh, the fold-parallel trainer, the multi-rank check, the
+    profiling hooks and rematerialization: no jax, no JAX package,
+    nothing the card's machine lacks."""
     mods = _modules_after(f"import {PORT}.parallel.mesh\n"
                           f"import {PORT}.train.fold_parallel\n"
-                          f"import {PORT}.tools.multirank_check")
+                          f"import {PORT}.tools.multirank_check\n"
+                          f"import {PORT}.utils.profiling, {PORT}.utils\n"
+                          f"import {PORT}.models.remat")
     for name in ("parallel.mesh", "train.fold_parallel",
-                 "tools.multirank_check"):
+                 "tools.multirank_check", "utils.profiling",
+                 "models.remat"):
         assert f"{PORT}.{name}" in mods
     assert [m for m in mods if _forbidden_on_train_path(m)] == []
 

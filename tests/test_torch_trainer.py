@@ -9,11 +9,14 @@ Held: two folds train and dump prediction images (``tests/test_e2e.py``);
 (``tests/test_resume.py``); the same seed writes a byte-identical
 metrics.csv; the ``Predictor`` and the serve CLI read the trainer's
 ``best.ckpt``; the CLI has every flag of the JAX CLI with its default and
-choices, and refuses grain and the scale-out options still to port
-(``--n-space`` above 1, ``--remat``, ``--profile-dir``, also beside
-``--fold-parallel`` and ``--dist-coordinator``, which train:
-``tests/test_torch_fold_parallel.py``, ``tests/test_torch_distributed.py``;
-donor ``.pth`` weights are read: ``tests/test_torch_donor_import.py``);
+choices, and refuses grain and spatial sharding (``--n-space`` above 1,
+also beside ``--fold-parallel``, which trains:
+``tests/test_torch_fold_parallel.py``, as ``--dist-coordinator`` does:
+``tests/test_torch_distributed.py``; donor ``.pth`` weights are read:
+``tests/test_torch_donor_import.py``); ``--remat True|module|conv`` and
+``--profile-dir`` train (also beside ``--dist-coordinator``) and write the
+same metrics.csv as the run without them, ``--profile-dir`` one trace
+file (``tests/test_torch_remat.py``, ``tests/test_torch_profiling.py``);
 ``--device-data True`` trains, and resumes as an unbroken run.
 """
 import argparse
@@ -234,10 +237,6 @@ def test_cli_has_every_jax_flag_with_its_default():
     (["--fold-parallel", "True", "--folds", "2", "--n-space", "2"],
      "item 8"),
     (["--n-space", "2"], "item 8"),
-    (["--dist-coordinator", "localhost:1234", "--remat", "True"], "item 8"),
-    (["--remat", "conv"], "item 8"),
-    (["--remat", "True"], "item 8"),
-    (["--profile-dir", "/nonexistent/prof"], "item 8"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, assets_dir, flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -245,6 +244,38 @@ def test_cli_refuses_what_is_not_ported(tmp_path, assets_dir, flags, item):
                        assets_dir) + flags)
     assert not (tmp_path / "r").exists() or not any(
         (tmp_path / "r").rglob("*.ckpt"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--remat", "True"],
+    ["--remat", "module"],
+    ["--remat", "conv"],
+    ["--profile-dir", "PROFILE"],
+    ["--dist-coordinator", "COORDINATOR", "--remat", "True"],
+])
+def test_cli_trains_with_remat_and_profile_dir(tmp_path, data, assets_dir,
+                                               monkeypatch, flags):
+    """The options the CLI refused until the rest of ROADMAP item 8 was
+    ported: each trains two epochs and writes the metrics.csv of the run
+    without it (the same ops, recomputed or traced); ``--profile-dir``
+    writes one trace, of epoch 2; the coordinator runs at world size 1."""
+    from torch_dist_common import free_port
+
+    small_model(monkeypatch)
+    subst = {"PROFILE": str(tmp_path / "prof"),
+             "COORDINATOR": f"127.0.0.1:{free_port()}"}
+    flags = [subst.get(f, f) for f in flags]
+    if "--dist-coordinator" in flags:
+        flags += ["--dist-procs", "1", "--dist-proc-id", "0"]
+    plain = pcli.main(argv(tmp_path / "plain", data, assets_dir))
+    got = pcli.main(argv(tmp_path / "r", data, assets_dir) + flags)
+    assert got == plain and np.isfinite(got[0])
+    assert read_csv(tmp_path / "r" / "fold_1" / "metrics.csv") == \
+        read_csv(tmp_path / "plain" / "fold_1" / "metrics.csv")
+    if "--profile-dir" in flags:
+        traces = os.listdir(tmp_path / "prof")
+        assert len(traces) == 1 and traces[0].startswith("rank0.") \
+            and traces[0].endswith(".pt.trace.json"), traces
 
 
 def test_cli_device_data_trains_on_cpu(tmp_path, data, assets_dir,

@@ -1,5 +1,6 @@
 """Shared helpers of the distributed tests (``test_torch_distributed.py``,
-``test_torch_fold_parallel.py``): a function run on N ranks over ``gloo``
+``test_torch_fold_parallel.py``, ``test_torch_remat.py``,
+``test_torch_mesh_inference.py``): a function run on N ranks over ``gloo``
 on the CPU, each rank a process started with ``spawn``, and the jobs those
 ranks run.
 
@@ -178,9 +179,10 @@ def model_job(rank, world, donor, sd_path, x, cot):
                         if k.endswith(("running_mean", "running_var"))}}
 
 
-def build_small(donor: str):
+def build_small(donor: str, remat=False):
     """The hierarchical segmenter on the default tree with a small backbone:
-    "unet" (base width 8) or "hrnet" (the tiny HRNet, widths 4-32)."""
+    "unet" (base width 8) or "hrnet" (the tiny HRNet, widths 4-32), with
+    ``remat`` (``models/remat.py``)."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.hrnet import (
         HRNetConfig,
         HRNetStage,
@@ -200,23 +202,24 @@ def build_small(donor: str):
     if donor == "unet":
         return HierarchicalSegmenter(tree=tree,
                                      backbone=UNetBackbone(base_ch=8),
-                                     hierarchical=True)
+                                     hierarchical=True, remat=remat)
     tiny = HRNetConfig(
         stage1=HRNetStage(1, 1, "BOTTLENECK", (1,), (4,)),
         stage2=HRNetStage(1, 2, "BASIC", (1, 1), (4, 8)),
         stage3=HRNetStage(1, 3, "BASIC", (1, 1, 1), (4, 8, 16)),
         stage4=HRNetStage(1, 4, "BASIC", (1, 1, 1, 1), (4, 8, 16, 32)),
     )
-    return build_model(tree, 1, 1, tiny)
+    return build_model(tree, 1, 1, tiny, remat=remat)
 
 
 def step_job(rank, world, sd_path, x, y, steps, grad_accum, lr, level_weights,
-             local_loss=False):
-    """``steps`` train steps of the base-width-8 UNet from the state_dict at
-    ``sd_path`` over the WORLD group, on this rank's rows of the global
-    batch (x, y); returns each step's (loss, per_level, confmats), the
-    final parameters and buffers, and (``local_loss``) each step's loss
-    computed again with this rank's Dice count alone."""
+             local_loss=False, remat=False):
+    """``steps`` train steps of the base-width-8 UNet (with ``remat``) from
+    the state_dict at ``sd_path`` over the WORLD group, on this rank's rows
+    of the global batch (x, y); returns each step's (loss, per_level,
+    confmats) and all-reduces, the final parameters and buffers, and
+    (``local_loss``) each step's loss computed again with this rank's Dice
+    count alone."""
     import torch.distributed as dist
 
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy.tree import (
@@ -237,10 +240,16 @@ def step_job(rank, world, sd_path, x, y, steps, grad_accum, lr, level_weights,
     )
 
     tree = ClassTree.from_json(ASSETS_TREE, ASSETS_MAP)
-    model = build_small("unet")
+    model = build_small("unet", remat)
     model.load_state_dict(torch.load(sd_path), strict=True)
     model = model.to(memory_format=torch.channels_last)
     group = dist.group.WORLD if world > 1 else None
+    reduces = [0]
+    real_all_reduce = dist.all_reduce
+
+    def counted_all_reduce(*a, **k):
+        reduces[0] += 1
+        return real_all_reduce(*a, **k)
     set_bn_group(model, group)
     state = create_train_state(model, lr)
     step = make_train_step(model, tree, True, level_weights=level_weights,
@@ -248,7 +257,7 @@ def step_job(rank, world, sd_path, x, y, steps, grad_accum, lr, level_weights,
     rows = rank_rows(x.shape[0], rank, world, grad_accum)
     xr, yr = torch.from_numpy(x[rows]), torch.from_numpy(y[rows])
     mask = torch.ones(2)
-    auxes, local = [], []
+    auxes, local, all_reduces = [], [], []
     for _ in range(steps):
         if local_loss:
             with torch.no_grad():
@@ -258,10 +267,16 @@ def step_job(rank, world, sd_path, x, y, steps, grad_accum, lr, level_weights,
                     level_weights, probs_per_level=out.probs_per_level,
                     tree=tree)
             local.append(float(total))
-        state, aux = step(state, xr, yr, mask)
+        reduces[0] = 0
+        dist.all_reduce = counted_all_reduce
+        try:
+            state, aux = step(state, xr, yr, mask)
+        finally:
+            dist.all_reduce = real_all_reduce
+        all_reduces.append(reduces[0])
         auxes.append((float(aux["loss"]), aux["per_level"].clone(),
                       [c.clone() for c in aux["confmats"]]))
-    return {"aux": auxes, "local_loss": local,
+    return {"aux": auxes, "local_loss": local, "all_reduces": all_reduces,
             "state": {k: v.detach().clone()
                       for k, v in model.state_dict().items()},
             "params": {n: p.detach().clone()
@@ -329,3 +344,70 @@ def lr_divergence_job(rank, world, cfg_kw):
         return None
     finally:
         t.close()
+
+
+def mesh_inference_job(rank, world, sd_paths, x, eval_kw, weights, data_root,
+                       save_base, device="cpu"):
+    """The inference paths over the ranks: the fold-mesh ``Predictor`` of
+    the base-width-8 UNet over the fold weights at ``sd_paths`` (a
+    ``fold`` mesh of every rank; with and without TTA) on the replicated
+    images ``x`` (the TTA forward under ``utils/profiling.py:trace`` into
+    ``save_base/traces``), what ``export_predictor`` raises for it, and
+    ``predict_eval`` over the data mesh at ``eval_kw``'s batch and at
+    batch 3 (one rank idle) into ``save_base/rank{rank}``, on ``device``
+    ("cuda": the ranks share ``cuda:0``). Returns the Predictors' outputs
+    and local fold counts, their kernel-2 launches, the export error and
+    the eval results."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run import (
+        RunConfig,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel.mesh import (
+        FOLD_AXIS,
+        RankMesh,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        evaluate,
+        serving,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.export import (
+        export_predictor,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.utils.profiling import (
+        annotate,
+        trace,
+    )
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    serving.build_model = lambda *a, **k: build_small("unet")
+    evaluate.build_model = lambda *a, **k: build_small("unet")
+    cfg = RunConfig(img_size=x.shape[1], model_type=1,
+                    tree_root=ASSETS_TREE, class_map=ASSETS_MAP)
+    mesh = RankMesh(np.arange(world), (FOLD_AXIS,))
+    sds = [torch.load(p) for p in sd_paths]
+    out = {}
+    for tta in (False, True):
+        pred = serving.Predictor(cfg, sds, device=device, mesh=mesh, tta=tta)
+        before = fba.LAUNCHES
+        with trace(os.path.join(save_base, "traces") if tta else None,
+                   device=device), annotate(f"fold_mesh_rank{rank}"):
+            res = pred(x)
+        out[f"tta={tta}"] = {"local_folds": len(pred.models),
+                             "launches": fba.LAUNCHES - before, **res}
+    try:
+        export_predictor(pred, os.path.join(save_base, f"r{rank}.pt2"))
+        out["export"] = None
+    except ValueError as e:
+        out["export"] = str(e)
+    ecfg = RunConfig(tree_root=ASSETS_TREE, class_map=ASSETS_MAP, **eval_kw)
+    out["eval"] = evaluate.predict_eval(
+        ecfg, [weights], [data_root], os.path.join(save_base, f"rank{rank}"),
+        device=device)
+    odd = RunConfig(tree_root=ASSETS_TREE, class_map=ASSETS_MAP,
+                    **dict(eval_kw, val_batch=3))
+    out["eval_batch3"] = evaluate.predict_eval(
+        odd, [weights], [data_root], None, device=device)
+    return out

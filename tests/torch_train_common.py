@@ -141,17 +141,19 @@ def flat(params, stats=None):
 UNET_BASE = 8
 
 
-def unet_models(jtree, ptree, model_type=1, share=True, base_ch=UNET_BASE):
+def unet_models(jtree, ptree, model_type=1, share=True, base_ch=UNET_BASE,
+                remat=False):
     """The hierarchical (or flat) segmenter on a UNet of width ``base_ch``,
     as the JAX ``build_model(model_select=0)`` builds it (a 1x1 head,
-    ``align_corners=True``) at full width: (JAX module, port module)."""
+    ``align_corners=True``) at full width, with ``remat``: (JAX module,
+    port module)."""
     jm = JaxSegmenter(tree=jtree, backbone=JaxUNet(base_ch=base_ch),
                       hierarchical=model_type == 1, final_conv_kernel=1,
-                      align_corners=True, share_backbone=share)
+                      align_corners=True, share_backbone=share, remat=remat)
     pm = HierarchicalSegmenter(ptree, UNetBackbone(base_ch=base_ch),
                                hierarchical=model_type == 1,
                                final_conv_kernel=1, align_corners=True,
-                               share_backbone=share)
+                               share_backbone=share, remat=remat)
     return jm, pm
 
 
@@ -160,10 +162,10 @@ class Pair:
     "hrnet" (the tiny HRNet) or "unet" (``unet_models``). ``oracle``:
     "pallas" (the JAX model with ``use_pallas_bn=True``, its kernels in
     interpret mode) or "default" (``LeanBatchNorm``; the JAX UNet has no
-    other BatchNorm)."""
+    other BatchNorm). ``remat``: both sides' rematerialization mode."""
 
     def __init__(self, share=True, grad_accum=1, oracle="pallas", seed=0,
-                 donor="hrnet"):
+                 donor="hrnet", remat=False):
         if donor == "unet" and oracle != "default":
             raise ValueError("the JAX UNet has LeanBatchNorm only: use "
                              "oracle='default'")
@@ -173,12 +175,14 @@ class Pair:
         jcfg, pcfg = tiny_configs()
         self.x, self.y = batch(self.ptree)
         if donor == "unet":
-            jm, pm = unet_models(self.jtree, self.ptree, share=share)
+            jm, pm = unet_models(self.jtree, self.ptree, share=share,
+                                 remat=remat)
         else:
             jm = jax_build_model(self.jtree, 1, 1, jcfg, share_backbone=share,
-                                 use_pallas_bn=oracle == "pallas")
+                                 use_pallas_bn=oracle == "pallas",
+                                 remat=remat)
             pm = port_build_model(self.ptree, 1, 1, pcfg,
-                                  share_backbone=share)
+                                  share_backbone=share, remat=remat)
         params, stats = jax_variables(jm, self.x[:1], seed=seed, train=False)
         tx = adamw_keeping_grads(LR)
         self.jstate = JaxTrainState(params=params, batch_stats=stats,

@@ -11,7 +11,8 @@ JAX_PKG = "restrictive_hierarchical_semantic_segmentation_tpu"
 
 
 def small_model(monkeypatch):
-    """The trainer's model is a hierarchical UNet of base width 8."""
+    """The trainer's model is a hierarchical UNet of base width 8 (with the
+    run's ``remat``)."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models import (
         hierarchical as H,
     )
@@ -19,10 +20,11 @@ def small_model(monkeypatch):
         UNetBackbone,
     )
 
-    def small(tree, model_select, model_type, *args, **kwargs):
+    def small(tree, model_select, model_type, *args, remat=False, **kwargs):
         return H.HierarchicalSegmenter(tree=tree,
                                        backbone=UNetBackbone(base_ch=8),
-                                       hierarchical=model_type == 1)
+                                       hierarchical=model_type == 1,
+                                       remat=remat)
 
     monkeypatch.setattr(f"{PORT}.train.loop.build_model", small)
     monkeypatch.setattr(f"{PORT}.train.serving.build_model", small)
