@@ -8,7 +8,8 @@ ReLU tool, evaluates the trained UNet through the predict_eval CLI, serves
 fold ensembles, TTA and int8 quantization, exports and loads deployment
 artifacts, imports donor checkpoints, trains over two ranks sharing the
 card and fold-parallel, trains with rematerialization, serves and
-evaluates over ranks, traces an epoch, and checks what comes out.
+evaluates over ranks, traces an epoch, trains and evaluates on bands of
+rows over two ranks (the space axis), and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -157,6 +158,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     kernels of kernels 1-3 equal the counters of that epoch); a
     ``DeviceDataset`` built on the CPU and placed on the card against one
     built there.
+
+21. the space axis (``build/chip_smoke/space/``, after phase 13, whose
+    data and trained fold it reuses): two ranks sharing the card over gloo
+    at ``--n-space 2``, each holding a band of the rows of every image and
+    activation (``parallel/bands.py``): W48 at 620 px, batch 16, bf16, and
+    the UNet at 352 px, batch 16, f32 (TF32 off), 2 steps each from seeded
+    weights against one process (step 1's loss; the UNet's gradients;
+    step ms, peak memory and the launches of every kernel entry per rank),
+    every split-entry and kernel-2 band shape held to the plain versions
+    and timed; the train CLI at ``--n-space 2`` through
+    ``tools/multirank_check.py`` (the ranks sharing the card) against one
+    process; and
+    ``predict_eval`` of phase 13's fold over ``(data 1, space 2)`` against
+    one process (metrics.csv and PNGs).
 
 The serving profiles (phases 4 and 9) go through ``profile_call``, whose
 marker kernels keep a trace from losing the call's first device events.
@@ -3310,6 +3325,10 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
                         out["params1"] = {
                             n: p.detach().cpu().clone()
                             for n, p in model.named_parameters()}
+                        if dtype == "float32":  # phase 21 reads them
+                            out["grads1"] = {
+                                n: p.grad.detach().cpu().clone()
+                                for n, p in model.named_parameters()}
                         out["buffers1"] = {
                             k: v.detach().cpu().clone()
                             for k, v in model.state_dict().items()
@@ -3675,8 +3694,13 @@ def phase_scale_out(card: str, train_shapes: dict,
         assert max(loss_err + level_err) <= tol["loss"], (loss_err,
                                                           level_err)
         assert stats_err <= tol["stats1"], stats_err
+        grads1 = None
         if dtype == "float32":
             assert n_sig > 1000 and bad < DP_SIG_BAD, (n_sig, bad)
+            grads1 = _grad_errors(rk[0]["grads1"], on["grads1"])
+            log(f"data axis on {card}, float32: step 1's gradients of rank 0 "
+                f"against one process (the weight gradients' sums split over "
+                f"batch halves; printed, not held): {json.dumps(grads1)}")
         out["data_axis"][dtype] = {
             "loss": rk[0]["loss"], "one_loss": on["loss"],
             "loss_rel_err": loss_err, "level_rel_err": level_err,
@@ -3686,7 +3710,7 @@ def phase_scale_out(card: str, train_shapes: dict,
                                for e in SPLIT_ENTRIES},
             "all_reduces": rk[0]["all_reduces"][0],
             "buckets": rk[0]["buckets"], "rank_ms": [r["ms"] for r in rk],
-            "one_ms": on["ms"]}
+            "one_ms": on["ms"], "grads1": grads1}
     del ranks, one
     torch.cuda.empty_cache()
 
@@ -4386,6 +4410,390 @@ def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 21
+SPACE_ROOT = "build/chip_smoke/space"
+SPACE_RANKS = 2
+# (model_select, compute dtype, steps): W48 at 620 px in bf16 (the JAX
+# bench.py recipe), the UNet at 352 px in f32 (TF32 off)
+SPACE_PLAN = ((1, "bfloat16", 2), (0, "float32", 2))
+# step 1's loss and per-level losses on two ranks against one process, by
+# dtype: bf16 as phase 19's first step (the convs of a band run other cuDNN
+# algorithms than the whole image's, each rounding to bf16), f32 (TF32 off)
+# the sum order alone
+SPACE_LOSS1 = {"bfloat16": 1e-3, "float32": 1e-4}
+SPACE_IMAGES = 16  # multirank_check: one step of 16 per epoch, 4 validate
+SPACE_ZERO_GRAD = 5e-5  # tests/torch_train_common.py:ZERO_GRAD_TOL
+# the UNet's f32 step-1 gradients on two ranks against one process, per
+# tensor max |err| over max |g|: each weight gradient sums about 2 M terms
+# (16 x 352 x 352 pixels) in f32, and cuDNN takes other algorithms for a
+# band of 176 rows than for the whole image, so they round apart by far
+# more than phase 6's 128 px step (the first card run read median 4.6e-4,
+# p90 1.7e-3, max 6.8e-3); the phase prints, beside them, one process
+# against itself under deterministic cuDNN algorithms, and holds the
+# parameters after AdamW on phase 19's significant-update criterion
+SPACE_GRAD = {"median": 2e-3, "p90": 1e-2, "max": PARITY_GRAD_MAX}
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Per parameter max |got - want| over max |want|: median, 90th
+    percentile, largest and its name; the conv biases ahead of a
+    train-mode BatchNorm (the UNet's, HRNet's shared head: a gradient of 0
+    in exact arithmetic, f32 noise on both sides) apart, as their largest
+    |err| over the step's largest gradient."""
+    top = max(float(g.abs().max()) for g in want.values())
+    zero = [n for n in want if n.startswith("backbone.")
+            and n.endswith((".conv0.bias", ".conv1.bias",
+                            "shared_head_conv.bias"))]
+    kept = [n for n in want if n not in zero]
+    e = np.array([rel_err(got[n], want[n]) for n in kept])
+    return {"median": float(np.median(e)), "p90": float(np.quantile(e, 0.9)),
+            "max": float(e.max()), "worst": kept[int(e.argmax())],
+            "zero_grad_max": max((float((got[n] - want[n]).abs().max())
+                                  for n in zero), default=0.0) / top}
+
+
+def _bn_shape_recorder(model):
+    """Forward pre-hooks that count each BatchNorm input's NHWC (shape,
+    dtype, act); returns (shapes, remove)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .norm import BatchNormAct
+
+    shapes = {}
+
+    def record(mod, args):
+        xn = args[0].permute(0, 2, 3, 1)
+        key = (tuple(xn.shape), xn.dtype, mod.act)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, BatchNormAct)]
+
+    def remove():
+        for h in hooks:
+            h.remove()
+    return shapes, remove
+
+
+def space_steps(rank: int, world: int, paths: dict, plan,
+                device: str = "cuda") -> dict:
+    """For each ``(model_select, dtype, steps)`` of ``plan``, that many
+    train steps of the full-width hierarchical model from the weights and
+    global batch at ``paths[name]``, on this rank's band of rows over a
+    ``(data 1, space world)`` mesh of every rank (one process: the whole
+    images). Per step: host ms, peak device memory, the launches of every
+    kernel entry (counts 0 just before, read just after) and the halo
+    exchanges; step 1's BN shapes and, in f32, its gradients."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .norm import set_bn_group
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel \
+        import bands
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel \
+        .mesh import make_mesh
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .state import create_train_state
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .steps import make_train_step
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.utils \
+        .device import float32_convs
+
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    space = group = None
+    if world > 1:
+        mesh = make_mesh(n_data=1, n_space=world)
+        space, group = mesh.space_group(), mesh.step_group().group
+    plain, undo = _plain_counters()
+    results = {}
+    try:
+        for ms, dtype, steps in plan:
+            name = MODELS[ms]["name"]
+            sd_path, batch_path = paths[name]
+            model = build_model(tree, ms, 1)
+            model.load_state_dict(torch.load(sd_path), strict=True)
+            model = model.to(device, memory_format=torch.channels_last)
+            bands.set_space_group(model, space)
+            set_bn_group(model.train(), group)
+            state = create_train_state(model, TRAIN_LR)
+            step = make_train_step(model, tree, True,
+                                   level_weights=LEVEL_WEIGHTS,
+                                   compute_dtype=dtype, group=group,
+                                   space=space)
+            x, y = torch.load(batch_path)
+            if space is not None:
+                rows = slice(*bands.band(x.shape[1], world, space.index))
+                x, y = x[:, rows].contiguous(), y[:, rows].contiguous()
+            x, y = x.to(device), y.to(device)
+            mask = torch.ones(tree.num_levels, device=device)
+            shapes, remove = _bn_shape_recorder(model)
+            out = {"loss": [], "per_level": [], "counts": [], "ms": [],
+                   "peak_bytes": [], "exchanges": [], "rows": x.shape[1]}
+            with float32_convs(dtype == "float32" and x.is_cuda):
+                for i in range(steps):
+                    set_counts_to_zero()
+                    bands.EXCHANGES.update(fetches=0, bytes_sent=0)
+                    if x.is_cuda:
+                        torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    state, aux = step(state, x, y, mask)
+                    if x.is_cuda:
+                        torch.cuda.synchronize()
+                    out["ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["counts"].append(read_counts())
+                    out["exchanges"].append(dict(bands.EXCHANGES))
+                    out["peak_bytes"].append(
+                        torch.cuda.max_memory_allocated() if x.is_cuda
+                        else 0)
+                    out["loss"].append(float(aux["loss"]))
+                    out["per_level"].append(aux["per_level"].float().cpu())
+                    if i == 0:
+                        remove()
+                        out["shapes"] = dict(shapes)
+                        if dtype == "float32":
+                            out["grads1"] = {
+                                n: p.grad.detach().cpu().clone()
+                                for n, p in model.named_parameters()}
+                            out["params1"] = {
+                                n: p.detach().cpu().clone()
+                                for n, p in model.named_parameters()}
+            results[name] = out
+            del model, state, step, x, y
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        undo()
+    results["plain_calls"] = dict(plain)
+    return results
+
+
+def _space_eval(where: str, n_space: int, device: str) -> dict:
+    """``train/evaluate.py:predict_eval`` of phase 13's trained fold at the
+    predict_eval CLI's defaults (352 px, f32, batch 1, images saved) with
+    ``n_space``, into ``where``; its kernel-2 launches counted."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        import evaluate
+
+    cfg = RunConfig(tree_root="assets/class_tree_tl.json",
+                    class_map="assets/class_map.csv", model_type=1,
+                    img_size=MODELS[0]["img"], n_space=n_space)
+    set_counts_to_zero()
+    t0 = time.perf_counter()
+    res = evaluate.predict_eval(
+        cfg, [f"{CLI_ROOT}/run/fold_1/best.ckpt"],
+        [f"{CLI_ROOT}/data/fold_1/val"], where, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "counts": read_counts(),
+            "result": res[0] and res[0]["overall"]}
+
+
+def space_rank_job(rank: int, world: int, paths: dict, plan,
+                   device: str = "cuda") -> dict:
+    """One rank of phase 21 (a, b, d), the card shared with the other rank
+    over gloo: :func:`space_steps` of ``plan``, then the Evaluator over
+    ``(data 1, space world)`` into ``SPACE_ROOT/eval/rank{rank}``."""
+    steps = space_steps(rank, world, paths, plan, device=device)
+    ev = _space_eval(f"{SPACE_ROOT}/eval/rank{rank}", world, device)
+    return {"steps": steps, "eval": ev}
+
+
+def phase_space(card: str, device: str = "cuda") -> dict:
+    """Phase 21, the ``space`` mesh axis (``parallel/bands.py``) on the
+    card (``build/chip_smoke/space/``, after phase 13, whose data and
+    trained fold it reuses). Two ranks share ``cuda:0`` over gloo at
+    ``--n-space 2``: each holds a band of the rows of every image and
+    activation.
+
+    (a) W48 at 620 px, batch 16, bf16 (the JAX bench.py recipe), 2 steps a
+        rank from seeded weights: step ms, peak memory and the launches of
+        the sums, kernel-2, reduce and dx entries per rank; step 1's loss
+        against one process's at the same batch (``SPACE_LOSS1``), whose
+        peak memory is measured beside;
+    (b) the UNet at 352 px, batch 16, f32 (TF32 off): the same, step 1's
+        gradients against one process's (``SPACE_GRAD``, printed beside
+        one process against itself under deterministic cuDNN algorithms;
+        the conv biases ahead of a BatchNorm, 0 in exact arithmetic,
+        within ``SPACE_ZERO_GRAD`` of the largest gradient) and the
+        parameters after AdamW on phase 19's significant-update criterion;
+    (c) the train CLI at ``--n-space 2`` through
+        ``tools/multirank_check.py`` (both ranks share this card over
+        gloo), against one process: metrics.csv within the tool's bounds;
+    (d) ``predict_eval`` of phase 13's fold over ``(data 1, space 2)``
+        against one process: metrics.csv within ``EVAL_BATCH_ATOL`` and
+        the PNGs within ``EVAL_BATCH_PIXELS`` differing pixels (phase 15's
+        batch bounds), only rank 0 writing.
+
+    Every split-entry and kernel-2 launch of (a) and (b) is at a band
+    shape; :func:`phase_split_kernels` and :func:`phase_path_kernel_times`
+    hold each such shape to the plain versions. Step ms are on the host
+    clock; two ranks sharing one card is not a scaling number."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SPACE_ROOT, ignore_errors=True)
+    os.makedirs(SPACE_ROOT)
+    tree = ClassTree.from_json("assets/class_tree_tl.json",
+                               "assets/class_map.csv")
+    paths = {}
+    for ms, _, _ in SPACE_PLAN:
+        m = MODELS[ms]
+        model = build_model(tree, ms, 1)
+        sd = random_state_dict(model, SEED + 40 + ms, m["conv_gain"])
+        del model
+        paths[m["name"]] = (f"{SPACE_ROOT}/{m['name']}.pt",
+                            f"{SPACE_ROOT}/{m['name']}_batch.pt")
+        torch.save(sd, paths[m["name"]][0])
+        torch.save(synthetic_batch(tree, TRAIN_BATCH, m["img"],
+                                   SEED + 40 + ms), paths[m["name"]][1])
+
+    # one process first (its memory freed before the ranks start)
+    t0 = time.perf_counter()
+    one = space_steps(0, 1, paths, [(ms, d, 1) for ms, d, _ in SPACE_PLAN],
+                      device)
+    with deterministic_algorithms():  # one process's own rounding spread
+        floor = space_steps(0, 1, paths, [(ms, d, 1) for ms, d, _
+                                          in SPACE_PLAN if d == "float32"],
+                            device)
+    one_eval = _space_eval(f"{SPACE_ROOT}/eval/one", 1, device)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks(SPACE_RANKS, (paths, SPACE_PLAN, device),
+                         SPACE_ROOT, device, job=space_rank_job, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    if device == "cuda":  # no plain version ran where a kernel could
+        for r in [one] + [r["steps"] for r in ranks]:
+            assert all(v == 0 for v in r["plain_calls"].values()), r
+    out = {"seconds_one": one_s, "seconds_ranks": ranks_s, "models": {}}
+    shapes = {}
+    for ms, dtype, steps in SPACE_PLAN:
+        name = MODELS[ms]["name"]
+        n_bn = MODELS[ms]["n_bn"]
+        on = one[name]
+        rk = [r["steps"][name] for r in ranks]
+        for r in rk:
+            for c in r["counts"]:
+                assert c["bn_stats_sums"] == c["bn_backward_reduce"] == \
+                    c["bn_backward_dx"] == c["scale_bias_act"] == n_bn, c
+                assert c["bn_stats"] == c["bn_backward"] == 0, c
+            assert sum(r["shapes"].values()) == n_bn, r["shapes"]
+        c = on["counts"][0]
+        assert c["bn_stats"] == c["bn_backward"] == n_bn, c
+        assert all(c[e] == 0 for e in SPLIT_ENTRIES), c
+        assert rk[0]["rows"] + rk[1]["rows"] == MODELS[ms]["img"]
+        loss_err = [abs(r["loss"][0] - on["loss"][0]) / abs(on["loss"][0])
+                    for r in rk]
+        level_err = [rel_err(r["per_level"][0], on["per_level"][0])
+                     for r in rk]
+        row = {"dtype": dtype, "rows": [r["rows"] for r in rk],
+               "loss1": [r["loss"][0] for r in rk],
+               "one_loss1": on["loss"][0], "loss1_rel_err": loss_err,
+               "level1_rel_err": level_err,
+               "rank_ms": [r["ms"] for r in rk], "one_ms": on["ms"],
+               "rank_peak_gib": [max(r["peak_bytes"]) / 2 ** 30 for r in rk],
+               "one_peak_gib": on["peak_bytes"][0] / 2 ** 30,
+               "launches": [r["counts"][0] for r in rk],
+               "launches_total": {e: sum(c[e] for c in rk[0]["counts"])
+                                  for e in SPLIT_ENTRIES
+                                  + ("scale_bias_act",)},
+               "exchanges": [r["exchanges"][0] for r in rk]}
+        if device == "cuda":
+            row["peak_share"] = [p / row["one_peak_gib"]
+                                 for p in row["rank_peak_gib"]]
+        if dtype == "float32":
+            row["grads1"] = _grad_errors(rk[0]["grads1"], on["grads1"])
+            row["grads1_floor"] = _grad_errors(floor[name]["grads1"],
+                                               on["grads1"])
+            init = torch.load(paths[name][0])
+            row["sig_updates"], row["sig_bad"] = _significant_update(
+                rk[0]["params1"], on["params1"],
+                {n: init[n] for n in on["params1"]}, TRAIN_LR)
+        log(f"space axis on {card}, {name} ({MODELS[ms]['img']} px, batch "
+            f"{TRAIN_BATCH}, {dtype}): {SPACE_RANKS} ranks on one card over "
+            f"gloo, bands of {row['rows']} rows, {steps} steps a rank "
+            f"against one process: {json.dumps(row)}")
+        assert max(loss_err + level_err) <= SPACE_LOSS1[dtype], row
+        if dtype == "float32":
+            g = row["grads1"]
+            assert all(g[k] <= v for k, v in SPACE_GRAD.items()), g
+            assert g["zero_grad_max"] <= SPACE_ZERO_GRAD, g
+            assert row["sig_updates"] > 1000 and \
+                row["sig_bad"] < DP_SIG_BAD, row
+        out["models"][name] = row
+        shapes[f"{name} band"] = rk[0]["shapes"]
+    # the band shapes: split entries against the fused kernels and their
+    # plain versions (kernels 1 and 3), kernel 2 against its plain version
+    out["split"] = phase_split_kernels(torch.device(device), shapes,
+                                       "W48 band")
+    band_sba = {}
+    for s in shapes.values():
+        for k, n in s.items():
+            band_sba[k] = band_sba.get(k, 0) + n
+    out["scale_bias_act"] = phase_path_kernel_times(torch.device(device),
+                                                    band_sba)
+
+    # (d) the Evaluator over (data 1, space 2) against one process
+    names = sorted(os.listdir(f"{CLI_ROOT}/data/fold_1/val/labels"))
+    want_dir = f"{SPACE_ROOT}/eval/one/fold_1"
+    got_dir = f"{SPACE_ROOT}/eval/rank0/fold_1"
+    want_m = _metrics_numbers(f"{want_dir}/metrics.csv")
+    got_m = _metrics_numbers(f"{got_dir}/metrics.csv")
+    size = MODELS[0]["img"]
+    px = _pixels_differing(_dumps(got_dir, names, size),
+                           _dumps(want_dir, names, size))
+    assert not os.path.exists(f"{SPACE_ROOT}/eval/rank1"), "rank 1 wrote"
+    ev = {"metrics_max_abs_err": float(np.abs(got_m - want_m).max()),
+          "pixels_differing": px, "one_wall_s": one_eval["wall_s"],
+          "rank_wall_s": [r["eval"]["wall_s"] for r in ranks],
+          "rank_launches": [r["eval"]["counts"]["scale_bias_act"]
+                            for r in ranks],
+          "one_launches": one_eval["counts"]["scale_bias_act"]}
+    log(f"space axis on {card}: predict_eval of phase 13's fold ({len(names)}"
+        f" images, {size} px, f32) over (data 1, space 2) against one "
+        "process: "
+        f"{json.dumps(ev)}")
+    assert ev["metrics_max_abs_err"] <= EVAL_BATCH_ATOL, ev
+    assert px <= EVAL_BATCH_PIXELS, ev
+    n_fwd = len(names)
+    assert all(n == MODELS[0]["n_bn"] * n_fwd for n in ev["rank_launches"])
+    out["eval"] = ev
+
+    # (c) the train CLI at --n-space 2 through tools/multirank_check.py
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "restrictive_hierarchical_semantic_"
+         "segmentation_tpu_torch.tools.multirank_check", "--ranks",
+         str(SPACE_RANKS), "--n-space", str(SPACE_RANKS), "--device",
+         device, "--images", str(SPACE_IMAGES), "--epochs", "1",
+         "--img-size", str(MODELS[0]["img"]), "--out",
+         f"{SPACE_ROOT}/multirank", "--timeout", "400"],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    check = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert check["ok"] and check["n_space"] == SPACE_RANKS, check
+    assert check["cards_shared"] == (device == "cuda"), check
+    check["seconds"] = time.perf_counter() - t0
+    log(f"space axis on {card}: tools/multirank_check.py --ranks "
+        f"{SPACE_RANKS} --n-space {SPACE_RANKS} (both ranks on the card) "
+        f"({SPACE_IMAGES} images, {MODELS[0]['img']} px, bf16, lr 1e-6, 1 "
+        "epoch) against "
+        f"one process: {json.dumps(check)}")
+    out["multirank_check"] = check
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"space axis on {card}: the phase took {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, tot, work,
                  bound_by="bytes", **extra):
     """One row of the kernels line; ``source`` is a file of ``csrc/``,
@@ -4511,6 +4919,9 @@ def main() -> int:
 
     remat = phase_remat_and_meshes(card)
     torch.cuda.empty_cache()
+
+    space = phase_space(card)
+    torch.cuda.empty_cache()
     w48_conv = remat["remat"]["W48"]["conv"]["launches_per_step"]
     unet_conv = remat["remat"]["UNet"]["conv"]["launches_per_step"]
 
@@ -4519,6 +4930,7 @@ def main() -> int:
         two-rank run (rank 0's three steps), the rest summed over one
         step's calls at a rank's shapes."""
         tot = scale["split"]["UNet rank"]["entries"][name]
+        band = space["split"]["W48 band"]["entries"][name]
         return {"name": name, "route": "cuda",
                 "source": "restrictive_hierarchical_semantic_segmentation_"
                           f"tpu_torch/csrc/{source}",
@@ -4528,12 +4940,23 @@ def main() -> int:
                 "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
                 "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": "bytes", "library_ms": tot["library_ms"],
+                "space_launches": sum(
+                    space["models"][MODELS[ms]["name"]]["launches_total"][
+                        name] for ms, _, _ in SPACE_PLAN),
+                "space_max_abs_err": max(
+                    r["errs"][name] for r in space["split"].values()),
+                **{f"space_{k}": band[k] for k in
+                   ("ms", "plain_ms", "bound_ms", "library_ms")},
                 "work": f"the {MODELS[0]['n_bn']} calls of one UNet step at "
                         f"a rank's shapes (batch {TRAIN_BATCH // DP_RANKS} "
                         f"of {TRAIN_BATCH}, 352 px, bf16), inputs from device"
                         " memory; launches: rank 0 over phase 19's "
                         f"{DP_PLAN[0][1]} bf16 steps of {DP_RANKS} ranks on "
-                        "one card"}
+                        "one card; space_*: rank 0 of phase 21's two "
+                        "space ranks (W48 620 px bf16 and UNet 352 px f32 "
+                        "steps, every launch at a band shape), space_ms and "
+                        "its bound over the calls of one W48 step at rank "
+                        "0's band shapes"}
 
     fused_split = {path: r["times"] for path, r in scale["split"].items()}
 
@@ -4565,6 +4988,12 @@ def main() -> int:
         "remat_launches": w48_conv[1], "unet_remat_launches": unet_conv[1],
         "fold_mesh_launches": remat["fold_mesh"]["tta=False"]["launches"],
         "data_mesh_launches": remat["data_mesh"]["launches"][0],
+        "space_launches": sum(
+            space["models"][MODELS[ms]["name"]]["launches_total"][
+                "scale_bias_act"] for ms, _, _ in SPACE_PLAN),
+        **{f"space_{k}": space["scale_bias_act"][k]
+           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "library_ms")},
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             epath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
@@ -4597,7 +5026,10 @@ def main() -> int:
                 "step with --remat conv (phase 20); fold_mesh_launches: one "
                 "rank's forward of a 4-fold UNet ensemble over two ranks; "
                 "data_mesh_launches: one rank's predict_eval run over two "
-                "ranks (phase 20)",
+                "ranks (phase 20); space_*: rank 0's launches over phase "
+                "21's W48 and UNet steps on two space ranks, every one at a "
+                "band shape, and the kernel held and timed at every band "
+                "shape of both ranks' step 1",
         **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
         **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
@@ -4671,7 +5103,7 @@ def main() -> int:
                                      if k != "shapes"},
                     "serving_options": opt, "deployment": dep,
                     "data_side": data_side, "scale_out": scale,
-                    "remat_and_meshes": remat},
+                    "remat_and_meshes": remat, "space": space},
                    default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

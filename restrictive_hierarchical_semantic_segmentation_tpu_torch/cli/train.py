@@ -36,8 +36,10 @@ overrides (JAX's platform and virtual CPU device count) have no
 counterpart: ``--device`` picks the device. ``--remat True|module|conv``
 recomputes the backbone's regions in the backward (``models/remat.py``);
 ``--profile-dir DIR`` writes a ``torch.profiler`` trace of epoch 2's steps
-into DIR, one file per rank that trains (``utils/profiling.py``). Still
-raising, and naming ROADMAP queue 1, item 8: ``--n-space`` above 1. Two
+into DIR, one file per rank that trains (``utils/profiling.py``).
+``--n-space N`` puts N of the ranks on the mesh's ``space`` axis: each
+holds a band of the rows of every image and activation
+(``parallel/bands.py``), and the world size must be a multiple of N. Two
 ranks on one machine::
 
     for i in 0 1; do python -m \

@@ -29,9 +29,11 @@ Data-parallel training (``shard``, or :meth:`DeviceDataset.set_sharding`
 as the trainer calls it, JAX ``train/loop.py:287-290``): every rank draws
 and augments the same global batch and keeps its rows of it (as each JAX
 process assembles the same global batch), so the ranks' rows together are
-the single-process batch. :meth:`DeviceDataset.place` moves the base
-arrays, and with them the augmentation, to another device (JAX
-``data/device_augment.py:310-316``).
+the single-process batch. Over a space group each rank then keeps its
+band of H (``set_sharding``'s ``band``): the affine gather reaches across
+bands, so whole images are augmented and then cut.
+:meth:`DeviceDataset.place` moves the base arrays, and with them the
+augmentation, to another device (JAX ``data/device_augment.py:310-316``).
 """
 from __future__ import annotations
 
@@ -317,14 +319,16 @@ class DeviceDataset:
     def set_epoch(self, epoch: int):
         self._epoch = int(epoch)
 
-    def set_sharding(self, shard) -> None:
+    def set_sharding(self, shard, band=None) -> None:
         """Yield this rank's rows of every global batch: ``shard = (index,
         size, grad_accum)`` in its data group (``data/loader.py:
-        shard_rows``), or None for the whole batch."""
+        shard_rows``), or None for the whole batch; ``band = (lo, hi)``:
+        the rows of H this rank of a space group keeps (None: all)."""
         from .loader import shard_rows
 
         self._rows = (None if shard is None
                       else shard_rows(self.batch_size, shard))
+        self._band = None if band is None else slice(*band)
 
     def place(self, device) -> None:
         """Move the base arrays, and so the augmentation and the batches it
@@ -348,4 +352,7 @@ class DeviceDataset:
             if self._rows is not None:
                 x = torch.cat([x[a:b] for a, b in self._rows])
                 y = torch.cat([y[a:b] for a, b in self._rows])
+            if self._band is not None:
+                x = x[:, self._band].contiguous()
+                y = y[:, self._band].contiguous()
             yield x, y

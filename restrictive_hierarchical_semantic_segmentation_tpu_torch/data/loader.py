@@ -15,7 +15,10 @@ counterpart of the JAX package's ``data/loader.py``.
 * ``shard_rows``: the rows of every global batch that one rank of a
   data-parallel group loads (``BatchLoader(shard=...)``): each sample's
   seed depends on (seed, epoch, dataset index) alone, so the ranks' rows,
-  concatenated, are the single-process batch bit for bit.
+  concatenated, are the single-process batch bit for bit;
+* ``band``: the rows of H that one rank of a space group keeps
+  (``parallel/bands.py:band``), of images and targets alike, cut after the
+  whole samples are loaded and augmented.
 """
 from __future__ import annotations
 
@@ -129,7 +132,8 @@ def shard_rows(batch_size: int, shard: Optional[Tuple[int, int, int]]
 class BatchLoader:
     """Iterable over (image, target) numpy batches with static shapes.
     With ``shard`` (:func:`shard_rows`), each batch holds this rank's rows
-    of the global batch of ``batch_size``, and only those are loaded."""
+    of the global batch of ``batch_size``, and only those are loaded; with
+    ``band`` (``(lo, hi)``), the rows ``[lo, hi)`` of H of each image."""
 
     def __init__(
         self,
@@ -142,6 +146,7 @@ class BatchLoader:
         indices: Optional[Sequence[int]] = None,
         worker_mode: str = "thread",
         shard: Optional[Tuple[int, int, int]] = None,
+        band: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -159,6 +164,7 @@ class BatchLoader:
             raise ValueError("a sharded loader drops the last partial batch")
         self._rows = None if shard is None else np.concatenate(
             [np.arange(a, b) for a, b in shard_rows(self.batch_size, shard)])
+        self._band = None if band is None else slice(*band)
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode: {worker_mode!r}")
         self.worker_mode = worker_mode
@@ -224,6 +230,9 @@ class BatchLoader:
                 ]
             xs = np.stack(ims)
             ys = np.stack([s[1] for s in samples])
+            if self._band is not None:  # this rank's rows of H
+                xs = np.ascontiguousarray(xs[:, self._band])
+                ys = np.ascontiguousarray(ys[:, self._band])
             yield xs, ys
 
 

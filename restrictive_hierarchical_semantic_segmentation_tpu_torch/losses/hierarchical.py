@@ -30,6 +30,19 @@ union is non-zero, which differs between shards. That count is
 all-reduced over the group (forward only, no gradient: a count) and each
 rank's Dice sum is scaled by the group size, so the ranks' mean is the
 global sum over the global count.
+
+Over a space group (``space``: each rank holds a band of rows of every
+image, ``parallel/bands.py``) every term is computed from sums over the
+whole image, so each rank of the group computes the same loss, its data
+shard's: the per-image cross-entropy's sums and counts, the
+Dice intersections and unions, the consistency and KL means and the
+OHEM threshold (the image's k-th probability) span the bands. The sums
+go through ``all_reduce_sum``, whose backward all-reduces the gradient:
+every band then gets the gradient of every rank's use of the sum (a sum
+whose backward were the identity would give the FiLM pooling and the Dice
+ratio the gradient of one rank's share). The step divides the summed
+gradients by the size of its data x space group
+(``train/steps.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +55,8 @@ import torch.distributed as dist
 
 from ..hierarchy.tree import ClassTree
 from ..ops.restrictive import grouped_conditional_kl
+from ..parallel.bands import (active, all_reduce_sum, gather_bands,
+                              global_height, spatial_mean)
 
 __all__ = ["masked_cross_entropy", "masked_soft_dice", "ohem_select",
            "consistency_loss", "hierarchical_loss"]
@@ -75,22 +90,26 @@ def _class_weight(class_weight, n: int, device) -> torch.Tensor:
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                         class_weight=None) -> torch.Tensor:
-    """logits, targets: (B, H, W, C); targets in {-1, 0, 1}. A scalar."""
+                         class_weight=None, space=None) -> torch.Tensor:
+    """logits, targets: (B, H, W, C); targets in {-1, 0, 1}. A scalar.
+    ``space``: the space group of the bands of H (module docstring)."""
     logits = _f32(logits)
     targets = _f32(targets)
     logp = torch.log_softmax(logits, dim=-1)
     valid = targets != -1.0
     w = _class_weight(class_weight, logits.shape[-1], logits.device)
     num = -(torch.where(valid, targets * logp, 0.0) * w).sum(dim=(1, 2))
-    cnt = valid.sum(dim=(1, 2)).float()                  # (B, C)
+    cnt = valid.sum(dim=(1, 2)).to(num.dtype)            # (B, C)
+    if space is not None:
+        num, cnt = all_reduce_sum(torch.cat([num, cnt], -1), space).split(
+            num.shape[-1], -1)
     per_b = (num / cnt.clamp_min(1.0)).mean(dim=-1)
     has_empty = (cnt == 0.0).any(dim=-1)                 # -> 1.0
     return torch.where(has_empty, 1.0, per_b).mean()
 
 
 def masked_soft_dice(logits: torch.Tensor, targets: torch.Tensor,
-                     class_weight=None, smooth: float = 0.0
+                     class_weight=None, smooth: float = 0.0, space=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(sum of the kept items' losses, number of kept items)``; the
     caller divides (items with zero union are dropped)."""
@@ -101,6 +120,8 @@ def masked_soft_dice(logits: torch.Tensor, targets: torch.Tensor,
     w = _class_weight(class_weight, logits.shape[-1], logits.device)
     inter = (probs * targets * valid * w).sum(dim=(1, 2, 3))   # (B,)
     union = ((probs + targets) * valid * w).sum(dim=(1, 2, 3))
+    if space is not None:
+        inter, union = all_reduce_sum(torch.stack([inter, union]), space)
     ok = union > 0.0
     # a dropped item's union is 0: divide by 1 there so that neither its
     # value nor its gradient is NaN (it is weighted 0 either way)
@@ -110,25 +131,31 @@ def masked_soft_dice(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def ohem_select(logits: torch.Tensor, targets: torch.Tensor,
-                thres: float = 0.9, min_kept: int = 100000) -> torch.Tensor:
+                thres: float = 0.9, min_kept: int = 100000,
+                space=None) -> torch.Tensor:
     """Online hard-example mining mask (B, H, W): keep the valid pixels whose
     true-class probability is at most ``max(k-th smallest, thres)``, with
-    ``k = min(min_kept, H * W)`` per image."""
+    ``k = min(min_kept, H * W)`` per image (over the whole image's bands
+    under ``space``)."""
     probs = torch.softmax(_f32(logits), dim=-1)
     t = _f32(targets)
     pos = t == 1.0
     valid = pos.any(dim=-1)
     p_true = torch.where(pos, probs, 0.0).sum(dim=-1)
-    hw = p_true.shape[1] * p_true.shape[2]
+    flat = torch.where(valid, p_true, 2.0)
+    if space is not None:  # the whole image's probabilities
+        h = global_height(flat.shape[1], space, flat.device)
+        flat = gather_bands(flat.detach(), h, space, dim=1)
+    hw = flat.shape[1] * flat.shape[2]
     k = int(min(min_kept, hw))
-    flat = torch.where(valid, p_true, 2.0).reshape(p_true.shape[0], -1)
+    flat = flat.reshape(flat.shape[0], -1)
     kth = torch.kthvalue(flat, k, dim=1).values
     t_eff = torch.clamp(kth, min=thres)[:, None, None]
     return valid & (p_true <= t_eff)
 
 
 def consistency_loss(probs_per_level: Sequence[torch.Tensor],
-                     tree: ClassTree) -> torch.Tensor:
+                     tree: ClassTree, space=None) -> torch.Tensor:
     """L1 between each parent's probability and the sum of its children's,
     averaged over all (level, parent-with-children) pairs.
 
@@ -149,7 +176,8 @@ def consistency_loss(probs_per_level: Sequence[torch.Tensor],
                 - p_prev.index_select(-1, sel)).abs()
         # mean over (batch, space) per parent: every parent has the same
         # extent, as in the reference's per-parent .mean()
-        total = total + diff.mean(dim=tuple(range(diff.dim() - 1))).sum()
+        total = total + spatial_mean(diff, tuple(range(diff.dim() - 1)),
+                                     space).sum()
         count += int(sel.numel())
     if count == 0:
         return total
@@ -165,15 +193,18 @@ def hierarchical_loss(
         level_mask: Optional[Sequence[float]] = None,
         lambda_cons: float = 1.0, lambda_kl: float = 0.0,
         dice_smooth: float = 0.0, ohem: Optional[tuple] = None,
-        group=None) -> tuple[torch.Tensor, torch.Tensor]:
+        group=None, space=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``sum_L m_L * (CE_L + Dice_L) + lambda_cons * consistency
     [+ lambda_kl * KL]``; returns ``(total, per_level)`` with ``per_level``
     the (L,) CE + Dice of every level, masked or not. ``level_mask`` may be
     a sequence or a tensor of 0/1 per level. ``group``: the data-parallel
     process group of more than one rank this batch is a shard of (module
-    docstring); one all-reduce of the levels' Dice counts."""
+    docstring); one all-reduce of the levels' Dice counts. ``space``: the
+    :class:`..parallel.mesh.DataGroup` of the space axis the maps are bands
+    of (``group`` is then the data x space group)."""
     n_levels = len(logits_per_level)
     device = logits_per_level[0].device
+    space = active(space)
     if level_mask is None:
         mask = torch.ones(n_levels, dtype=torch.float32, device=device)
     else:
@@ -188,12 +219,13 @@ def hierarchical_loss(
             # de-selected pixels become -1, masked like restrictive targets
             thres, min_kept = ohem
             keep = ohem_select(logits_per_level[L], ce_targets, thres,
-                               min_kept)
+                               min_kept, space)
             ce_targets = torch.where(keep[..., None], _f32(ce_targets),
                                      -1.0)
-        ce = masked_cross_entropy(logits_per_level[L], ce_targets, w)
+        ce = masked_cross_entropy(logits_per_level[L], ce_targets, w, space)
         dsum, dcnt = masked_soft_dice(logits_per_level[L],
-                                      targets_per_level[L], w, dice_smooth)
+                                      targets_per_level[L], w, dice_smooth,
+                                      space)
         terms.append((ce, dsum, dcnt))
     if group is not None:
         # the group's count of kept items per level, and each rank's share
@@ -210,7 +242,8 @@ def hierarchical_loss(
         total = total + mask[L] * lvl
     if probs_per_level is not None and tree is not None \
             and tree.num_levels > 1:
-        total = total + lambda_cons * consistency_loss(probs_per_level, tree)
+        total = total + lambda_cons * consistency_loss(probs_per_level, tree,
+                                                       space)
     if lambda_kl and q_per_level is not None and tree is not None \
             and tree.num_levels > 1:
         kl = torch.zeros((), dtype=torch.float32, device=device)
@@ -218,7 +251,8 @@ def hierarchical_loss(
         for L in range(1, tree.num_levels):
             if q_per_level[L] is not None:
                 kl = kl + grouped_conditional_kl(_f32(q_per_level[L]),
-                                                 tree.child_to_parent[L])
+                                                 tree.child_to_parent[L],
+                                                 space)
                 n += 1
         if n:
             total = total + lambda_kl * kl / n

@@ -14,6 +14,14 @@ the flax names (``stem_conv0``, ``layer1.block0.conv1``,
 ``stage3_m2.fuse2_0.conv1``, ``shared_head_conv``, ...), so the weight
 bridge (``bridge.py``) is a mechanical rename. Every conv is followed by a
 :class:`..norm.BatchNormAct`, the counterpart of ``_bn_act``.
+
+Bands (``parallel/bands.py:set_space_group``): under a space group each
+module's ``forward`` takes the global heights of its inputs (``h``,
+``hs``). The stem's, the blocks' and the fuse layers' 3x3 convolutions
+fetch the halo rows their stride and padding reach, the fuse layers' and
+the head's resizes work on bands, and the ``sum`` head picks its order of
+convolution and resize from the global sizes, so every band of a layer
+takes the same order.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config.hrnet import HRNetConfig, HRNetStage
-from ...ops.resize import resize_nchw
+from ...parallel import bands
 from ..norm import BatchNormAct
 from ..remat import remat_mode, run_region
 
@@ -54,10 +62,15 @@ class BasicBlock(nn.Module):
             self.downsample_conv = _conv(in_ch, planes, 1, stride)
             self.downsample_bn = BatchNormAct(planes)
 
-    def forward(self, x):
-        y = self.bn2(self.conv2(self.bn1(self.conv1(x))))
-        residual = (self.downsample_bn(self.downsample_conv(x))
-                    if self.downsample else x)
+    space = None
+
+    def forward(self, x, h=None):
+        sp = self.space
+        y = self.bn1(bands.conv2d(self.conv1, x, h, sp))
+        y = self.bn2(bands.conv2d(self.conv2, y, bands.conv_height(
+            self.conv1, h), sp))
+        residual = (self.downsample_bn(bands.conv2d(
+            self.downsample_conv, x, h, sp)) if self.downsample else x)
         return torch.relu(y + residual)
 
 
@@ -80,12 +93,16 @@ class Bottleneck(nn.Module):
             self.downsample_conv = _conv(in_ch, planes * 4, 1, stride)
             self.downsample_bn = BatchNormAct(planes * 4)
 
-    def forward(self, x):
-        y = self.bn1(self.conv1(x))
-        y = self.bn2(self.conv2(y))
-        y = self.bn3(self.conv3(y))
-        residual = (self.downsample_bn(self.downsample_conv(x))
-                    if self.downsample else x)
+    space = None
+
+    def forward(self, x, h=None):
+        sp = self.space
+        y = self.bn1(bands.conv2d(self.conv1, x, h, sp))
+        y = self.bn2(bands.conv2d(self.conv2, y, h, sp))
+        y = self.bn3(bands.conv2d(self.conv3, y, bands.conv_height(
+            self.conv2, h), sp))
+        residual = (self.downsample_bn(bands.conv2d(
+            self.downsample_conv, x, h, sp)) if self.downsample else x)
         return torch.relu(y + residual)
 
 
@@ -131,28 +148,36 @@ class SharedHead1x1(nn.Conv2d):
         (h, w), (big_h, big_w) = src_hw, dst_hw
         return ch * (big_h * w * h + big_h * big_w * w)
 
-    def forward(self, xs: List[torch.Tensor], target_hw) -> torch.Tensor:
-        ac = self.align_corners
+    space = None
+
+    def forward(self, xs: List[torch.Tensor], target_hw, hs=None
+                ) -> torch.Tensor:
+        """``target_hw`` and ``hs`` (the branches' heights) global: the
+        bands' under a space group."""
+        ac, sp = self.align_corners, self.space
+        if hs is None:
+            hs = [b.shape[-2] for b in xs]
         if self.mode == "concat":
-            outs = [xs[0]] + [resize_nchw(b, target_hw, ac) for b in xs[1:]]
+            outs = [xs[0]] + [bands.resize(b, h, target_hw, ac, sp)
+                              for b, h in zip(xs[1:], hs[1:])]
             return super().forward(torch.cat(outs, dim=1))
         big_h, big_w = (int(v) for v in target_hw)
         out_ch = self.out_channels
         y = None
         lo = 0
-        for b in xs:
+        for b, h in zip(xs, hs):
             ch = b.shape[1]
             w = self.weight[:, lo:lo + ch]
             lo += ch
-            src_hw = tuple(int(v) for v in b.shape[-2:])
+            src_hw = (int(h), int(b.shape[-1]))
             if src_hw == (big_h, big_w):
                 t = F.conv2d(b, w)
             elif (ch * src_hw[0] * src_hw[1] * out_ch
                   + self._resize_flops(out_ch, src_hw, (big_h, big_w))
                   < ch * big_h * big_w * out_ch):
-                t = resize_nchw(F.conv2d(b, w), (big_h, big_w), ac)
+                t = bands.resize(F.conv2d(b, w), h, (big_h, big_w), ac, sp)
             else:
-                t = F.conv2d(resize_nchw(b, (big_h, big_w), ac), w)
+                t = F.conv2d(bands.resize(b, h, (big_h, big_w), ac, sp), w)
             y = t if y is None else y + t
         return y + self.bias.to(y.dtype)[:, None, None]
 
@@ -170,9 +195,9 @@ class Branch(nn.Module):
             self.add_module(f"block{i}",
                             cls(in_ch if i == 0 else out_ch, planes, 1, ds))
 
-    def forward(self, x):
+    def forward(self, x, h=None):
         for i in range(self.num_blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, h)
         return x
 
 
@@ -200,12 +225,21 @@ class FuseLayer(nn.Module):
             self.add_module(f"bn{k}",
                             BatchNormAct(ch, "none" if last else "relu"))
 
-    def forward(self, x, target_hw):
+    space = None
+
+    def forward(self, x, target_hw, h=None):
+        """``target_hw`` global, ``h`` x's global height (x's own without
+        bands)."""
+        sp = self.space
+        if h is None:
+            h = x.shape[-2]
         if self.up:
-            return resize_nchw(self.bn(self.conv(x)), target_hw,
-                               self.align_corners)
+            return bands.resize(self.bn(self.conv(x)), h, target_hw,
+                                self.align_corners, sp)
         for k in range(self.steps):
-            x = getattr(self, f"bn{k}")(getattr(self, f"conv{k}")(x))
+            conv = getattr(self, f"conv{k}")
+            x = getattr(self, f"bn{k}")(bands.conv2d(conv, x, h, sp))
+            h = bands.conv_height(conv, h)
         return x
 
 
@@ -229,17 +263,23 @@ class HighResolutionModule(nn.Module):
                     self.add_module(f"fuse{i}_{j}", FuseLayer(
                         i, j, channels[i], channels[j], align_corners))
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        xs = [getattr(self, f"branch{i}")(xs[i]) for i in range(self.nb)]
+    def forward(self, xs: List[torch.Tensor], hs=None
+                ) -> List[torch.Tensor]:
+        """``hs``: the branches' global heights (None: their own)."""
+        if hs is None:
+            hs = [None] * self.nb
+        xs = [getattr(self, f"branch{i}")(xs[i], hs[i])
+              for i in range(self.nb)]
         if self.nb == 1:
             return xs
         outs = []
         for i in range(self.nb):
-            hw = xs[i].shape[-2:]
+            hw = (xs[i].shape[-2] if hs[i] is None else hs[i],
+                  xs[i].shape[-1])
             y = None
             for j in range(self.nb):
                 t = xs[j] if j == i else getattr(self, f"fuse{i}_{j}")(
-                    xs[j], hw)
+                    xs[j], hw, hs[j])
                 y = t if y is None else y + t
             outs.append(torch.relu(y))
         return outs
@@ -272,21 +312,43 @@ class Transition(nn.Module):
                 self.add_module(f"t{i}_bn{j}", BatchNormAct(out_ch, "relu"))
             self.plan.append(n)
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    space = None
+
+    def forward(self, xs: List[torch.Tensor], hs=None
+                ) -> List[torch.Tensor]:
+        """``hs``: the inputs' global heights (None: their own)."""
+        sp = self.space
+        if hs is None:
+            hs = [None] * len(xs)
         outs = []
         for i, step in enumerate(self.plan):
             if step == "keep":
                 outs.append(xs[i])
             elif step == "match":
-                outs.append(getattr(self, f"t{i}_bn")(
-                    getattr(self, f"t{i}_conv")(xs[i])))
+                outs.append(getattr(self, f"t{i}_bn")(bands.conv2d(
+                    getattr(self, f"t{i}_conv"), xs[i], hs[i], sp)))
             else:
-                y = xs[-1]
+                y, h = xs[-1], hs[-1]
                 for j in range(step):
+                    conv = getattr(self, f"t{i}_conv{j}")
                     y = getattr(self, f"t{i}_bn{j}")(
-                        getattr(self, f"t{i}_conv{j}")(y))
+                        bands.conv2d(conv, y, h, sp))
+                    h = bands.conv_height(conv, h)
                 outs.append(y)
         return outs
+
+    def out_heights(self, hs: List[int]) -> List[int]:
+        """The global heights of the outputs for inputs of ``hs``."""
+        out = []
+        for i, step in enumerate(self.plan):
+            if step in ("keep", "match"):
+                out.append(hs[i])
+            else:
+                h = hs[-1]
+                for j in range(step):
+                    h = bands.conv_height(getattr(self, f"t{i}_conv{j}"), h)
+                out.append(h)
+        return out
 
 
 class HRNetBackbone(nn.Module):
@@ -343,14 +405,31 @@ class HRNetBackbone(nn.Module):
     def feature_dim(self) -> int:
         return self.config.last_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stem_bn0(self.stem_conv0(x))
-        x = self.stem_bn1(self.stem_conv1(x))
-        xs = [self.layer1(x)]
+    space = None
+
+    def out_height(self, h: int) -> int:
+        """The global height of the features for an input of ``h``."""
+        return bands.conv_height(self.stem_conv1,
+                                 bands.conv_height(self.stem_conv0, h))
+
+    def forward(self, x: torch.Tensor, h=None) -> torch.Tensor:
+        """x: (B, C, H, W), or this rank's band of an input of global
+        height ``h`` under a space group."""
+        sp = self.space
+        if sp is not None and h is None:
+            raise ValueError("a banded HRNet needs its input's global height")
+        x = self.stem_bn0(bands.conv2d(self.stem_conv0, x, h, sp))
+        h = bands.conv_height(self.stem_conv0, h)
+        x = self.stem_bn1(bands.conv2d(self.stem_conv1, x, h, sp))
+        hs = [bands.conv_height(self.stem_conv1, h)]
+        xs = [self.layer1(x, hs[0])]
         for si, n_modules in self.stage_modules:
-            xs = getattr(self, f"transition{si - 1}")(xs)
+            trans = getattr(self, f"transition{si - 1}")
+            xs = trans(xs, hs)
+            hs = trans.out_heights(hs) if sp is not None else [None] * len(xs)
             for m in range(n_modules):
-                xs = run_region(getattr(self, f"stage{si}_m{m}"), xs,
+                xs = run_region(getattr(self, f"stage{si}_m{m}"), xs, hs,
                                 mode=self.remat)
-        return self.shared_head_bn(
-            self.shared_head_conv(xs, xs[0].shape[-2:]))
+        target = (xs[0].shape[-2] if sp is None else hs[0], xs[0].shape[-1])
+        return self.shared_head_bn(self.shared_head_conv(
+            xs, target, None if sp is None else hs))

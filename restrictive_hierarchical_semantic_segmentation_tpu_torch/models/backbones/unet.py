@@ -21,6 +21,13 @@ reads and ``BatchNormAct`` copies nothing. Submodule names are the flax
 names (``inc``, ``down1..4``, ``up1..4``; ``conv`` inside ``Down`` and
 ``Up``; ``conv0``, ``bn0``, ``conv1``, ``bn1`` inside ``DoubleConv``), so
 ``bridge.py`` maps the weights without a rule of its own.
+
+Bands (``parallel/bands.py:set_space_group``): each module's ``space`` is
+the space group whose ranks hold bands of rows of its activations, and its
+``forward`` takes the global height of its input (``h``). The 3x3
+convolutions fetch one halo row on each side, a max-pool fetches a row
+where a band starts on an odd row, and ``Up`` resizes its band from the
+source rows it reads and shifts its rows by the pad's ``dh // 2``.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.resize import resize_nchw
+from ...parallel import bands
 from ..norm import BatchNormAct
 
 __all__ = ["UNetBackbone"]
@@ -44,8 +51,12 @@ class DoubleConv(nn.Module):
         self.conv1 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=True)
         self.bn1 = BatchNormAct(out_ch, "relu")
 
-    def forward(self, x):
-        return self.bn1(self.conv1(self.bn0(self.conv0(x))))
+    space = None  # the space group of the bands (parallel/bands.py)
+
+    def forward(self, x, h=None):
+        sp = self.space
+        x = self.bn0(bands.conv2d(self.conv0, x, h, sp))
+        return self.bn1(bands.conv2d(self.conv1, x, h, sp))
 
 
 class Down(nn.Module):
@@ -55,8 +66,11 @@ class Down(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_ch, out_ch)
 
-    def forward(self, x):
-        return self.conv(F.max_pool2d(x, 2))
+    space = None
+
+    def forward(self, x, h=None):
+        return self.conv(bands.max_pool2(x, h, self.space),
+                         None if h is None else h // 2)
 
 
 class Up(nn.Module):
@@ -67,14 +81,23 @@ class Up(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_ch, out_ch)
 
-    def forward(self, x1, x2):
-        h, w = x1.shape[-2:]
-        x1 = resize_nchw(x1, (2 * h, 2 * w), True)
-        dh = x2.shape[-2] - x1.shape[-2]
-        dw = x2.shape[-1] - x1.shape[-1]
+    space = None
+
+    def forward(self, x1, x2, h1=None, h2=None):
+        """x1 of global height ``h1``, the skip x2 of ``h2`` (None without
+        bands: the tensors' own)."""
+        sp = self.space
+        w = x1.shape[-1]
+        if sp is None:
+            h1, h2 = x1.shape[-2], x2.shape[-2]
+        x1 = bands.resize(x1, h1, (2 * h1, 2 * w), True, sp)
+        dh = h2 - 2 * h1
+        dw = x2.shape[-1] - 2 * w
         if dh or dw:  # split front/back as the JAX file does
-            x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([x2, x1], dim=1))
+            x1 = F.pad(bands.pad_rows(x1, 2 * h1, dh // 2, dh - dh // 2, sp),
+                       (dw // 2, dw - dw // 2))
+        return self.conv(torch.cat([x2, x1], dim=1),
+                         None if sp is None else h2)
 
 
 class UNetBackbone(nn.Module):
@@ -101,13 +124,26 @@ class UNetBackbone(nn.Module):
     def feature_dim(self) -> int:
         return self.base_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        d = self.up1(x5, x4)
-        d = self.up2(d, x3)
-        d = self.up3(d, x2)
-        return self.up4(d, x1)
+    space = None
+
+    def out_height(self, h: int) -> int:
+        """The global height of the features for an input of ``h``."""
+        return h
+
+    def forward(self, x: torch.Tensor, h=None) -> torch.Tensor:
+        """x: (B, C, H, W), or this rank's band of an input of global
+        height ``h`` under a space group."""
+        if self.space is not None and h is None:
+            raise ValueError("a banded UNet needs its input's global height")
+        hs = [h]
+        for _ in range(4):
+            hs.append(None if h is None else hs[-1] // 2)
+        x1 = self.inc(x, hs[0])
+        x2 = self.down1(x1, hs[0])
+        x3 = self.down2(x2, hs[1])
+        x4 = self.down3(x3, hs[2])
+        x5 = self.down4(x4, hs[3])
+        d = self.up1(x5, x4, hs[4], hs[3])
+        d = self.up2(d, x3, hs[3], hs[2])
+        d = self.up3(d, x2, hs[2], hs[1])
+        return self.up4(d, x1, hs[1], hs[0])

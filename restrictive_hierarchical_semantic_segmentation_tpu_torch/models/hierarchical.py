@@ -32,6 +32,14 @@ maps, as the JAX module does; inside, activations are NCHW in
 ``torch.channels_last`` memory format. Outputs are float32 whatever the
 compute dtype (``torch.autocast`` decides that), or float64 for a model
 converted with ``.double()`` (a reference for the f32 gradients).
+
+Bands (``parallel/bands.py:set_space_group``): under a space group the
+input is this rank's band of rows of each image (the JAX ``P(data, space,
+None, None)``), every map comes out as the band of the same rows, and the
+forward learns the global height from the bands (one small all-reduce).
+The heads' convolutions and the resizes of the logits and of the
+previous level's probabilities work on bands; the composition and the
+grouped softmax are per pixel and stay local.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from torch import nn
 from ..hierarchy.tree import ClassTree
 from ..ops.resize import resize_nchw
 from ..ops.restrictive import gated_grouped_softmax
+from ..parallel import bands
 from .film import FiLM
 from .remat import remat_mode, run_region
 
@@ -68,6 +77,8 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 class HierarchicalSegmenter(nn.Module):
+    space = None  # the space group of the bands (parallel/bands.py)
+
     def __init__(self, tree: ClassTree, backbone: nn.Module,
                  hierarchical: bool = True, final_conv_kernel: int = 1,
                  align_corners: bool = True, concat_prev_probs: bool = False,
@@ -118,43 +129,51 @@ class HierarchicalSegmenter(nn.Module):
         width = max(self.tree.classes_per_level)
         b, _, h, w = x.shape
         extra = x.new_zeros((b, width, h, w))
-        if prev_probs is not None:
+        if prev_probs is not None:  # at the input's size: no resize
             p = resize_nchw(prev_probs, (h, w), self.align_corners)
             extra[:, :p.shape[1]] = p.to(x.dtype)
         return torch.cat([x, extra], dim=1).contiguous(
             memory_format=torch.channels_last)
 
-    def _run_backbone(self, x: torch.Tensor) -> torch.Tensor:
-        """One backbone pass, a recomputed region under ``remat``."""
-        return run_region(self.backbone, x, mode=self.remat)
+    def _run_backbone(self, x: torch.Tensor, h) -> torch.Tensor:
+        """One backbone pass (on bands of global height ``h``), a
+        recomputed region under ``remat``."""
+        return run_region(self.backbone, x, h, mode=self.remat)
 
-    def _logits(self, feats, name: str, hw) -> torch.Tensor:
-        z = resize_nchw(getattr(self, name)(feats), hw, self.align_corners)
+    def _logits(self, feats, name: str, hw, hf) -> torch.Tensor:
+        """The head ``name`` on features of global height ``hf``, resized
+        to ``hw``."""
+        z = bands.conv2d(getattr(self, name), feats, hf, self.space)
+        z = bands.resize(z, hf, hw, self.align_corners, self.space)
         return z if z.dtype == torch.float64 else z.float()
 
     def forward(self, x: torch.Tensor) -> SegmenterOutput:
-        """x: (B, H, W, C_in) NHWC."""
-        hw = x.shape[1:3]
+        """x: (B, H, W, C_in) NHWC, or this rank's band of rows of it."""
+        h = hf = None  # the global heights of the input and the features
+        if self.space is not None:
+            h = bands.global_height(x.shape[1], self.space, x.device)
+            hf = self.backbone.out_height(h)
+        hw = (x.shape[1] if h is None else h, x.shape[2])
         x = _nchw(x)  # a channels_last view of a contiguous NHWC tensor
         t = self.tree
 
         if not self.hierarchical:
-            feats = self._run_backbone(self._backbone_input(x, None))
-            z = self._logits(feats, "head_flat", hw)
+            feats = self._run_backbone(self._backbone_input(x, None), h)
+            z = self._logits(feats, "head_flat", hw, hf)
             return SegmenterOutput(None, [_nhwc(z)], None)
 
-        feats = self._run_backbone(self._backbone_input(x, None))
-        z0 = self._logits(feats, "head_l0", hw)
+        feats = self._run_backbone(self._backbone_input(x, None), h)
+        z0 = self._logits(feats, "head_l0", hw, hf)
         probs = [torch.sigmoid(z0)]            # NCHW
         logits = [_nhwc(z0)]
         qs: List[Optional[torch.Tensor]] = [None]
         share = self.share_backbone and not self.concat_prev_probs
         for L in range(1, t.num_levels):
             feats_l = feats if share else self._run_backbone(
-                self._backbone_input(x, probs[L - 1]))
+                self._backbone_input(x, probs[L - 1]), h)
             feats_l = getattr(self, f"film_l{L}")(
-                feats_l, probs[L - 1].to(feats_l.dtype))
-            zL = self._logits(feats_l, f"head_l{L}", hw)
+                feats_l, probs[L - 1].to(feats_l.dtype), h)
+            zL = self._logits(feats_l, f"head_l{L}", hw, hf)
             q, p_child = gated_grouped_softmax(
                 _nhwc(zL), _nhwc(probs[L - 1]),
                 getattr(self, f"parent_index_l{L}"), t.child_to_parent[L])

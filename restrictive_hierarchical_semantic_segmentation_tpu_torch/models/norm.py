@@ -28,11 +28,13 @@ is the BN backward kernel), then update the running buffers under
 
 with the flax momentum ``m = 0.9`` (torch's 0.1) and the unbiased (Bessel)
 batch variance in the running buffer, as ``LeanBatchNorm`` stores it. The
-statistics are those of the local batch, or, with a data-parallel group of
-more than one rank (:func:`set_bn_group`), of the whole batch of the group
-(``LeanBatchNorm`` under a ``data`` mesh axis: SyncBatchNorm), through
+statistics are those of the local batch, or, with a group of more than
+one rank (:func:`set_bn_group`: the step group, data x space), of the rows
+of every rank of the group (``LeanBatchNorm`` under ``data`` and ``space``
+mesh axes: SyncBatchNorm), through
 :func:`..ops.fused_bn_act.sync_batch_norm_act`; ``n`` is then the group's
-row count. The group is used in train mode only. Inside the recompute of a
+row count, all-reduced with the sums (bands of rows differ in height from
+rank to rank). The group is used in train mode only. Inside the recompute of a
 rematerialized region (``models/remat.py``) the buffers are left as they
 are: the region's forward already moved them, once. Train mode takes act
 "none" or "relu": the JAX backward treats every other act as the
@@ -71,8 +73,8 @@ class BatchNormAct(nn.Module):
     def __init__(self, num_features: int, act: str = "none",
                  eps: float = 1e-5):
         super().__init__()
-        # the data-parallel process group whose batch the train-mode
-        # statistics span (None: this rank's batch); see set_bn_group
+        # the process group whose rows the train-mode statistics span
+        # (None: this rank's rows); see set_bn_group
         self.group = None
         if act not in ACTS:
             raise ValueError(f"unknown act {act!r}")
@@ -145,9 +147,10 @@ class BatchNormAct(nn.Module):
 
 def set_bn_group(model: nn.Module, group) -> nn.Module:
     """Make every :class:`BatchNormAct` of ``model`` take its train-mode
-    statistics over the batch of every rank of the process ``group`` (None,
-    or a group of one rank: this rank's batch alone, through the
-    single-launch kernels). Eval mode ignores it."""
+    statistics over the rows of every rank of the process ``group`` (the
+    step group: its data and space ranks; None, or a group of one rank:
+    this rank's rows alone, through the single-launch kernels). Eval mode
+    ignores it."""
     if group is not None and dist.get_world_size(group) == 1:
         group = None
     for m in model.modules():

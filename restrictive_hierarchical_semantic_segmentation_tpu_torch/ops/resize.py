@@ -18,6 +18,12 @@ data, outside the 1e-5 the port holds this op to.
 Public functions take NHWC (the JAX layout); :func:`resize_nchw` is the
 form the models use on their NCHW activations. It works on the NHWC view,
 so a ``channels_last`` input gives a ``channels_last`` output.
+
+Bands of rows (``parallel/bands.py``): :func:`source_rows` names the
+global source rows that a band of output rows reads, and
+:func:`resize_band_nchw` computes that band from them, with the tables of
+the global sizes: the same samples and the same arithmetic as the whole
+resize, so the bands of a banded resize are the rows of the whole one.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear", "resize_nchw", "upsample2x_align_corners"]
+__all__ = ["resize_bilinear", "resize_nchw", "upsample2x_align_corners",
+           "source_rows", "resize_band_nchw"]
 
 
 def _linear_indices_weights(in_size: int, out_size: int,
@@ -61,6 +68,14 @@ def _make_tables(in_size: int, out_size: int, align_corners: bool,
 _tables = functools.lru_cache(maxsize=512)(_make_tables)
 
 
+def _lerp(x: torch.Tensor, dim: int, lo, hi, w) -> torch.Tensor:
+    shape = [1] * x.dim()
+    shape[dim] = lo.shape[0]
+    x_lo = x.index_select(dim, lo)
+    x_hi = x.index_select(dim, hi)
+    return x_lo + (x_hi - x_lo) * w.view(shape).to(x.dtype)
+
+
 def _resize_axis(x: torch.Tensor, dim: int, out_size: int,
                  align_corners: bool) -> torch.Tensor:
     in_size = x.shape[dim]
@@ -70,11 +85,7 @@ def _resize_axis(x: torch.Tensor, dim: int, out_size: int,
     # are the program's constants and must not enter the cache
     tables = _make_tables if torch.compiler.is_exporting() else _tables
     lo, hi, w = tables(in_size, out_size, align_corners, x.device)
-    shape = [1] * x.dim()
-    shape[dim] = out_size
-    x_lo = x.index_select(dim, lo)
-    x_hi = x.index_select(dim, hi)
-    return x_lo + (x_hi - x_lo) * w.view(shape).to(x.dtype)
+    return _lerp(x, dim, lo, hi, w)
 
 
 def _resize_nhwc(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
@@ -101,3 +112,38 @@ def resize_nchw(x: torch.Tensor, size, align_corners: bool = True
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample of NHWC ``x``, ``align_corners=True``."""
     return resize_bilinear(x, (x.shape[-3] * 2, x.shape[-2] * 2), True)
+
+
+def source_rows(in_size: int, out_size: int, align_corners: bool,
+                out_lo: int, out_hi: int) -> tuple:
+    """The ``[lo, hi)`` source rows that output rows ``[out_lo, out_hi)``
+    of a resize from ``in_size`` to ``out_size`` read ((0, 0) for no
+    output row)."""
+    if out_hi <= out_lo:
+        return 0, 0
+    lo, hi, _ = _linear_indices_weights(in_size, out_size, align_corners)
+    return int(lo[out_lo:out_hi].min()), int(hi[out_lo:out_hi].max()) + 1
+
+
+@functools.lru_cache(maxsize=512)
+def _band_tables(in_size: int, out_size: int, align_corners: bool,
+                 out_lo: int, out_hi: int, start: int, device: torch.device):
+    lo, hi, w = _linear_indices_weights(in_size, out_size, align_corners)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(lo[out_lo:out_hi] - start).to(device),
+                torch.from_numpy(hi[out_lo:out_hi] - start).to(device),
+                torch.from_numpy(w[out_lo:out_hi].copy()).to(device))
+
+
+def resize_band_nchw(rows: torch.Tensor, start: int, in_size: int, size,
+                     align_corners: bool, out_lo: int, out_hi: int
+                     ) -> torch.Tensor:
+    """Output rows ``[out_lo, out_hi)`` of ``resize_nchw`` from an input of
+    height ``in_size`` to ``size``, given the input's rows from global row
+    ``start`` on (``rows``, NCHW; :func:`source_rows` says which)."""
+    x = rows.permute(0, 2, 3, 1)
+    lo, hi, w = _band_tables(in_size, int(size[0]), align_corners, out_lo,
+                             out_hi, start, x.device)
+    x = _lerp(x, 1, lo, hi, w)
+    x = _resize_axis(x, 2, int(size[1]), align_corners)
+    return x.permute(0, 3, 1, 2)

@@ -89,11 +89,13 @@ def compose_children(z_children: torch.Tensor, p_parent: torch.Tensor,
 
 
 def grouped_conditional_kl(q_children: torch.Tensor,
-                           child_to_parent) -> torch.Tensor:
+                           child_to_parent, space=None) -> torch.Tensor:
     """Mean over parent groups of KL(Q_{c|p} || Uniform_g), the optional
     stabiliser (JAX ``grouped_conditional_kl``): per group ``mean(Q * (log Q
     - log(1/g)))`` over every element, then the mean over groups. Groups all
-    see the same spatial extent, so this is a weighted channel mean."""
+    see the same spatial extent, so this is a weighted channel mean.
+    ``space``: the space group whose bands ``q_children`` is one of (the
+    means then span the whole height)."""
     a = torch.as_tensor(np.asarray(child_to_parent), dtype=q_children.dtype,
                         device=q_children.device)
     group_size = a.sum(0)                       # (C_parent,)
@@ -101,5 +103,11 @@ def grouped_conditional_kl(q_children: torch.Tensor,
     q = q_children.clamp_min(1e-8)
     kl_terms = q * (torch.log(q) + torch.log(g))
     n_groups = int((np.asarray(child_to_parent).sum(axis=0) > 0).sum())
-    per_channel = kl_terms.mean(dim=tuple(range(kl_terms.dim() - 1)))
+    if space is None:
+        per_channel = kl_terms.mean(dim=tuple(range(kl_terms.dim() - 1)))
+    else:
+        from ..parallel.bands import spatial_mean
+
+        per_channel = spatial_mean(kl_terms, tuple(range(kl_terms.dim() - 1)),
+                                   space)
     return (per_channel / g).sum() / n_groups

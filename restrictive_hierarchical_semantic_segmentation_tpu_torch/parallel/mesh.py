@@ -1,4 +1,4 @@
-"""The rank mesh: data-parallel and fold-parallel training over
+"""The rank mesh: data-parallel, spatial and fold-parallel training over
 ``torch.distributed``; counterpart of the JAX package's
 ``parallel/mesh.py``, with its names.
 
@@ -7,22 +7,26 @@ compiles the collectives from sharding annotations. In the port a mesh
 entry is a **rank**: one process driving one card (or the CPU). A
 :class:`RankMesh` holds the array of ranks over its named axes and one
 ``torch.distributed`` process group per line of its ``data`` axis (a data
-group: the ranks that differ only in their ``data`` position) and per line
-of its ``fold`` axis (a fold group), made with ``dist.new_group`` by every
-rank in the same order, as ``new_group`` requires: the data groups first,
-then the fold groups. A group of one rank is None: there is nothing to
-reduce.
+group: the ranks that differ only in their ``data`` position), per line of
+its ``space`` axis (a space group), per line of its ``fold`` axis (a fold
+group) and per step group (the ranks that differ only in their ``data``
+and ``space`` positions: one fold's submesh), made with
+``dist.new_group`` by every rank in the same order, as ``new_group``
+requires: data, space, fold, then step groups. A group of one rank is
+None: there is nothing to reduce.
 
-* ``data``: each rank takes its rows of every global batch; the BatchNorm
-  statistics span the group's batch (``models/norm.py:set_bn_group``, the
-  JAX ``LeanBatchNorm`` over the data axis), and the gradients are
-  all-reduced over the group (``train/steps.py``);
+* ``data``: each rank takes its rows of every global batch;
 * ``fold``: independent folds over groups of ranks
   (``train/fold_parallel.py``); a fold ensemble's folds over the ranks of a
   fold group, whose per-level probabilities are averaged over it
   (``train/serving.py:Predictor``'s ``mesh``);
-* ``space``: spatial sharding of H. It has no counterpart in the port:
-  ``n_space`` above 1 raises (ROADMAP.md queue 1, item 8).
+* ``space``: each rank of a space group holds a band of the rows of every
+  activation (``parallel/bands.py``), exchanging halos with its
+  neighbours;
+* the step group (``data`` x ``space``): the BatchNorm statistics span its
+  rows (``models/norm.py:set_bn_group``, the JAX ``LeanBatchNorm`` over
+  the data and space axes), and the gradients, the loss's counts and the
+  confusion matrices are all-reduced over it (``train/steps.py``).
 
 :func:`init_distributed` starts the process group (``tcp://`` rendezvous
 at the coordinator); without a coordinator it does nothing and every
@@ -56,16 +60,13 @@ def world() -> Tuple[int, int]:
 def _check_space(n_space: int) -> None:
     if n_space < 1:
         raise ValueError(f"n_space={n_space}: needs at least 1")
-    if n_space > 1:
-        raise NotImplementedError(
-            f"--n-space {n_space}: spatial sharding is not in the PyTorch "
-            "port (ROADMAP.md queue 1, item 8)")
 
 
 @dataclass(frozen=True)
 class DataGroup:
-    """The ranks of one data group, in data-axis order, seen from ``rank``
-    (a member): ``group`` is their process group, None for one rank."""
+    """The ranks of one group (a line of a mesh axis, or a step group), in
+    mesh order, seen from ``rank`` (a member): ``group`` is their process
+    group, None for one rank."""
 
     ranks: Tuple[int, ...]
     rank: int
@@ -77,7 +78,7 @@ class DataGroup:
 
     @property
     def index(self) -> int:
-        """This rank's position on the data axis."""
+        """This rank's position in the group (on its axis)."""
         return self.ranks.index(self.rank)
 
     @property
@@ -100,9 +101,12 @@ def single() -> DataGroup:
 class RankMesh:
     """Ranks over named axes (the JAX ``Mesh`` with ranks for devices):
     ``devices`` is the integer array of ranks, ``shape`` the axis sizes by
-    name. ``data_groups`` (``fold_groups``) maps the position of every axis
-    but ``data`` (``fold``) to the process group of the ranks along that
-    axis there (None for one rank, or a mesh without the axis)."""
+    name. ``data_groups`` (``space_groups``, ``fold_groups``) maps the
+    position of every axis but ``data`` (``space``, ``fold``) to the process
+    group of the ranks along that axis there (None for one rank, or a mesh
+    without the axis); ``step_groups`` maps the fold position (``()``
+    without a fold axis) to the group of the ranks over ``data`` and
+    ``space`` there."""
 
     def __init__(self, ranks: np.ndarray, axis_names: Sequence[str]):
         self.devices = np.asarray(ranks)
@@ -110,21 +114,37 @@ class RankMesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               self.devices.shape))
         # every rank makes every group, in the same order; without a
-        # process group (a mesh only sized, as the tests do) there are none
-        self._lines, self.data_groups = self._axis_groups(DATA_AXIS)
-        self._fold_lines, self.fold_groups = self._axis_groups(FOLD_AXIS)
+        # process group (a mesh only sized, as the tests do) there are none;
+        # a line of ranks met again (a step group of one axis) reuses its
+        # group
+        self._made: Dict[tuple, object] = {}
+        self._lines, self.data_groups = self._axis_groups((DATA_AXIS,))
+        self._space_lines, self.space_groups = self._axis_groups(
+            (SPACE_AXIS,))
+        self._fold_lines, self.fold_groups = self._axis_groups((FOLD_AXIS,))
+        self._step_lines, self.step_groups = self._axis_groups(
+            (DATA_AXIS, SPACE_AXIS))
 
-    def _axis_groups(self, axis: str):
-        """``(lines, groups)`` of ``axis``: the ranks along it at each
-        position of the other axes, and their process groups."""
-        if axis not in self.axis_names:
+    def _axis_groups(self, axes: Tuple[str, ...]):
+        """``(lines, groups)`` of ``axes``: the ranks along them (in mesh
+        order) at each position of the other axes, and their process
+        groups."""
+        axes = tuple(a for a in axes if a in self.axis_names)
+        if not axes:
             return {}, {}
-        lines = np.moveaxis(self.devices, self.axis_names.index(axis), -1)
-        lines = {idx: tuple(int(r) for r in lines[idx])
-                 for idx in np.ndindex(*lines.shape[:-1])}
+        dims = [self.axis_names.index(a) for a in axes]
+        moved = np.moveaxis(self.devices, dims,
+                            list(range(-len(dims), 0)))
+        lead = moved.shape[:moved.ndim - len(dims)]
+        lines = {idx: tuple(int(r) for r in moved[idx].ravel())
+                 for idx in np.ndindex(*lead)}
         live = dist.is_available() and dist.is_initialized()
-        return lines, {idx: _group(r) if live and len(r) > 1 else None
-                       for idx, r in lines.items()}
+        groups = {}
+        for idx, r in lines.items():
+            if live and len(r) > 1 and r not in self._made:
+                self._made[r] = _group(r)
+            groups[idx] = self._made.get(r) if live and len(r) > 1 else None
+        return lines, groups
 
     def position(self, rank: Optional[int] = None) -> Optional[tuple]:
         """The index of ``rank`` (this process's by default) in
@@ -136,32 +156,47 @@ class RankMesh:
     def data_group(self, rank: Optional[int] = None) -> DataGroup:
         """The :class:`DataGroup` ``rank`` (this process's by default)
         belongs to."""
-        return self._axis_group(DATA_AXIS, self._lines, self.data_groups,
-                                rank)
+        return self._axis_group((DATA_AXIS,), self._lines,
+                                self.data_groups, rank)
+
+    def space_group(self, rank: Optional[int] = None) -> DataGroup:
+        """The ranks of ``rank``'s space group (this process's by default):
+        those that share every position with it but ``space``, in
+        space-axis order (its ``index`` is the rank's band)."""
+        return self._axis_group((SPACE_AXIS,), self._space_lines,
+                                self.space_groups, rank)
+
+    def step_group(self, rank: Optional[int] = None) -> DataGroup:
+        """The ranks of ``rank``'s step group (this process's by default):
+        those that share every position with it but ``data`` and
+        ``space``, in (data, space) order. Its first rank writes."""
+        return self._axis_group((DATA_AXIS, SPACE_AXIS), self._step_lines,
+                                self.step_groups, rank)
 
     def fold_group(self, rank: Optional[int] = None) -> DataGroup:
         """The ranks of ``rank``'s fold group (this process's by default):
         those that share every position with it but ``fold``, in fold-axis
         order, as a :class:`DataGroup` (its ``index`` is the rank's fold
         position)."""
-        return self._axis_group(FOLD_AXIS, self._fold_lines,
+        return self._axis_group((FOLD_AXIS,), self._fold_lines,
                                 self.fold_groups, rank)
 
-    def _axis_group(self, axis: str, lines: dict, groups: dict,
+    def _axis_group(self, axes: Tuple[str, ...], lines: dict, groups: dict,
                     rank: Optional[int]) -> DataGroup:
-        if axis not in self.axis_names:
-            raise ValueError(f"this mesh has no '{axis}' axis; got "
+        axes = tuple(a for a in axes if a in self.axis_names)
+        if not axes:
+            raise ValueError(f"this mesh has none of the axes {axes}; got "
                              f"{self.axis_names}")
         rank = world()[0] if rank is None else rank
         pos = self.position(rank)
         if pos is None:
             raise ValueError(f"rank {rank} is idle in this mesh")
-        d = self.axis_names.index(axis)
-        idx = pos[:d] + pos[d + 1:]
+        dims = {self.axis_names.index(a) for a in axes}
+        idx = tuple(p for d, p in enumerate(pos) if d not in dims)
         group = groups[idx]
         if group is None and len(lines[idx]) > 1:
             raise RuntimeError(
-                f"a {axis} group of {len(lines[idx])} ranks needs "
+                f"a {'x'.join(axes)} group of {len(lines[idx])} ranks needs "
                 "torch.distributed (init_distributed) before the mesh")
         return DataGroup(lines[idx], rank, group)
 

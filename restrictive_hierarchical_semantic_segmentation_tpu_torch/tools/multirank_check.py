@@ -11,6 +11,15 @@ Two runs, each compared with the same CLI in one process:
 2. **fold-parallel**: two folds with ``--fold-parallel True`` over the same
    N ranks (a ``(fold=2, data=N/2)`` mesh: each fold trained by its group).
 
+``--n-space K`` runs both with ``--n-space K``: the ranks' mesh gets a
+``space`` axis of K, each rank holding a band of the rows of every image
+(``parallel/bands.py``; the fold-parallel mesh is then ``make_fold_mesh``'s
+``(fold, data, space)``). With fewer cards than ranks the ranks share
+the cards (rank i on ``cuda:{i % cards}``) over gloo, since NCCL refuses
+two ranks on one device and the CLI takes gloo only for the CPU: each
+rank starts its process group itself (gloo, ``tcp://`` at the same
+coordinator) and runs the CLI in it without its ``--dist-*`` flags.
+
 The recipe is the JAX train CLI's defaults with bf16 compute and
 ``--learning-rate "[1e-6]"``: with updates of about 1e-6 the two sides'
 trajectories cannot separate in two epochs, so every epoch's values are
@@ -31,6 +40,8 @@ are no scaling number. Exits non-zero if a check fails.
     python -m restrictive_hierarchical_semantic_segmentation_tpu_torch.tools.multirank_check \\
         --ranks 4                       # four cards
     python -m ...tools.multirank_check --ranks 4 --device cpu --img-size 32
+    python -m ...tools.multirank_check --ranks 2 --n-space 2
+                                        # on one card: two ranks share it
 """
 from __future__ import annotations
 
@@ -59,6 +70,44 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def gloo_rank() -> None:
+    """One rank sharing a card (module docstring): ``sys.argv[1:4]`` are
+    the coordinator, the world size and the rank, the rest the CLI's
+    flags."""
+    import torch
+    import torch.distributed as dist
+
+    coordinator, world, rank = sys.argv[1], int(sys.argv[2]), \
+        int(sys.argv[3])
+    if torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+                            world_size=world, rank=rank)
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
+        train,
+    )
+
+    try:
+        train.main(sys.argv[4:])
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_argv(args, data: str, save: str, folds: int, extra: tuple,
+               coordinator: str, rank: int, share: bool) -> list:
+    """Rank ``rank``'s command: the CLI with ``--dist-*`` flags, or, where
+    ranks ``share`` the cards, the CLI in a process group of
+    :func:`gloo_rank`."""
+    cli = _argv(args, data, save, folds, extra)
+    if share:
+        return [sys.executable, "-c", "from restrictive_hierarchical_"
+                "semantic_segmentation_tpu_torch.tools.multirank_check "
+                "import gloo_rank; gloo_rank()", coordinator,
+                str(args.ranks), str(rank), *cli[3:]]
+    return cli + ["--dist-coordinator", coordinator, "--dist-procs",
+                  str(args.ranks), "--dist-proc-id", str(rank)]
+
+
 def _argv(args, data: str, save: str, folds: int, extra=()) -> list:
     return [sys.executable, "-m", CLI, "--save-path", save,
             "--data-root", data,
@@ -68,6 +117,7 @@ def _argv(args, data: str, save: str, folds: int, extra=()) -> list:
             "--compute-dtype", "bfloat16", "--learning-rate", "[1e-6]",
             "--epochs", str(args.epochs), "--folds", str(folds),
             "--device", args.device, *extra]
+
 
 
 def _run(cmds: list, timeout: float) -> float:
@@ -148,23 +198,31 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=os.path.join(REPO, "build",
                                                  "multirank_check"))
     p.add_argument("--timeout", type=float, default=600)
+    p.add_argument("--n-space", type=int, default=1,
+                   help="the space axis of the ranks' mesh (both runs)")
     args = p.parse_args(argv)
     if args.ranks < 2 or args.ranks % 2:
         p.error("--ranks: an even number of at least 2 (two folds share "
                 "them in the fold-parallel run)")
+    if args.ranks % args.n_space:
+        p.error("--n-space must divide --ranks")
+    share = False
     if args.device == "cuda":
         import torch
 
-        if torch.cuda.device_count() < args.ranks:
-            print(f"multirank_check: {args.ranks} ranks need as many cards, "
-                  f"torch sees {torch.cuda.device_count()}", file=sys.stderr)
+        if not torch.cuda.is_available():
+            print("multirank_check: torch sees no CUDA device",
+                  file=sys.stderr)
             return 2
+        share = torch.cuda.device_count() < args.ranks
     sys.path.insert(0, REPO)
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
         .synthetic import write_synth_dataset
 
     shutil.rmtree(args.out, ignore_errors=True)
-    result = {"ranks": args.ranks, "device": args.device}
+    result = {"ranks": args.ranks, "device": args.device,
+              "n_space": args.n_space, "cards_shared": share}
+    space = ("--n-space", str(args.n_space))
     for name, folds, extra in (("data_axis", 1, ()),
                                ("fold_parallel", 2,
                                 ("--fold-parallel", "True"))):
@@ -176,9 +234,8 @@ def main(argv=None) -> int:
         coordinator = f"127.0.0.1:{_free_port()}"
         wall_one = _run([_argv(args, data, one, folds, extra)], args.timeout)
         wall_many = _run([
-            _argv(args, data, many, folds,
-                  (*extra, "--dist-coordinator", coordinator,
-                   "--dist-procs", str(args.ranks), "--dist-proc-id", str(i)))
+            _rank_argv(args, data, many, folds, (*extra, *space),
+                       coordinator, i, share)
             for i in range(args.ranks)], args.timeout)
         res = _compare(one, many, range(1, folds + 1))
         res.update(wall_s_one=wall_one, wall_s_ranks=wall_many,

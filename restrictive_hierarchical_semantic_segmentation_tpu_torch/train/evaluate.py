@@ -38,6 +38,16 @@ them and is the only one to print and write ``metrics.csv`` and PNGs; every
 rank of the group returns its result. Ranks outside the group idle: they
 build nothing, enter no collective of the group and return None. With one
 rank everything is as without a process group.
+
+The space axis (JAX ``train/evaluate.py:160-162``: ``cfg.n_space``): the
+ranks form a ``(data, space)`` mesh, ``n_data`` the largest divisor of the
+batch that is at most the world size over ``n_space``. Each rank runs the
+forward on its band of rows of its data rows (``parallel/bands.py``); the
+eval step adds the confusion matrices over the space group and gathers
+the maps to the whole height, before the data group's gather. The step
+group's first rank writes. ``quantize`` takes whole images: the int8
+convolutions replace the convs' ``forward``, which the bands do not call,
+so it raises with ``n_space`` above 1.
 """
 from __future__ import annotations
 
@@ -58,7 +68,8 @@ from ..data.png import encode_png_gray8
 from ..hierarchy.tree import ClassTree
 from ..metrics.segmentation import MetricAccumulator, level_confusion_matrices
 from ..models.hierarchical import SegmenterOutput, build_model
-from ..parallel.mesh import DATA_AXIS, make_mesh, single, world
+from ..parallel.bands import band, check_bands, set_space_group
+from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, make_mesh, single, world
 from ..utils.device import float32_convs as _float32_convs
 from ..utils.device import resolve_device
 from .torch_import import load_model_weights
@@ -138,14 +149,25 @@ class Evaluator:
         # run's.
         self.batch = max(1, cfg.val_batch)
         self.inflight = max(1, cfg.eval_inflight)
-        self.data = self._data_group(mesh)
-        if self.data is None:  # idle in the data mesh
+        groups = self._groups(mesh)
+        if groups is None:  # idle in the mesh
+            self.data = None
             self.is_main = False
             return
-        self.is_main = self.data.is_main
+        self.data, self.space, self.step_group = groups
+        self.is_main = self.step_group.is_main
         n = self.data.size
         per = self.batch // n
         self.rows = slice(self.data.index * per, (self.data.index + 1) * per)
+        self.band = slice(None)
+        if self.space.size > 1:
+            if cfg.quantize:
+                raise NotImplementedError(
+                    "quantize with n_space above 1: the int8 convolutions "
+                    "take whole images (train/quantize.py)")
+            check_bands(cfg.img_size, self.space.size)
+            self.band = slice(*band(cfg.img_size, self.space.size,
+                                    self.space.index))
 
         imgs, labs = list_pairs(data_root)
         self.target_paths = labs
@@ -164,8 +186,8 @@ class Evaluator:
         if self.is_main:
             print("Number of model parameters: ", n_params)  # :259
         load_model_weights(model, weights_path, cfg.model_select)
-        self.model = model.eval().to(self.device,
-                                     memory_format=torch.channels_last)
+        self.model = set_space_group(model.eval().to(
+            self.device, memory_format=torch.channels_last), self.space)
         self.num_classes_per_level = list(tree.classes_per_level)
 
         # the data before the eval step: quantization calibrates on its
@@ -194,19 +216,21 @@ class Evaluator:
         self.eval_step = make_eval_step(
             self.model, tree, hier, return_outputs=self._need_outputs,
             per_image_metrics=True, compute_dtype=cfg.compute_dtype,
-            apply_fn=apply_fn,
+            apply_fn=apply_fn, space=self.space,
         )
 
-    def _data_group(self, mesh):
-        """This rank's data group (module docstring), or None for a rank
-        the mesh leaves idle."""
+    def _groups(self, mesh):
+        """This rank's (data, space, step) groups (module docstring), or
+        None for a rank the mesh leaves idle."""
+        n_space = self.cfg.n_space
         if mesh is None:
             _, size = world()
-            if size == 1:
-                return single()
-            n_data = max(d for d in range(1, size + 1)
-                         if self.batch % d == 0)
-            mesh = make_mesh(n_data=n_data)  # every rank makes its groups
+            if size == 1 and n_space == 1:
+                return single(), single(), single()
+            n_data = max([d for d in range(1, size // n_space + 1)
+                          if self.batch % d == 0] or [1])
+            # every rank makes its groups
+            mesh = make_mesh(n_data=n_data, n_space=n_space)
         n_data = mesh.shape.get(DATA_AXIS, 0)
         if not n_data or self.batch % n_data:
             raise ValueError(
@@ -214,7 +238,9 @@ class Evaluator:
                 f"the batch {self.batch}; got {mesh.shape}")
         if mesh.position() is None:
             return None
-        return mesh.data_group()
+        if mesh.shape.get(SPACE_AXIS, 1) == 1:
+            return mesh.data_group(), single(), mesh.data_group()
+        return mesh.data_group(), mesh.space_group(), mesh.step_group()
 
     def _gather(self, res: dict) -> dict:
         """The group's results of a batch, in image order: each rank's rows
@@ -318,7 +344,8 @@ class Evaluator:
                         img_idx = self._consume(*pending.popleft(), acc,
                                                 img_idx)
                     res = self._gather(self.eval_step(*to_device(
-                        (x[self.rows], y[self.rows]), self.device)))
+                        (x[self.rows][:, self.band],
+                         y[self.rows][:, self.band]), self.device)))
                     if self.is_main:
                         pending.append((res, n_valid, y))
                 while pending:
@@ -330,10 +357,10 @@ class Evaluator:
             out = self._write_csv(acc)
             out["seconds"] = {"total": time.perf_counter() - t0,
                               "loader_wait": wait}
-        if self.data.group is not None:  # the writer's result on every rank
+        if self.step_group.group is not None:  # the writer's, everywhere
             box = [out]
-            dist.broadcast_object_list(box, src=self.data.root,
-                                       group=self.data.group)
+            dist.broadcast_object_list(box, src=self.step_group.root,
+                                       group=self.step_group.group)
             out = box[0]
         return out
 

@@ -9,7 +9,9 @@ program over a ``(fold, data, space)`` mesh. Here the mesh is of ranks
 ``i`` of the mesh owns folds ``[i F / n_fold, (i + 1) F / n_fold)`` and
 trains them in lockstep, each fold a :class:`..train.loop.Trainer` of its
 own (model, optimizer, loaders, plateau scheduler, ``CheckpointManager``)
-that is data-parallel over the group's data axis. On one card every fold is
+that trains over the group's ``(data, space)`` submesh: data-parallel,
+and with ``n_space`` above 1 on bands of rows (``parallel/bands.py``).
+On one card every fold is
 local and the folds take their steps in turn; their compute does not
 overlap (streams or batched folds would be a later speed change).
 
@@ -80,13 +82,13 @@ class FoldParallelTrainer:
         n_fold = self.mesh.shape["fold"]
         pos = self.mesh.position()
         if pos is None:  # an idle rank: no fold of its own
-            self.local, self.data, self.is_main = [], None, False
+            self.local, self.step_group, self.is_main = [], None, False
             self.start_epoch = cfg.epochs + 1
             return
         per = F // n_fold
         self.local = self.fold_ids[pos[0] * per:(pos[0] + 1) * per]
-        self.data = self.mesh.data_group()
-        self.is_main = self.data.is_main
+        self.step_group = self.mesh.step_group()
+        self.is_main = self.step_group.is_main
         resume = self._resume_epoch()
         for f, fold in enumerate(self.local):
             loc = os.path.join(cfg.save_path, f"fold_{fold}")
@@ -96,7 +98,7 @@ class FoldParallelTrainer:
                 fold_cfg, self.tree,
                 os.path.join(cfg.data_root, f"fold_{fold}", "train"),
                 os.path.join(cfg.data_root, f"fold_{fold}", "val"), loc,
-                device=self.device, data_group=self.data,
+                device=self.device, mesh=self.mesh,
                 defer=(lambda state, f=f: self._snap_best(f),
                        self._fetch_best)))
         self.start_epoch = self.trainers[0].start_epoch
@@ -106,7 +108,7 @@ class FoldParallelTrainer:
         """All-or-nothing resume (``_resume_or_init`` of JAX): the epoch every
         local fold's ``last.ckpt`` holds, or None (start fresh; with a
         message when only some folds have one or their epochs differ). The
-        fold group's first rank decides, for every rank of the group."""
+        step group's first rank decides, for every rank of the group."""
         if not self.cfg.auto_resume:
             return None
         epoch = -1.0
@@ -126,9 +128,9 @@ class FoldParallelTrainer:
                          f"{sorted(epochs)}" if all(have) else
                          "not every fold has a last.ckpt")
                       + " — starting fresh")
-        if self.data.group is not None:
+        if self.step_group.group is not None:
             t = torch.tensor([epoch], dtype=torch.float64, device=self.device)
-            dist.broadcast(t, src=self.data.root, group=self.data.group)
+            dist.broadcast(t, src=self.step_group.root, group=self.step_group.group)
             epoch = float(t.item())
         return None if epoch < 0 else int(epoch)
 

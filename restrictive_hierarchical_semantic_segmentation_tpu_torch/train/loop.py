@@ -35,6 +35,16 @@ rate differs from the first rank's raises. Only the first rank writes
 ``metrics.csv``, checkpoints, logs and image dumps, and prints progress
 (``CheckpointManager(write=False)`` on the others).
 
+Spatial sharding (the JAX trainer's ``space`` axis, ``cfg.n_space``): the
+ranks form a ``(data, space)`` mesh (``parallel/mesh.py:make_mesh``), and
+each rank of a space group keeps its band of H of its data rows
+(``parallel/bands.py``; the loaders cut whole augmented images). The
+model runs on the bands (``set_space_group``), BatchNorm and the step's
+reductions span the step group (data x space, ``train/steps.py``).
+Validation runs as JAX runs it (``P(None, space, None, None)``): every
+batch whole on every data rank, H banded over space. The step group's
+first rank writes, and the host's decisions come from it.
+
 ``train`` runs the folds one after another, or all of them in lockstep
 with ``fold_parallel`` (``train/fold_parallel.py``).
 
@@ -67,7 +77,8 @@ from ..hierarchy.tree import ClassTree
 from ..metrics.segmentation import MetricAccumulator
 from ..models.hierarchical import build_model
 from ..models.norm import set_bn_group
-from ..parallel.mesh import DataGroup, make_mesh, single, world
+from ..parallel.bands import band, check_bands, set_space_group
+from ..parallel.mesh import RankMesh, make_mesh, single, world
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.profiling import trace
@@ -96,18 +107,13 @@ def _fold_ids(cfg: RunConfig) -> List[int]:
 
 
 def check_supported(cfg: RunConfig) -> None:
-    """Raise for the JAX trainer's options that the port does not have:
-    grain, which has no counterpart, and spatial sharding (ROADMAP queue
-    1, item 8: out of scope)."""
+    """Raise for the JAX trainer's option that the port does not have:
+    grain, which has no counterpart."""
     if cfg.loader == "grain":
         raise NotImplementedError(
             "--loader grain: grain is a JAX input pipeline with no "
             "counterpart in the PyTorch port; use --loader threads or "
             "process")
-    if cfg.n_space > 1:
-        raise NotImplementedError(
-            "not in the PyTorch port (ROADMAP.md): "
-            f"--n-space {cfg.n_space} (queue 1, item 8)")
 
 
 def list_pairs(root: str) -> Tuple[List[str], List[str]]:
@@ -122,7 +128,8 @@ def list_pairs(root: str) -> Tuple[List[str], List[str]]:
 
 
 def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
-                 val_root: Optional[str], device=None, shard=None):
+                 val_root: Optional[str], device=None, shard=None,
+                 band=None):
     """One fold's (train, val) loaders. With ``cfg.device_data`` the train
     loader is a :class:`DeviceDataset` on ``device`` (``cuda`` unless the
     caller asks for the CPU), which yields tensors already there.
@@ -130,7 +137,9 @@ def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
     (``data/loader.py:shard_rows``); the host train loader yields its rows
     of every batch (a :class:`DeviceDataset` takes them from the caller's
     ``set_sharding``, as the JAX trainer lays out its device set), the
-    validation loader every image."""
+    validation loader every image. ``band``: ``(lo, hi)``, the rows of H
+    this rank of a space group keeps, of both loaders' images (a
+    :class:`DeviceDataset` takes it from ``set_sharding`` too)."""
     check_supported(cfg)
     hier = cfg.hierarchical
     tr_imgs, tr_labs = list_pairs(train_root)
@@ -160,13 +169,13 @@ def make_loaders(cfg: RunConfig, tree: ClassTree, train_root: str,
             SegDataset(tr_imgs, tr_labs, tree, cfg.img_size, hier,
                        augment=True, **ds_kw),
             cfg.batch_size, shuffle=True, drop_last=True, seed=cfg.seed,
-            shard=shard, **loader_kw,
+            shard=shard, band=band, **loader_kw,
         )
     val_loader = BatchLoader(
         SegDataset(va_imgs, va_labs, tree, cfg.img_size, hier,
                    augment=False, **ds_kw),
         cfg.val_batch, shuffle=False, drop_last=False, seed=cfg.seed,
-        **loader_kw,
+        band=band, **loader_kw,
     )
     return train_loader, val_loader
 
@@ -237,35 +246,47 @@ def run_validation(eval_step, val_loader, device, num_classes_per_level,
     }
 
 
-def default_data_group(cfg: RunConfig) -> DataGroup:
-    """The data group of a :class:`Trainer` built without one: every rank
-    of the run (the JAX multi-process trainer's mesh spans every process),
-    or this process alone."""
+def default_mesh(cfg: RunConfig) -> Optional[RankMesh]:
+    """The ``(data, space)`` mesh of a :class:`Trainer` built without one:
+    every rank of the run (the JAX multi-process trainer's mesh spans every
+    process), ``cfg.n_space`` of them on the space axis; None for one
+    process alone."""
     _, size = world()
-    if size == 1:
-        return single()
-    return make_mesh(n_data=size).data_group()
+    if size == 1 and cfg.n_space == 1:
+        return None
+    if size > cfg.n_space and size % cfg.n_space:
+        raise ValueError(f"--n-space {cfg.n_space} does not divide the "
+                         f"{size} ranks of the run")
+    return make_mesh(n_data=max(1, size // cfg.n_space),
+                     n_space=cfg.n_space)
 
 
 class Trainer:
     """One fold's build + epoch machinery, on one device or over the ranks
-    of a data group (module docstring).
+    of a ``(data, space)`` mesh (module docstring).
 
-    ``data_group``: the ranks this fold's batch is split over (default:
-    :func:`default_data_group`). ``defer``: ``(defer_snapshot,
-    defer_fetch)`` for the checkpoint manager's deferred best."""
+    ``mesh``: the mesh whose step group trains this fold (this rank's
+    position in it; default: :func:`default_mesh`). ``self.data``,
+    ``self.space`` and ``self.step_group`` are this rank's data, space
+    and step groups. ``defer``: ``(defer_snapshot, defer_fetch)`` for the
+    checkpoint manager's deferred best."""
 
     def __init__(self, cfg: RunConfig, tree: ClassTree,
                  train_root: str, val_root: Optional[str], save_loc: str,
-                 device=None, data_group: Optional[DataGroup] = None,
+                 device=None, mesh: Optional[RankMesh] = None,
                  defer=None):
         self.cfg = cfg
         self.tree = tree
         self.save_loc = save_loc
         self.device = resolve_device(device)
-        self.data = (default_data_group(cfg) if data_group is None
-                     else data_group)
-        self.is_main = self.data.is_main
+        if mesh is None:
+            mesh = default_mesh(cfg)
+        if mesh is None:
+            self.data = self.space = self.step_group = single()
+        else:
+            self.data, self.space, self.step_group = (
+                mesh.data_group(), mesh.space_group(), mesh.step_group())
+        self.is_main = self.step_group.is_main
         ranks = self.data.size
         if cfg.batch_size % (ranks * cfg.grad_accum):
             raise ValueError(
@@ -308,26 +329,27 @@ class Trainer:
             if self.is_main:
                 print(f"Resumed from {cfg.model_weights}: "
                       f"{self._resume_meta}")
-        group = self.data.group
+        group = self.step_group.group
         if group is not None:
             # every rank starts from the first rank's parameters and
-            # statistics, and its BatchNorms span the group's batch
+            # statistics, and its BatchNorms span the step group's rows
             with torch.no_grad():
                 for t in self.model.state_dict().values():
-                    dist.broadcast(t, src=self.data.root, group=group)
+                    dist.broadcast(t, src=self.step_group.root, group=group)
             set_bn_group(self.model, group)
+        set_space_group(self.model, self.space)
 
         lw = cfg.level_weights
         ohem = (cfg.ohem_thres, cfg.ohem_keep) if cfg.use_ohem else None
         self.train_step = make_train_step(
             self.model, tree, hier, lw, cfg.lambda_cons, cfg.lambda_kl,
             ohem=ohem, grad_accum=cfg.grad_accum,
-            compute_dtype=cfg.compute_dtype, group=group,
+            compute_dtype=cfg.compute_dtype, group=group, space=self.space,
         )
         self.eval_step = make_eval_step(
             self.model, tree, hier, lw, cfg.lambda_cons, cfg.lambda_kl,
             ohem=ohem, return_outputs=cfg.save_images_batch,
-            compute_dtype=cfg.compute_dtype,
+            compute_dtype=cfg.compute_dtype, space=self.space,
         )
         self.scheduler = ReduceLROnPlateau(
             cfg.lr, "max", 0.5, 3, min_lr=cfg.lrs_min
@@ -360,24 +382,28 @@ class Trainer:
         # --- data, last: its worker pools are released by close() ----------
         shard = ((self.data.index, ranks, cfg.grad_accum) if ranks > 1
                  else None)
+        rows = None
+        if self.space.size > 1:
+            check_bands(cfg.img_size, self.space.size)
+            rows = band(cfg.img_size, self.space.size, self.space.index)
         self.train_loader, self.val_loader = make_loaders(
-            cfg, tree, train_root, val_root, device=self.device, shard=shard
-        )
+            cfg, tree, train_root, val_root, device=self.device, shard=shard,
+            band=rows)
         if hasattr(self.train_loader, "set_sharding"):
             # the device-resident set yields this rank's rows at the source
-            self.train_loader.set_sharding(shard)
+            self.train_loader.set_sharding(shard, rows)
 
     def lr(self) -> float:
         return float(self.state.optimizer.param_groups[0]["lr"])
 
     def agree(self, values: List[float]) -> List[float]:
-        """The data group's first rank's ``values`` on every rank of the
+        """The step group's first rank's ``values`` on every rank of the
         group (a broadcast; the values themselves on one rank): every host
         decision is taken from them."""
-        if self.data.group is None:
+        if self.step_group.group is None:
             return [float(v) for v in values]
         t = torch.tensor(values, dtype=torch.float64, device=self.device)
-        dist.broadcast(t, src=self.data.root, group=self.data.group)
+        dist.broadcast(t, src=self.step_group.root, group=self.step_group.group)
         return t.tolist()
 
     def _check_finite(self, loss_val: float, epoch: int, step_idx: int,
@@ -511,8 +537,8 @@ class Trainer:
                                           va["measure_std"], self.lr()])
         if lr != self.lr():
             raise RuntimeError(
-                f"learning rate {self.lr()} on rank {self.data.rank} "
-                f"differs from {lr} on rank {self.data.root}")
+                f"learning rate {self.lr()} on rank {self.step_group.rank} "
+                f"differs from {lr} on rank {self.step_group.root}")
         if self.scheduler:
             self.scheduler.step(mean)
         sched_meta = (

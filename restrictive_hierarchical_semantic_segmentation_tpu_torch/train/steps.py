@@ -27,6 +27,20 @@ step's aux is reduced too (one all-reduce): loss and per-level losses are
 means over the group, confusion matrices sums, so every rank sees the
 global step's numbers. Gradient accumulation keeps its meaning: each rank
 holds its share of every microbatch (``data/loader.py:shard_rows``).
+
+Spatial sharding (``space``: the space group of a ``(data, space)`` mesh,
+whose ranks hold bands of rows of the same images, ``parallel/bands.py``;
+``group`` is then the step group, data x space): the model runs on the
+bands (``parallel/bands.py:set_space_group``, set by the caller), the loss
+spans them (``losses/hierarchical.py``), so every rank of a space group
+computes the same loss, its data shard's, and the gradients are summed
+over the step group and divided by its size: the mean over the data
+shards of each shard's gradient (the loss's sums give every band the
+gradient of every rank's use of them). Loss and per-level losses are then
+means over the step group, confusion matrices sums, as on the data axis.
+The eval step runs on bands too: its loss spans them, its confusion
+matrices are added over the space group and its outputs gathered to the
+whole height.
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ from ..hierarchy.tree import ClassTree
 from ..losses.hierarchical import hierarchical_loss
 from ..metrics.segmentation import level_confusion_matrices
 from ..models.norm import BN_MOMENTUM, BatchNormAct
+from ..parallel.bands import active, gather_bands, global_height
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "split_targets",
@@ -110,9 +125,10 @@ class TrainStep:
                  lambda_kl: float = 0.0, dice_smooth: float = 0.0,
                  ohem=None, compute_metrics: bool = True,
                  grad_accum: int = 1, compute_dtype: str = "float32",
-                 group=None):
+                 group=None, space=None):
         self.model = model
         self.group = group
+        self.space = active(space)
         self.ranks = 1 if group is None else dist.get_world_size(group)
         self.tree = tree
         self.hierarchical = hierarchical
@@ -143,7 +159,8 @@ class TrainStep:
             out.logits_per_level, tgt,
             probs_per_level=out.probs_per_level, q_per_level=out.q_per_level,
             tree=self.tree if self.hierarchical else None,
-            level_mask=level_mask, group=self.group, **self.loss_kw)
+            level_mask=level_mask, group=self.group, space=self.space,
+            **self.loss_kw)
         total.backward()
         if old is not None:
             with torch.no_grad():
@@ -151,7 +168,7 @@ class TrainStep:
                                         self.bn_d)
                 torch._foreach_copy_(self.buffers, new)
         confmats = None
-        if self.compute_metrics:
+        if self.compute_metrics:  # this rank's pixels (_reduce_aux adds)
             with torch.no_grad():
                 confmats = level_confusion_matrices(
                     [z.detach() for z in out.logits_per_level], tgt)
@@ -232,6 +249,15 @@ class TrainStep:
         return reduced
 
 
+def _sum_over(mats: List[torch.Tensor], space) -> List[torch.Tensor]:
+    """Confusion matrices added over the ranks of ``space`` (one
+    all-reduce)."""
+    flat = torch.cat([m.reshape(-1) for m in mats])
+    dist.all_reduce(flat, group=space.group)
+    return [v.view(m.shape) for v, m in
+            zip(flat.split([m.numel() for m in mats]), mats)]
+
+
 def _buckets(params, most_bytes: int) -> List[list]:
     """``params`` in order, cut into runs of at most ``most_bytes`` of
     gradient (a larger tensor alone)."""
@@ -254,18 +280,19 @@ def make_train_step(model, tree: ClassTree, hierarchical: bool,
                     dice_smooth: float = 0.0, ohem=None,
                     compute_metrics: bool = True, grad_accum: int = 1,
                     compute_dtype: str = "float32",
-                    group=None) -> TrainStep:
+                    group=None, space=None) -> TrainStep:
     """The train step of ``model`` (see :class:`TrainStep`).
 
     ``grad_accum = A`` takes one optimizer step from A sequential
     microbatches: the gradient is their mean, each microbatch normalizes
     with its own BN statistics and updates the running buffers in turn,
     loss and per-level losses are microbatch means and confusion matrices
-    sum. ``group``: the data-parallel process group (module docstring);
-    None on one rank."""
+    sum. ``group``: the process group of the data (x space) ranks
+    (module docstring); None on one rank. ``space``: the space group's
+    :class:`..parallel.mesh.DataGroup` (None without bands)."""
     return TrainStep(model, tree, hierarchical, level_weights, lambda_cons,
                      lambda_kl, dice_smooth, ohem, compute_metrics,
-                     grad_accum, compute_dtype, group)
+                     grad_accum, compute_dtype, group, space)
 
 
 def make_eval_step(model, tree: ClassTree, hierarchical: bool,
@@ -275,7 +302,8 @@ def make_eval_step(model, tree: ClassTree, hierarchical: bool,
                    return_outputs: bool = False,
                    per_image_metrics: bool = False,
                    compute_dtype: str = "float32",
-                   apply_fn: Optional[Callable] = None) -> Callable:
+                   apply_fn: Optional[Callable] = None,
+                   space=None) -> Callable:
     """``eval_step(images, targets) -> {loss, per_level, confmats[,
     outputs]}`` with the running BN statistics (the model in eval mode for
     the call). ``per_image_metrics`` gives (B, C', C') confusion matrices;
@@ -283,9 +311,14 @@ def make_eval_step(model, tree: ClassTree, hierarchical: bool,
 
     ``apply_fn(images) -> SegmenterOutput`` stands in for ``model(images)``
     (the test-time augmentation of ``train/evaluate.py:tta_apply``); it runs
-    inside the same eval mode, inference mode and autocast."""
+    inside the same eval mode, inference mode and autocast.
+
+    ``space``: the space group whose bands of rows ``images`` and
+    ``targets`` are (module docstring); the confusion matrices and the
+    outputs come back whole on every rank of it."""
     dtype = _compute_dtype(compute_dtype)
     forward = apply_fn or model
+    space = active(space)
 
     def step(images, targets):
         was_training = model.training
@@ -303,12 +336,20 @@ def make_eval_step(model, tree: ClassTree, hierarchical: bool,
                     q_per_level=out.q_per_level,
                     tree=tree if hierarchical else None,
                     lambda_cons=lambda_cons, lambda_kl=lambda_kl,
-                    dice_smooth=dice_smooth, ohem=ohem)
+                    dice_smooth=dice_smooth, ohem=ohem, space=space)
                 scores = list(out.logits_per_level)
+                confmats = level_confusion_matrices(
+                    scores, tgt, per_image=per_image_metrics)
+                if space is not None:
+                    confmats = _sum_over(confmats, space)
                 res = {"loss": total, "per_level": per_level,
-                       "confmats": level_confusion_matrices(
-                           scores, tgt, per_image=per_image_metrics)}
+                       "confmats": confmats}
                 if return_outputs:
+                    if space is not None:
+                        h = global_height(images.shape[1], space,
+                                          images.device)
+                        scores = [gather_bands(z, h, space, dim=1)
+                                  for z in scores]
                     res["outputs"] = scores
         finally:
             model.train(was_training)

@@ -12,8 +12,10 @@ entries of kernels 1 and 3 for a data-parallel group (bit for bit to the
 fused launches, each against its plain version; two gloo ranks sharing
 the card), ``--remat`` on the card (bit for bit to remat False, the
 recompute's launches, no forward convolution recomputed in "conv"
-mode), and the fold-mesh Predictor and data-mesh Evaluator over two gloo
-ranks sharing the card against one process. Marked
+mode), the fold-mesh Predictor and data-mesh Evaluator over two gloo
+ranks sharing the card against one process, and the space axis: kernels
+1-3 at band shapes, and a banded forward over two gloo ranks sharing the
+card against one process. Marked
 ``cuda``; every test skips where torch sees no CUDA device. Imports no jax,
 so it runs on a machine without it:
 
@@ -296,6 +298,10 @@ SPLIT_SHAPES = [(16, 352, 352, 64), (16, 155, 155, 48), (2, 155, 155, 720),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SPLIT_SHAPES)
 def test_split_stats_equal_the_fused_kernel(cuda, shape, dtype):
+    _split_stats_ok(cuda, shape, dtype)
+
+
+def _split_stats_ok(cuda, shape, dtype):
     x = _train_inputs(shape, dtype, cuda, seed=4)[0]
     c = shape[-1]
     mean, var = fba.bn_stats(x)
@@ -320,6 +326,10 @@ def test_split_stats_equal_the_fused_kernel(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SPLIT_SHAPES)
 def test_split_backward_equals_the_fused_kernel(cuda, shape, dtype, act):
+    _split_backward_ok(cuda, shape, dtype, act)
+
+
+def _split_backward_ok(cuda, shape, dtype, act):
     x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=6)
     c = shape[-1]
     dx, dgamma, dbeta = fba.bn_act_backward(x, grad, *vecs, act)
@@ -342,6 +352,71 @@ def test_split_backward_equals_the_fused_kernel(cuda, shape, dtype, act):
     rdx = fba._bn_backward_dx_ref(x.reshape(-1, c), grad.reshape(-1, c),
                                   *vecs, sums, act)
     _dx_ok(dx2, rdx.reshape(shape))
+
+
+# a rank's rows of the space axis (``parallel/bands.py``) over two space
+# ranks: W48 at 620 px (the stem's 310 rows as 155, 155 as 78 / 77, the
+# branches' 78, 39 as 20 / 19 and 20; the head's 720 channels) and the UNet
+# at 352 px (176 rows, and 22 as 11)
+BAND_SHAPES = [((16, 155, 310, 64), torch.bfloat16),
+               ((16, 77, 155, 64), torch.bfloat16),
+               ((16, 39, 78, 96), torch.bfloat16),
+               ((16, 19, 39, 192), torch.bfloat16),
+               ((16, 10, 20, 384), torch.bfloat16),
+               ((16, 78, 155, 720), torch.bfloat16),
+               ((16, 176, 352, 64), torch.float32),
+               ((16, 11, 22, 512), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", BAND_SHAPES)
+def test_kernels_at_band_shapes(cuda, shape, dtype):
+    """Kernels 1-3 at the band shapes of the space axis: the split entries
+    bit for bit to the fused launches and each against its plain version,
+    kernel 2 bit for bit to its plain version."""
+    _split_stats_ok(cuda, shape, dtype)
+    for act in ("none", "relu"):
+        _split_backward_ok(cuda, shape, dtype, act)
+    x = _train_inputs(shape, dtype, cuda, seed=9)[0]
+    scale = torch.rand(shape[-1], device=cuda) + 0.5
+    shift = torch.randn(shape[-1], device=cuda)
+    y = fba.fused_scale_bias_act(x, scale, shift, "relu")
+    assert torch.equal(y, fba._scale_bias_act_ref(x, scale, shift, "relu"))
+
+
+def test_space_ranks_on_one_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card at ``n_space`` 2: the base-width-8
+    UNet's forward on bands (rows exchanged through host memory) in eval
+    and train mode against one process on the card, f32 without TF32;
+    each rank launched the split entries, never the fused kernels 1 and
+    3."""
+    import copy
+
+    import numpy as np
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.utils.device import (
+        float32_convs,
+    )
+    from torch_dist_common import build_small, run_ranks
+    from torch_space_common import forward_job
+
+    torch.manual_seed(5)
+    model = build_small("unet")
+    sd = copy.deepcopy(model.state_dict())
+    x = np.random.default_rng(0).standard_normal(
+        (2, 36, 32, 3)).astype(np.float32)
+    ranks = run_ranks(forward_job, 2, tmp_path, "unet", sd, x, "cuda:0")
+    model = model.to(cuda, memory_format=torch.channels_last)
+    for train in (False, True):
+        with torch.no_grad(), float32_convs(True):
+            want = model.train(train)(torch.from_numpy(x).to(cuda))
+        for L, z in enumerate(want.logits_per_level):
+            got = torch.cat([r[train][0][L] for r in ranks], dim=1)
+            torch.testing.assert_close(got, z.cpu(), rtol=0,
+                                       atol=1e-5 * float(z.abs().max()))
+    for r in ranks:  # the train forward: the sums entry; both: kernel 2
+        n = r["launches"]
+        assert n["bn_stats_sums"] == 18 and n["scale_bias_act"] == 36, n
+        assert n["bn_stats"] == n["bn_backward"] == 0, n
 
 
 def test_bn_over_two_ranks_on_one_card(cuda, tmp_path):

@@ -4,7 +4,7 @@ held to one process on the concatenated batch and to the JAX package.
 
 * the rank mesh (``parallel/mesh.py``): ``make_fold_mesh`` sizes its axes as
   the JAX function does for the same inputs over 8, 4 and 1 ranks and
-  prints the same idle line; ``n_space`` above 1 raises;
+  prints the same idle line (its space axis: ``test_torch_space.py``);
 * BatchNorm over a group of two ranks (``models/norm.py:set_bn_group``:
   the split kernels' plain versions and the all-reduces between them)
   against one process on the concatenated input: outputs, input gradients,
@@ -169,13 +169,6 @@ def test_fold_mesh_cases_of_the_jax_tests():
     m = make_fold_mesh(6, 8, ranks=ranks)
     assert 6 % m.shape[FOLD_AXIS] == 0
     assert m.shape[FOLD_AXIS] * m.shape[DATA_AXIS] <= 8
-
-
-def test_space_axis_raises_naming_item_8():
-    for call in (lambda: make_fold_mesh(2, 4, n_space=2, ranks=range(8)),
-                 lambda: make_mesh(2, n_space=2, ranks=range(8))):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
 
 
 def test_mesh_positions_and_groups_without_a_process_group():

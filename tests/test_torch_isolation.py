@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it (and its serve, train,
 predict_eval, export and agreement CLIs, its exporter, its donor importer,
 its device-resident training set, its native sample factory, its rank mesh,
-its fold-parallel trainer, its profiling hooks and its rematerialization)
+its fold-parallel trainer, its profiling hooks, its rematerialization and
+the bands of its space axis)
 pulls in neither jax nor any module of the JAX package, and the train and
 offline-eval paths load no cv2, sklearn, orbax or tensorflow (the card's
 machine has none of them); no source file of the port imports them at
@@ -127,6 +128,20 @@ def test_scale_out_modules_import_no_jax():
     for name in ("parallel.mesh", "train.fold_parallel",
                  "tools.multirank_check", "utils.profiling",
                  "models.remat"):
+        assert f"{PORT}.{name}" in mods
+    assert [m for m in mods if _forbidden_on_train_path(m)] == []
+
+
+def test_space_axis_modules_import_no_jax():
+    """The bands of the space axis (``parallel/bands.py``) and the modules
+    that run on them: no jax, no JAX package, nothing the card's machine
+    lacks."""
+    mods = _modules_after(f"import {PORT}.parallel.bands\n"
+                          f"import {PORT}.models.backbones.hrnet\n"
+                          f"import {PORT}.models.backbones.unet\n"
+                          f"import {PORT}.models.film, {PORT}.ops.resize")
+    for name in ("parallel.bands", "parallel.mesh", "models.film",
+                 "models.backbones.hrnet", "models.backbones.unet"):
         assert f"{PORT}.{name}" in mods
     assert [m for m in mods if _forbidden_on_train_path(m)] == []
 

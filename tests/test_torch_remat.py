@@ -52,6 +52,26 @@ from torch_train_common import LEVEL_WEIGHTS, LR, Pair, batch
 
 MODES = ["module", "conv"]
 N_BN = {"unet": 18}
+STEADY_THREADS = 4
+
+
+@pytest.fixture(autouse=True)
+def steady_threads():
+    """A fixed intra-op thread count and deterministic algorithms for each
+    test, the settings restored after. Until ``torch.set_num_threads`` is
+    called, MKL runs with its dynamic threading on (PyTorch turns it off
+    only in ``set_num_threads``) and may pick fewer threads under load, so
+    two steps of one process could add their sums in other orders; the
+    bit-for-bit comparisons need the same threads in both steps."""
+    saved = (torch.get_num_threads(),
+             torch.are_deterministic_algorithms_enabled())
+    torch.set_num_threads(min(STEADY_THREADS, saved[0]))
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved[0])
+        torch.use_deterministic_algorithms(saved[1])
 
 
 def _step(donor, mode, sd, x, y):

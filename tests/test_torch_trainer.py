@@ -9,10 +9,10 @@ Held: two folds train and dump prediction images (``tests/test_e2e.py``);
 (``tests/test_resume.py``); the same seed writes a byte-identical
 metrics.csv; the ``Predictor`` and the serve CLI read the trainer's
 ``best.ckpt``; the CLI has every flag of the JAX CLI with its default and
-choices, and refuses grain and spatial sharding (``--n-space`` above 1,
-also beside ``--fold-parallel``, which trains:
+choices, and refuses grain (``--fold-parallel`` trains:
 ``tests/test_torch_fold_parallel.py``, as ``--dist-coordinator`` does:
-``tests/test_torch_distributed.py``; donor ``.pth`` weights are read:
+``tests/test_torch_distributed.py`` and ``--n-space`` above 1:
+``tests/test_torch_space_trainer.py``; donor ``.pth`` weights are read:
 ``tests/test_torch_donor_import.py``); ``--remat True|module|conv`` and
 ``--profile-dir`` train (also beside ``--dist-coordinator``) and write the
 same metrics.csv as the run without them, ``--profile-dir`` one trace
@@ -234,9 +234,6 @@ def test_cli_has_every_jax_flag_with_its_default():
 @pytest.mark.parametrize("flags,item", [
     (["--loader", "grain"], "grain is a JAX input pipeline with no "
                             "counterpart"),
-    (["--fold-parallel", "True", "--folds", "2", "--n-space", "2"],
-     "item 8"),
-    (["--n-space", "2"], "item 8"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, assets_dir, flags, item):
     with pytest.raises(NotImplementedError, match=item):
