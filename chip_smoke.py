@@ -4424,14 +4424,67 @@ SPACE_LOSS1 = {"bfloat16": 1e-3, "float32": 1e-4}
 SPACE_IMAGES = 16  # multirank_check: one step of 16 per epoch, 4 validate
 SPACE_ZERO_GRAD = 5e-5  # tests/torch_train_common.py:ZERO_GRAD_TOL
 # the UNet's f32 step-1 gradients on two ranks against one process, per
-# tensor max |err| over max |g|: each weight gradient sums about 2 M terms
-# (16 x 352 x 352 pixels) in f32, and cuDNN takes other algorithms for a
-# band of 176 rows than for the whole image, so they round apart by far
-# more than phase 6's 128 px step (the first card run read median 4.6e-4,
-# p90 1.7e-3, max 6.8e-3); the phase prints, beside them, one process
-# against itself under deterministic cuDNN algorithms, and holds the
-# parameters after AdamW on phase 19's significant-update criterion
+# tensor max |err| over max |g|, with the parameters after AdamW on phase
+# 19's significant-update criterion. Each weight gradient sums about 2 M
+# terms (16 x 352 x 352 pixels) in f32, from seeded weights whose first
+# steps amplify rounding (phase 6). The phase prints both sides against
+# the same step in float64 and plants a fault (halo_grads_dropped) that
+# the bounds must catch; they sit between the two readings (PERF.md)
 SPACE_GRAD = {"median": 2e-3, "p90": 1e-2, "max": PARITY_GRAD_MAX}
+
+
+@contextlib.contextmanager
+def plain_float64():
+    """Kernels 1-3 take f32 and bf16: inside, a float64 tensor on the card
+    goes through their plain versions (phase 21's float64 reference),
+    every other tensor as before."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    real = fba._device_of
+    fba._device_of = lambda x, what: (
+        "cpu" if x.dtype == torch.float64 else real(x, what))
+    try:
+        yield
+    finally:
+        fba._device_of = real
+
+
+@contextlib.contextmanager
+def halo_grads_dropped():
+    """A planted fault, the witness that phase 21's gradient bounds catch
+    a broken halo backward: every fetched row's gradient that belongs to
+    another rank is lost on its way back (the rows that
+    ``bands._return_rows`` receives are zeroed). The exchange still runs,
+    so the ranks stay in step."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel \
+        import bands
+
+    ret, exchange = bands._return_rows, bands._exchange
+
+    def zeroed(*a):
+        return {j: t.zero_() for j, t in exchange(*a).items()}
+
+    def dropped(*a):
+        bands._exchange = zeroed
+        try:
+            return ret(*a)
+        finally:
+            bands._exchange = exchange
+
+    bands._return_rows = dropped
+    try:
+        yield
+    finally:
+        bands._return_rows = ret
+
+
+def _space_grads_held(g: dict, sig_bad: float) -> bool:
+    """Phase 21's f32 gradient gate: ``SPACE_GRAD`` and the significant-
+    update criterion (phase 19's ``DP_SIG_BAD``)."""
+    return all(g[k] <= v for k, v in SPACE_GRAD.items()) and \
+        sig_bad < DP_SIG_BAD
 
 
 def _grad_errors(got: dict, want: dict) -> dict:
@@ -4482,7 +4535,9 @@ def space_steps(rank: int, world: int, paths: dict, plan,
     ``(data 1, space world)`` mesh of every rank (one process: the whole
     images). Per step: host ms, peak device memory, the launches of every
     kernel entry (counts 0 just before, read just after) and the halo
-    exchanges; step 1's BN shapes and, in f32, its gradients."""
+    exchanges; step 1's BN shapes and, in f32 or float64 (the model and
+    batch in float64, under :func:`plain_float64` on the card), its
+    gradients and parameters."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
         .tree import ClassTree
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
@@ -4512,26 +4567,28 @@ def space_steps(rank: int, world: int, paths: dict, plan,
         for ms, dtype, steps in plan:
             name = MODELS[ms]["name"]
             sd_path, batch_path = paths[name]
+            wide = torch.float64 if dtype == "float64" else None
             model = build_model(tree, ms, 1)
             model.load_state_dict(torch.load(sd_path), strict=True)
-            model = model.to(device, memory_format=torch.channels_last)
+            model = model.to(device, memory_format=torch.channels_last,
+                             dtype=wide)
             bands.set_space_group(model, space)
             set_bn_group(model.train(), group)
             state = create_train_state(model, TRAIN_LR)
             step = make_train_step(model, tree, True,
                                    level_weights=LEVEL_WEIGHTS,
-                                   compute_dtype=dtype, group=group,
-                                   space=space)
+                                   compute_dtype="float32" if wide
+                                   else dtype, group=group, space=space)
             x, y = torch.load(batch_path)
             if space is not None:
                 rows = slice(*bands.band(x.shape[1], world, space.index))
                 x, y = x[:, rows].contiguous(), y[:, rows].contiguous()
-            x, y = x.to(device), y.to(device)
+            x, y = x.to(device, dtype=wide), y.to(device)
             mask = torch.ones(tree.num_levels, device=device)
             shapes, remove = _bn_shape_recorder(model)
             out = {"loss": [], "per_level": [], "counts": [], "ms": [],
                    "peak_bytes": [], "exchanges": [], "rows": x.shape[1]}
-            with float32_convs(dtype == "float32" and x.is_cuda):
+            with float32_convs(dtype != "bfloat16" and x.is_cuda):
                 for i in range(steps):
                     set_counts_to_zero()
                     bands.EXCHANGES.update(fetches=0, bytes_sent=0)
@@ -4552,7 +4609,7 @@ def space_steps(rank: int, world: int, paths: dict, plan,
                     if i == 0:
                         remove()
                         out["shapes"] = dict(shapes)
-                        if dtype == "float32":
+                        if dtype != "bfloat16":
                             out["grads1"] = {
                                 n: p.grad.detach().cpu().clone()
                                 for n, p in model.named_parameters()}
@@ -4595,11 +4652,16 @@ def _space_eval(where: str, n_space: int, device: str) -> dict:
 def space_rank_job(rank: int, world: int, paths: dict, plan,
                    device: str = "cuda") -> dict:
     """One rank of phase 21 (a, b, d), the card shared with the other rank
-    over gloo: :func:`space_steps` of ``plan``, then the Evaluator over
+    over gloo: :func:`space_steps` of ``plan``; the f32 models' first step
+    again under :func:`halo_grads_dropped`; then the Evaluator over
     ``(data 1, space world)`` into ``SPACE_ROOT/eval/rank{rank}``."""
     steps = space_steps(rank, world, paths, plan, device=device)
+    with halo_grads_dropped():
+        fault = space_steps(rank, world, paths,
+                            [(ms, d, 1) for ms, d, _ in plan
+                             if d == "float32"], device=device)
     ev = _space_eval(f"{SPACE_ROOT}/eval/rank{rank}", world, device)
-    return {"steps": steps, "eval": ev}
+    return {"steps": steps, "fault": fault, "eval": ev}
 
 
 def phase_space(card: str, device: str = "cuda") -> dict:
@@ -4610,19 +4672,22 @@ def phase_space(card: str, device: str = "cuda") -> dict:
     activation.
 
     (a) W48 at 620 px, batch 16, bf16 (the JAX bench.py recipe), 2 steps a
-        rank from seeded weights: step ms, peak memory and the launches of
-        the sums, kernel-2, reduce and dx entries per rank; step 1's loss
-        against one process's at the same batch (``SPACE_LOSS1``), whose
-        peak memory is measured beside;
+        rank from seeded weights, and 2 in one process: step ms (step 2
+        against step 2), peak memory and the launches of the sums,
+        kernel-2, reduce and dx entries per rank; step 1's loss against
+        one process's (``SPACE_LOSS1``);
     (b) the UNet at 352 px, batch 16, f32 (TF32 off): the same, step 1's
-        gradients against one process's (``SPACE_GRAD``, printed beside
-        one process against itself under deterministic cuDNN algorithms;
-        the conv biases ahead of a BatchNorm, 0 in exact arithmetic,
-        within ``SPACE_ZERO_GRAD`` of the largest gradient) and the
-        parameters after AdamW on phase 19's significant-update criterion;
+        gradients against one process's (``SPACE_GRAD``; the conv biases
+        ahead of a BatchNorm, 0 in exact arithmetic, within
+        ``SPACE_ZERO_GRAD`` of the largest gradient) and the parameters
+        after AdamW on phase 19's significant-update criterion; both sides
+        against the same step in float64 (:func:`plain_float64`), and the
+        ranks' step with a planted fault (:func:`halo_grads_dropped`),
+        which the same gate must refuse;
     (c) the train CLI at ``--n-space 2`` through
-        ``tools/multirank_check.py`` (both ranks share this card over
-        gloo), against one process: metrics.csv within the tool's bounds;
+        ``tools/multirank_check.py --runs data_axis`` (both ranks share
+        this card over gloo, which the CLI's ``init_distributed`` takes),
+        against one process: metrics.csv within the tool's bounds;
     (d) ``predict_eval`` of phase 13's fold over ``(data 1, space 2)``
         against one process: metrics.csv within ``EVAL_BATCH_ATOL`` and
         the PNGs within ``EVAL_BATCH_PIXELS`` differing pixels (phase 15's
@@ -4630,8 +4695,9 @@ def phase_space(card: str, device: str = "cuda") -> dict:
 
     Every split-entry and kernel-2 launch of (a) and (b) is at a band
     shape; :func:`phase_split_kernels` and :func:`phase_path_kernel_times`
-    hold each such shape to the plain versions. Step ms are on the host
-    clock; two ranks sharing one card is not a scaling number."""
+    hold each such shape of both ranks to the plain versions. Step ms are
+    on the host clock; two ranks sharing one card is not a scaling
+    number."""
     import os
     import shutil
 
@@ -4659,12 +4725,11 @@ def phase_space(card: str, device: str = "cuda") -> dict:
 
     # one process first (its memory freed before the ranks start)
     t0 = time.perf_counter()
-    one = space_steps(0, 1, paths, [(ms, d, 1) for ms, d, _ in SPACE_PLAN],
-                      device)
-    with deterministic_algorithms():  # one process's own rounding spread
-        floor = space_steps(0, 1, paths, [(ms, d, 1) for ms, d, _
-                                          in SPACE_PLAN if d == "float32"],
-                            device)
+    one = space_steps(0, 1, paths, SPACE_PLAN, device)
+    with plain_float64():
+        wide = space_steps(0, 1, paths, [(ms, "float64", 1) for ms, d, _
+                                         in SPACE_PLAN if d == "float32"],
+                           device)
     one_eval = _space_eval(f"{SPACE_ROOT}/eval/one", 1, device)
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4687,9 +4752,9 @@ def phase_space(card: str, device: str = "cuda") -> dict:
                     c["bn_backward_dx"] == c["scale_bias_act"] == n_bn, c
                 assert c["bn_stats"] == c["bn_backward"] == 0, c
             assert sum(r["shapes"].values()) == n_bn, r["shapes"]
-        c = on["counts"][0]
-        assert c["bn_stats"] == c["bn_backward"] == n_bn, c
-        assert all(c[e] == 0 for e in SPLIT_ENTRIES), c
+        for c in on["counts"]:
+            assert c["bn_stats"] == c["bn_backward"] == n_bn, c
+            assert all(c[e] == 0 for e in SPLIT_ENTRIES), c
         assert rk[0]["rows"] + rk[1]["rows"] == MODELS[ms]["img"]
         loss_err = [abs(r["loss"][0] - on["loss"][0]) / abs(on["loss"][0])
                     for r in rk]
@@ -4700,8 +4765,10 @@ def phase_space(card: str, device: str = "cuda") -> dict:
                "one_loss1": on["loss"][0], "loss1_rel_err": loss_err,
                "level1_rel_err": level_err,
                "rank_ms": [r["ms"] for r in rk], "one_ms": on["ms"],
+               # the last (warm) step of each side
+               "last_step_ratio": [r["ms"][-1] / on["ms"][-1] for r in rk],
                "rank_peak_gib": [max(r["peak_bytes"]) / 2 ** 30 for r in rk],
-               "one_peak_gib": on["peak_bytes"][0] / 2 ** 30,
+               "one_peak_gib": max(on["peak_bytes"]) / 2 ** 30,
                "launches": [r["counts"][0] for r in rk],
                "launches_total": {e: sum(c[e] for c in rk[0]["counts"])
                                   for e in SPLIT_ENTRIES
@@ -4711,13 +4778,19 @@ def phase_space(card: str, device: str = "cuda") -> dict:
             row["peak_share"] = [p / row["one_peak_gib"]
                                  for p in row["rank_peak_gib"]]
         if dtype == "float32":
-            row["grads1"] = _grad_errors(rk[0]["grads1"], on["grads1"])
-            row["grads1_floor"] = _grad_errors(floor[name]["grads1"],
-                                               on["grads1"])
             init = torch.load(paths[name][0])
+            init = {n: init[n] for n in on["params1"]}
+            row["grads1"] = _grad_errors(rk[0]["grads1"], on["grads1"])
             row["sig_updates"], row["sig_bad"] = _significant_update(
-                rk[0]["params1"], on["params1"],
-                {n: init[n] for n in on["params1"]}, TRAIN_LR)
+                rk[0]["params1"], on["params1"], init, TRAIN_LR)
+            g64 = wide[name]["grads1"]
+            row["grads1_f64"] = {"one": _grad_errors(on["grads1"], g64),
+                                 "ranks": _grad_errors(rk[0]["grads1"], g64)}
+            fault = ranks[0]["fault"][name]
+            row["fault"] = {
+                "grads1": _grad_errors(fault["grads1"], on["grads1"]),
+                "sig_bad": _significant_update(
+                    fault["params1"], on["params1"], init, TRAIN_LR)[1]}
         log(f"space axis on {card}, {name} ({MODELS[ms]['img']} px, batch "
             f"{TRAIN_BATCH}, {dtype}): {SPACE_RANKS} ranks on one card over "
             f"gloo, bands of {row['rows']} rows, {steps} steps a rank "
@@ -4725,12 +4798,19 @@ def phase_space(card: str, device: str = "cuda") -> dict:
         assert max(loss_err + level_err) <= SPACE_LOSS1[dtype], row
         if dtype == "float32":
             g = row["grads1"]
-            assert all(g[k] <= v for k, v in SPACE_GRAD.items()), g
+            assert _space_grads_held(g, row["sig_bad"]), row
             assert g["zero_grad_max"] <= SPACE_ZERO_GRAD, g
-            assert row["sig_updates"] > 1000 and \
-                row["sig_bad"] < DP_SIG_BAD, row
+            assert row["sig_updates"] > 1000, row
+            assert not _space_grads_held(row["fault"]["grads1"],
+                                         row["fault"]["sig_bad"]), \
+                f"the gate passed a planted halo fault: {row['fault']}"
         out["models"][name] = row
-        shapes[f"{name} band"] = rk[0]["shapes"]
+        # every rank's band shapes (the last band is short)
+        merged = {}
+        for r in rk:
+            for k, n in r["shapes"].items():
+                merged[k] = merged.get(k, 0) + n
+        shapes[f"{name} band"] = merged
     # the band shapes: split entries against the fused kernels and their
     # plain versions (kernels 1 and 3), kernel 2 against its plain version
     out["split"] = phase_split_kernels(torch.device(device), shapes,
@@ -4775,16 +4855,18 @@ def phase_space(card: str, device: str = "cuda") -> dict:
          "segmentation_tpu_torch.tools.multirank_check", "--ranks",
          str(SPACE_RANKS), "--n-space", str(SPACE_RANKS), "--device",
          device, "--images", str(SPACE_IMAGES), "--epochs", "1",
-         "--img-size", str(MODELS[0]["img"]), "--out",
-         f"{SPACE_ROOT}/multirank", "--timeout", "400"],
+         "--img-size", str(MODELS[0]["img"]), "--runs", "data_axis",
+         "--out", f"{SPACE_ROOT}/multirank", "--timeout", "400"],
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     check = json.loads(proc.stdout.strip().splitlines()[-1])
     assert check["ok"] and check["n_space"] == SPACE_RANKS, check
     assert check["cards_shared"] == (device == "cuda"), check
+    assert "data_axis" in check, check
     check["seconds"] = time.perf_counter() - t0
     log(f"space axis on {card}: tools/multirank_check.py --ranks "
-        f"{SPACE_RANKS} --n-space {SPACE_RANKS} (both ranks on the card) "
+        f"{SPACE_RANKS} --n-space {SPACE_RANKS} --runs data_axis (both ranks "
+        "on the card, the CLI's --dist-* entry over gloo) "
         f"({SPACE_IMAGES} images, {MODELS[0]['img']} px, bf16, lr 1e-6, 1 "
         "epoch) against "
         f"one process: {json.dumps(check)}")
@@ -4834,6 +4916,13 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    # wall seconds of each stretch of phases, logged at the end
+    marks, laps = [time.perf_counter()], {}
+
+    def lap(name: str) -> None:
+        marks.append(time.perf_counter())
+        laps[name] = marks[-1] - marks[-2]
+
     t0 = time.perf_counter()
     built = _build.build(_build.SOURCES)
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -4843,6 +4932,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: {'; '.join(sorted(set(regs)))}")
 
+    lap("build")
     cases = phase_kernels(device)
     result, pred16, tree, pngs, sd = phase_slice(device)
     log(f"times on {card}: f32 batch 1 {result['f32_b1_ms']:.2f} ms; "
@@ -4853,6 +4943,7 @@ def main() -> int:
     latencies = phase_serve(pred16, tree, pngs, result["n_bn"])
     del pred16
     torch.cuda.empty_cache()
+    lap("W48 kernels and serving")
 
     parity = phase_train_parity(device, tree, sd)
     train = phase_train(device, tree, sd, result["n_bn"])
@@ -4863,6 +4954,7 @@ def main() -> int:
     ttot = phase_train_kernel_times(device, train["shapes"])
     del sd
     torch.cuda.empty_cache()
+    lap("W48 train")
 
     # the UNet donor, the JAX package's default model
     uimg = MODELS[0]["img"]
@@ -4877,6 +4969,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ucli = phase_serve_cli(uresult["n_bn"])
     torch.cuda.empty_cache()
+    lap("UNet serving")
     # at 96 px, batch 2, the second held batch put the card's f32 gradients
     # 4.2e-4 (median over tensors) from float64, over the 1e-4 limit, with
     # cuDNN and the port's kernels not the cause (PERF.md, Findings): f32 on a
@@ -4892,36 +4985,46 @@ def main() -> int:
     utot = phase_train_kernel_times(device, utrain["shapes"])
     del usd
     torch.cuda.empty_cache()
+    lap("UNet train")
     cli = phase_train_cli(uresult["n_bn"], float(np.mean(utrain["step_ms"])),
                           card)
     torch.cuda.empty_cache()
 
+    lap("train CLI (13)")
     conv = phase_conv_bn(device)
     torch.cuda.empty_cache()
+    lap("conv + BN + ReLU tool (14)")
 
     ev = phase_predict_eval(uresult["n_bn"], card, tf32_defaults)
     torch.cuda.empty_cache()
     epath = phase_path_kernel_times(device, ev["shapes"])
+    lap("predict_eval (15)")
 
     opt = phase_serving_options(card)
     torch.cuda.empty_cache()
+    lap("serving options (16)")
 
     dep = phase_deployment(card)
     torch.cuda.empty_cache()
+    lap("deployment (17)")
 
     data_side = phase_data_side(uresult["n_bn"], card, tf32_defaults, cli)
     torch.cuda.empty_cache()
     dd_launches = data_side["device_data"]["launches"]
+    lap("data side (18)")
 
     scale = phase_scale_out(card, {"W48 step": train["shapes"],
                                    "UNet step": utrain["shapes"]})
     torch.cuda.empty_cache()
+    lap("scale-out (19)")
 
     remat = phase_remat_and_meshes(card)
     torch.cuda.empty_cache()
+    lap("remat and meshes (20)")
 
     space = phase_space(card)
     torch.cuda.empty_cache()
+    lap("space axis (21)")
     w48_conv = remat["remat"]["W48"]["conv"]["launches_per_step"]
     unet_conv = remat["remat"]["UNet"]["conv"]["launches_per_step"]
 
@@ -4955,8 +5058,8 @@ def main() -> int:
                         "one card; space_*: rank 0 of phase 21's two "
                         "space ranks (W48 620 px bf16 and UNet 352 px f32 "
                         "steps, every launch at a band shape), space_ms and "
-                        "its bound over the calls of one W48 step at rank "
-                        "0's band shapes"}
+                        "its bound over the calls of one W48 step of both "
+                        "ranks at their band shapes"}
 
     fused_split = {path: r["times"] for path, r in scale["split"].items()}
 
@@ -5105,6 +5208,8 @@ def main() -> int:
                     "data_side": data_side, "scale_out": scale,
                     "remat_and_meshes": remat, "space": space},
                    default=str))
+    log(f"wall seconds by stretch of phases: {json.dumps(laps)}; in all "
+        f"{marks[-1] - marks[0]:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,9 @@ at the coordinator, before anything touches the card): every rank runs
 this CLI with the same flags, the batch is split over the ranks (one card
 per rank, BatchNorm over the global batch), and the first rank writes
 every file. Each rank takes ``cuda:{LOCAL_RANK or i % device_count}``
-unless ``--device`` names another device; the backend is NCCL on the card
-and gloo on the CPU. The JAX CLI's ``RHSS_PLATFORM``/``RHSS_CPU_DEVICES``
+unless ``--device`` names another device; the backend is NCCL on the
+cards, and gloo on the CPU or where a node's ranks outnumber its cards
+(two ranks sharing ``cuda:0``: NCCL refuses them). The JAX CLI's ``RHSS_PLATFORM``/``RHSS_CPU_DEVICES``
 overrides (JAX's platform and virtual CPU device count) have no
 counterpart: ``--device`` picks the device. ``--remat True|module|conv``
 recomputes the backbone's regions in the backward (``models/remat.py``);
@@ -40,7 +41,7 @@ into DIR, one file per rank that trains (``utils/profiling.py``).
 ``--n-space N`` puts N of the ranks on the mesh's ``space`` axis: each
 holds a band of the rows of every image and activation
 (``parallel/bands.py``), and the world size must be a multiple of N. Two
-ranks on one machine::
+ranks on one machine (on one card they share it over gloo)::
 
     for i in 0 1; do python -m \
       restrictive_hierarchical_semantic_segmentation_tpu_torch.cli.train \

@@ -34,6 +34,7 @@ function here sees one rank.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -270,9 +271,14 @@ def init_distributed(coordinator: Optional[str] = None,
                      backend: Optional[str] = None, device=None) -> None:
     """Join the process group of a multi-process run: call it once per
     process, before anything touches the card. Without a coordinator
-    (``host:port``) it does nothing. ``backend``: ``nccl`` when ``device``
-    (``cuda`` by default) is a CUDA device, else ``gloo``, unless given.
-    On a CUDA device this process's card is made current first."""
+    (``host:port``) it does nothing. ``backend``, unless given: ``nccl``
+    when ``device`` (``cuda`` by default) is a CUDA device and this node
+    has a card for each of its ranks (``LOCAL_WORLD_SIZE``, else all
+    ``num_processes``: one node), else ``gloo``. NCCL refuses two ranks on
+    one device, so ranks that outnumber the cards share them over gloo,
+    which moves CUDA tensors through host memory where it must; the first
+    rank says so. On a CUDA device this process's card is made current
+    first."""
     if not coordinator:
         return
     if num_processes is None or process_id is None or num_processes < 1 \
@@ -284,6 +290,15 @@ def init_distributed(coordinator: Optional[str] = None,
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = "gloo"
+        if dev.type == "cuda":
+            ranks = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+            cards = torch.cuda.device_count()
+            if ranks <= cards:
+                backend = "nccl"
+            elif process_id == 0:
+                print(f"init_distributed: {ranks} ranks share {cards} "
+                      "card(s) on this node: gloo (NCCL takes one rank a "
+                      "card)")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)

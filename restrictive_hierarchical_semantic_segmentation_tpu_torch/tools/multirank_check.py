@@ -2,7 +2,8 @@
 each, against one process, on the same data and seed (counterpart of the
 JAX package's ``tools/multihost_trainer_check.py``).
 
-Two runs, each compared with the same CLI in one process:
+Two runs (``--runs``: both by default), each compared with the same CLI
+in one process:
 
 1. **data axis**: one fold trained by N ranks (``--dist-coordinator
    127.0.0.1:<free port> --dist-procs N --dist-proc-id i``; rank i on
@@ -11,14 +12,13 @@ Two runs, each compared with the same CLI in one process:
 2. **fold-parallel**: two folds with ``--fold-parallel True`` over the same
    N ranks (a ``(fold=2, data=N/2)`` mesh: each fold trained by its group).
 
-``--n-space K`` runs both with ``--n-space K``: the ranks' mesh gets a
+``--n-space K`` runs each with ``--n-space K``: the ranks' mesh gets a
 ``space`` axis of K, each rank holding a band of the rows of every image
 (``parallel/bands.py``; the fold-parallel mesh is then ``make_fold_mesh``'s
 ``(fold, data, space)``). With fewer cards than ranks the ranks share
-the cards (rank i on ``cuda:{i % cards}``) over gloo, since NCCL refuses
-two ranks on one device and the CLI takes gloo only for the CPU: each
-rank starts its process group itself (gloo, ``tcp://`` at the same
-coordinator) and runs the CLI in it without its ``--dist-*`` flags.
+the cards (rank i on ``cuda:{i % cards}``) over gloo, which the CLI's
+``init_distributed`` takes itself there (NCCL refuses two ranks on one
+device).
 
 The recipe is the JAX train CLI's defaults with bf16 compute and
 ``--learning-rate "[1e-6]"``: with updates of about 1e-6 the two sides'
@@ -35,7 +35,8 @@ regime step by step).
 
 Prints one JSON line with each run's wall time and epoch 2's seconds (the
 trainer's host clock) beside the single process's; ranks sharing a card
-are no scaling number. Exits non-zero if a check fails.
+are no scaling number, so there the single process runs beside them
+rather than first. Exits non-zero if a check fails.
 
     python -m restrictive_hierarchical_semantic_segmentation_tpu_torch.tools.multirank_check \\
         --ranks 4                       # four cards
@@ -53,6 +54,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -62,6 +64,9 @@ LOSS_RTOL = 1e-3
 MEASURE_ATOL = 5e-3  # tests/test_torch_trainer_jax.py's metric tolerance
 # the columns held: train loss, val loss, the selection metric
 COLUMNS = ("Train Loss", "Val Loss", "Val Test Measure Mean")
+# each run: its folds and its flags beyond the recipe
+RUNS = {"data_axis": (1, ()),
+        "fold_parallel": (2, ("--fold-parallel", "True"))}
 
 
 def _free_port() -> int:
@@ -70,42 +75,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def gloo_rank() -> None:
-    """One rank sharing a card (module docstring): ``sys.argv[1:4]`` are
-    the coordinator, the world size and the rank, the rest the CLI's
-    flags."""
-    import torch
-    import torch.distributed as dist
-
-    coordinator, world, rank = sys.argv[1], int(sys.argv[2]), \
-        int(sys.argv[3])
-    if torch.cuda.is_available():
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
-                            world_size=world, rank=rank)
-    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli import (
-        train,
-    )
-
-    try:
-        train.main(sys.argv[4:])
-    finally:
-        dist.destroy_process_group()
-
-
 def _rank_argv(args, data: str, save: str, folds: int, extra: tuple,
-               coordinator: str, rank: int, share: bool) -> list:
-    """Rank ``rank``'s command: the CLI with ``--dist-*`` flags, or, where
-    ranks ``share`` the cards, the CLI in a process group of
-    :func:`gloo_rank`."""
-    cli = _argv(args, data, save, folds, extra)
-    if share:
-        return [sys.executable, "-c", "from restrictive_hierarchical_"
-                "semantic_segmentation_tpu_torch.tools.multirank_check "
-                "import gloo_rank; gloo_rank()", coordinator,
-                str(args.ranks), str(rank), *cli[3:]]
-    return cli + ["--dist-coordinator", coordinator, "--dist-procs",
-                  str(args.ranks), "--dist-proc-id", str(rank)]
+               coordinator: str, rank: int) -> list:
+    """Rank ``rank``'s command: the CLI with its ``--dist-*`` flags."""
+    return _argv(args, data, save, folds, extra) + [
+        "--dist-coordinator", coordinator, "--dist-procs", str(args.ranks),
+        "--dist-proc-id", str(rank)]
 
 
 def _argv(args, data: str, save: str, folds: int, extra=()) -> list:
@@ -119,20 +94,31 @@ def _argv(args, data: str, save: str, folds: int, extra=()) -> list:
             "--device", args.device, *extra]
 
 
-
-def _run(cmds: list, timeout: float) -> float:
-    """Run the commands at once; raise if one fails or outlives
-    ``timeout``; every process is ended before this returns."""
+def _run(cmds: list, timeout: float) -> list:
+    """Run the commands at once; return each one's wall seconds; raise if
+    one fails or outlives ``timeout``; every process is ended before this
+    returns."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    outs = []
+    outs, walls = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(i: int) -> None:
+        try:
+            outs[i] = procs[i].communicate(timeout=timeout)[0]
+        except subprocess.TimeoutExpired:
+            outs[i] = f"outlived {timeout} s"
+        walls[i] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=wait, args=(i,))
+             for i in range(len(procs))]
     try:
-        for p in procs:
-            left = max(1.0, timeout - (time.perf_counter() - t0))
-            outs.append(p.communicate(timeout=left)[0])
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
     finally:
         for p in procs:
             if p.poll() is None:
@@ -142,7 +128,7 @@ def _run(cmds: list, timeout: float) -> float:
     if any(codes):
         raise RuntimeError(f"exit codes {codes}:\n" + "\n".join(
             o[-3000:] for o in outs))
-    return time.perf_counter() - t0
+    return walls
 
 
 def _rows(fold_dir: str) -> list:
@@ -199,7 +185,9 @@ def main(argv=None) -> int:
                                                  "multirank_check"))
     p.add_argument("--timeout", type=float, default=600)
     p.add_argument("--n-space", type=int, default=1,
-                   help="the space axis of the ranks' mesh (both runs)")
+                   help="the space axis of the ranks' mesh (every run)")
+    p.add_argument("--runs", nargs="+", choices=RUNS, default=list(RUNS),
+                   help="the runs to check (default: both)")
     args = p.parse_args(argv)
     if args.ranks < 2 or args.ranks % 2:
         p.error("--ranks: an even number of at least 2 (two folds share "
@@ -214,7 +202,7 @@ def main(argv=None) -> int:
             print("multirank_check: torch sees no CUDA device",
                   file=sys.stderr)
             return 2
-        share = torch.cuda.device_count() < args.ranks
+        share = torch.cuda.device_count() < args.ranks  # over gloo
     sys.path.insert(0, REPO)
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.data \
         .synthetic import write_synth_dataset
@@ -223,20 +211,22 @@ def main(argv=None) -> int:
     result = {"ranks": args.ranks, "device": args.device,
               "n_space": args.n_space, "cards_shared": share}
     space = ("--n-space", str(args.n_space))
-    for name, folds, extra in (("data_axis", 1, ()),
-                               ("fold_parallel", 2,
-                                ("--fold-parallel", "True"))):
+    for name in args.runs:
+        folds, extra = RUNS[name]
         data = os.path.join(args.out, name, "data")
         write_synth_dataset(data, args.images, size=max(96, args.img_size),
                             seed=7, folds=folds)
         one = os.path.join(args.out, name, "one")
         many = os.path.join(args.out, name, "ranks")
         coordinator = f"127.0.0.1:{_free_port()}"
-        wall_one = _run([_argv(args, data, one, folds, extra)], args.timeout)
-        wall_many = _run([
-            _rank_argv(args, data, many, folds, (*extra, *space),
-                       coordinator, i, share)
-            for i in range(args.ranks)], args.timeout)
+        ref = _argv(args, data, one, folds, extra)
+        ranks = [_rank_argv(args, data, many, folds, (*extra, *space),
+                            coordinator, i) for i in range(args.ranks)]
+        if share:  # no scaling number either way: the reference beside
+            walls = _run([ref] + ranks, args.timeout)
+        else:
+            walls = _run([ref], args.timeout) + _run(ranks, args.timeout)
+        wall_one, wall_many = walls[0], max(walls[1:])
         res = _compare(one, many, range(1, folds + 1))
         res.update(wall_s_one=wall_one, wall_s_ranks=wall_many,
                    epoch2_s_one=_epoch_s(os.path.join(one, "fold_1")).get(2),

@@ -192,6 +192,35 @@ def test_init_distributed_without_a_coordinator_does_nothing():
                          device="cpu")
 
 
+@pytest.mark.parametrize("device,procs,cards,local,want", [
+    ("cuda", 2, 1, None, "gloo"),  # two ranks share one card
+    ("cuda", 2, 2, None, "nccl"),
+    ("cuda", 4, 2, "2", "nccl"),  # two nodes of two cards
+    ("cuda", 4, 2, None, "gloo"),  # one node: four ranks, two cards
+    ("cpu", 2, 8, None, "gloo"),
+])
+def test_init_distributed_picks_the_backend(monkeypatch, device, procs,
+                                            cards, local, want):
+    """NCCL where this node has a card for each of its ranks, gloo where
+    they share cards (NCCL refuses two ranks on one device) or on the
+    CPU; a backend given is kept."""
+    got = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: got.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local)
+    init_distributed("localhost:1", num_processes=procs, process_id=1,
+                     device=device)
+    init_distributed("localhost:1", num_processes=procs, process_id=1,
+                     backend="mpi", device=device)
+    assert [b for b, _ in got] == [want, "mpi"]
+    assert got[0][1] == {"init_method": "tcp://localhost:1",
+                         "world_size": procs, "rank": 1}
+
+
 def test_rank_device_keeps_an_explicit_device():
     assert pcli.rank_device("cpu", 3) == "cpu"
     assert pcli.rank_device("cuda:1", 0) == "cuda:1"

@@ -330,3 +330,24 @@ def test_multirank_check_on_two_cpu_ranks(tmp_path):
         "--images", "16", "--epochs", "1", "--out", str(tmp_path)]) == 0
     for run in ("data_axis", "fold_parallel"):
         assert (tmp_path / run / "ranks" / "fold_1" / "best.ckpt").is_dir()
+
+
+def test_multirank_check_runs_its_commands_at_once():
+    """The tool's runner (the reference beside ranks that share cards):
+    every command's own wall time, and a failing command raises with its
+    exit code and output."""
+    import sys
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.tools import (
+        multirank_check,
+    )
+
+    walls = multirank_check._run(
+        [[sys.executable, "-c", "pass"],
+         [sys.executable, "-c", "import time; time.sleep(3.0)"]], 60)
+    assert len(walls) == 2 and walls[1] >= 3.0
+    assert walls[0] < walls[1]  # each command's own end, not the last's
+    with pytest.raises(RuntimeError, match=r"exit codes \[0, 3\]"):
+        multirank_check._run(
+            [[sys.executable, "-c", "pass"],
+             [sys.executable, "-c", "import sys; sys.exit(3)"]], 60)
