@@ -3236,6 +3236,27 @@ DP_TOL = {"bfloat16": {"loss1": 1e-3, "loss": 5e-2, "stats1": 2 ** -8},
 DP_SIG_BAD = 0.01
 FP_FOLD_IMAGES = 32    # per fold: 2 steps of 16; write_synth_dataset adds 8
 SPLIT_ENTRIES = ("bn_stats_sums", "bn_backward_reduce", "bn_backward_dx")
+# the kernels line's design of kernel 3's split entries
+SPLIT_DESIGNS = {
+    "bn_backward_reduce":
+        "a plain launch, nothing staged for a phase B: the fused pass's "
+        "blocks and order of adds, 4 rows of bf16 (2 of f32) of x and of g "
+        "in flight in registers a thread, the strips' partials added in "
+        "double in combine_group's order by the blocks that draw the last "
+        "integer tickets, in two levels (each chain of every 16th strip, "
+        "then the 16 chains' tree) (previously the cooperative pass without "
+        "phase B: staging, two grid barriers, the combine spread over the "
+        "grid)",
+    "bn_backward_dx":
+        "a streaming elementwise kernel over the flat array of 8-channel "
+        "units: blocks of a multiple of C / 8 threads (each thread one "
+        "channel vector, every lane busy at C = 48 * 2^k), the coefficients "
+        "formed once per block in shared memory while the first loads fly, "
+        "64 bytes of x and of g in flight per thread, a grid of one round "
+        "per thread capped at one wave, evict-first stores (previously one "
+        "thread per channel vector on a power of 2 of lanes, a grid-stride "
+        "loop over rows, 8 blocks per SM)",
+}
 
 
 def _significant_update(new: dict, ref: dict, old: dict, lr: float):
@@ -3522,12 +3543,34 @@ def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
     return {"times": t, "errs": errs, "entries": rows_out}
 
 
+def _split_shape_line(path, shape, dtype, act, calls, entries) -> dict:
+    """Logs the reduce and dx entries' figures at one (shape, dtype, act)
+    of ``path`` (one call each: ms, bound ms, library ms, the share of the
+    bound reached) and returns them."""
+    row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "act": act, "calls": calls}
+    parts = []
+    for e in ("bn_backward_reduce", "bn_backward_dx"):
+        m = entries[e]
+        share = m["bound_ms"] / m["ms"]
+        row[e] = {"ms": m["ms"], "bound_ms": m["bound_ms"],
+                  "library_ms": m["library_ms"], "share_of_bound": share}
+        parts.append(f"{e} {m['ms']:.5f} ms (bound {m['bound_ms']:.5f}, "
+                     f"{100 * share:.1f} % of it; library "
+                     f"{m['library_ms']:.5f})")
+    log(f"split entries per shape ({path}) {tuple(shape)} {row['dtype']} "
+        f"{act} x{calls}: " + "; ".join(parts))
+    return row
+
+
 def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
                         ) -> dict:
     """:func:`measure_split` at every (shape, dtype, act) of each path's
     train step (``{path: {(shape, dtype, act): calls}}``), summed over the
     step's calls: fused against split ms per step; on ``entries_path`` also
-    each split entry's totals (the kernels line's rows 1 and 3)."""
+    each split entry's totals (the kernels line's rows 1 and 3) and, logged
+    and kept under ``per_shape``, the reduce and dx entries' figures at
+    each shape."""
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
     out = {}
     for path, shapes in shapes_by_path.items():
@@ -3538,6 +3581,7 @@ def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
         entries = {e: dict.fromkeys(("max_abs_err", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bytes"), 0.0)
                    for e in SPLIT_ENTRIES}
+        per_shape = []
         for (shape, dtype, act), n in sorted(shapes.items(),
                                              key=lambda kv: str(kv[0])):
             r = measure_split(shape, dtype, act, gen, device, full)
@@ -3552,10 +3596,14 @@ def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                           "bytes"):
                     tot[k] += n * row[k]
+            if full:
+                per_shape.append(_split_shape_line(path, shape, dtype, act,
+                                                   n, r["entries"]))
         out[path] = {"times": times, "errs": errs, "shapes": len(shapes),
                      "launches": sum(shapes.values())}
         if full:
             out[path]["entries"] = entries
+            out[path]["per_shape"] = per_shape
         log(f"split against fused ({path}, {len(shapes)} shapes, "
             f"{sum(shapes.values())} BN calls, bit for bit at every shape): "
             f"statistics {times['fused_stats']:.4f} ms fused, "
@@ -5035,6 +5083,8 @@ def main() -> int:
         tot = scale["split"]["UNet rank"]["entries"][name]
         band = space["split"]["W48 band"]["entries"][name]
         return {"name": name, "route": "cuda",
+                **({"design": SPLIT_DESIGNS[name]}
+                   if name in SPLIT_DESIGNS else {}),
                 "source": "restrictive_hierarchical_semantic_segmentation_"
                           f"tpu_torch/csrc/{source}",
                 "replaces": replaces,

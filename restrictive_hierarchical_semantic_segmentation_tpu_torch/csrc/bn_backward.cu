@@ -59,26 +59,49 @@
 // A grid that cannot be resident all at once fails the launch (the wrapper
 // raises); it never hangs.
 //
-// Two more entries split the pass for a data-parallel group (global-batch
+// Two more entries split the pass for a group of ranks (global-batch
 // BatchNorm, ops/fused_bn_act.py:SyncFusedBNAct), whose all-reduce of the
-// sums must fall between the sums and dx:
-//  * rhss_bn_backward_reduce: the same cooperative launch without phase B;
-//    besides edz and eydz (f32, the local dbeta and dgamma) it writes the
-//    combine's double sums and n, [Σdy, Σdy·x̂, n], for the all-reduce;
-//  * rhss_bn_backward_dx: dx from those sums added over the group, a plain
-//    elementwise kernel (bn_backward_dx: one thread per 8 channels, a
-//    grid-stride loop over rows; bound: x and g read once, dx written once).
-//    It forms edz / n and eydz / n in double and rounds them once, as the
-//    combine does, and dx with phase B's roundings, so at one rank the split
-//    gives the fused launch's dx, dgamma and dbeta bit for bit.
-// Between the two, x and g are read twice from device memory (5 tensors
-// moved in all, against the fused pass's 3 where they stay on chip).
+// sums must fall between the sums and dx. Each is a plain launch, written
+// for its own work:
+//  * rhss_bn_backward_reduce (bn_backward_reduce): phase A and the combine
+//    without the cooperative launch, the staging or the grid barriers. The
+//    fused pass's blocks and order of adds (its strips and row lanes, the
+//    rows it keeps on chip added last, its tree in the block); each thread
+//    keeps 4 rows of bf16 (2 of f32) of x and of g in flight in registers.
+//    The strips' partials are added in combine_group's order by the blocks
+//    that draw the last integer tickets (bn_reduce.cuh: last_ticket, which
+//    leaves each counter at 0, so a launch captured in a CUDA graph
+//    replays), in two levels: the last block of each of a column group's 16
+//    chains of strips adds that chain, the last of the chains adds their
+//    tree; no block reads more than a chain's partials or the 16 chains'
+//    sums. Out: edz and eydz (f32, the local dbeta and dgamma) and the
+//    double sums and n, [Σdy, Σdy·x̂, n], for the all-reduce. Bound: x and g
+//    read once. What it cannot do: each call keeps a fixed cost of several
+//    microseconds (the launch, the block's tree, two tickets, two rounds
+//    through L2), most of its time at the space axis's band shapes
+//    (PERF.md).
+//  * rhss_bn_backward_dx (bn_backward_dx): dx from those sums added over the
+//    group, a streaming elementwise kernel over the flat array of 8-channel
+//    units in blocks of a multiple of C / 8 threads (each thread keeps one
+//    channel vector): every lane busy where those fill whole warps (C = 48 *
+//    2^k, 64 * 2^k), the fewest idle otherwise (1 in 16 at C = 720). The
+//    block forms the per-channel coefficients once in shared memory (edz / n
+//    and eydz / n in double, rounded once, as the combine does) while its
+//    first loads fly; 64 bytes of x and as many of g in flight per thread; a
+//    grid of one round per thread, at most one wave; dx stored evict-first.
+//    Bound: x and g read once, dx written once.
+// dx takes phase B's roundings, so at one rank the split gives the fused
+// launch's dx, dgamma and dbeta bit for bit. Between the two, x and g are
+// read twice from device memory (5 tensors moved in all, against the fused
+// pass's 3 where they stay on chip).
 //
 // Plain C interface for ctypes: returns cudaGetLastError() after the launch
 // (0 on success), or cudaErrorInvalidValue for arguments it does not take.
 // The launch goes on the caller's stream; nothing synchronises and nothing
 // is allocated here.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "bn_reduce.cuh"
 
@@ -389,75 +412,354 @@ bn_backward_fused(const Args<T> args) {
          read_row<T>(st_g + k * ty * tx, kStage));
 }
 
-// dx of the split backward: rows r of channel vector v, with edz / n and
-// eydz / n formed from the group's double sums (sums[2C] = n) as the fused
-// combine forms them. Block (bx, by): channel vectors [bx * vecs, + vecs) on
-// tx lanes (tx the power of 2 at or above vecs), rows by * ty + y + k * ty *
-// gridDim.y on ty = 256 / tx lanes; neighbouring threads read neighbouring
-// 16-byte words of a row.
+// ---------------------------------------------------- the reduce entry
+// Phase A of the fused pass and its combine, as a plain launch: the same
+// blocks (geometry(): bx, by, tx, ty, the strips), each thread adding its
+// rows in the fused pass's order (the rows that pass keeps in shared memory,
+// k < ks, after the others), the same tree over the block's row lanes and
+// the same row of partials; each thread keeps kReduceRows rows of bf16 in
+// flight in registers (16 bytes of x and of g each; half the rows of f32),
+// and nothing is staged for a phase B. The blocks that draw the last
+// integer tickets add the strips in combine_group's order (below) and write
+// edz, eydz and the double sums.
+constexpr int kReduceRows = 4;  // of bf16 in flight a thread (2 of f32)
+// a column group's tickets: its chains' tree, then one per chain
+constexpr int kReduceCounters = 1 + kCombineY;
+constexpr int kCombineBatch = 16;  // a combining thread's strips in flight
+static_assert(kCombineY == 16, "the chains' tree below is written for 16");
+
 template <typename T, bool RELU>
-__global__ void __launch_bounds__(rhss::kThreads)
-bn_backward_dx(const T* __restrict__ x, const T* __restrict__ g, Params p,
-               const double* __restrict__ sums, T* __restrict__ dx,
-               int64_t rows, int channels, int tx, int vecs) {
+__global__ void __launch_bounds__(kThreads, 1)
+bn_backward_reduce(const Args<T> args, int* counters) {
+  constexpr int U = kReduceRows / words<T>();  // rows in flight a thread
+  __shared__ __align__(16) float lanes[2 * kVec * kThreads];
+
   const int t = threadIdx.x;
-  const int lane = t % tx, y = t / tx, ty = rhss::kThreads / tx;
-  const int v = blockIdx.x * vecs + lane;
-  if (lane >= vecs || v >= channels / kVec) return;
+  const int tx = args.tx, ty = args.ty, C = args.channels;
+  const int R = args.row_blocks;
+  const int x = t % tx, y = t / tx;
+  const int bx = blockIdx.x % args.col_blocks, by = blockIdx.x / args.col_blocks;
+  const int v = bx * tx + x;
+  const bool active = y < ty && v < C / kVec;
   const int c = v * kVec;
-  float sc[kVec], sh[kVec], mu[kVec], rs[kVec], ed[kVec], ey[kVec];
-  rhss::load8(p.scale + c, sc);
-  rhss::load8(p.shift + c, sh);
-  rhss::load8(p.mean + c, mu);
-  rhss::load8(p.rstd + c, rs);
-  const double n = sums[2 * channels];
+  const int64_t r0 = (int64_t)by * args.rows_per_block;
+  const int64_t r1 = r0 + args.rows_per_block < args.rows
+                         ? r0 + args.rows_per_block
+                         : args.rows;
+  // this thread's rows are r0 + y + k ty for k < nk, added as the fused
+  // pass adds them: k = ks .. nk - 1, then 0 .. ks - 1
+  const int64_t span = r1 - r0 - y;
+  const int64_t nk = span > 0 ? (span + ty - 1) / ty : 0;
+  const int staged = args.stage_rows;
+  const int64_t ks_all = staged > y ? (staged - y + ty - 1) / ty : 0;
+  const int64_t ks = ks_all < nk ? ks_all : nk;
+  const int64_t step = (int64_t)ty * C;
+  const T* xs = args.x + (r0 + y) * C + c;
+  const T* gs = args.g + (r0 + y) * C + c;
+  Raw<T> rx[U], rg[U];
+  // the rows added i0 .. i0 + U - 1, into registers
+  auto fetch = [&](int64_t i0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = i0 + u;
+      if (i < nk) {
+        const int64_t k = i < nk - ks ? ks + i : i - (nk - ks);
+        rx[u].load(xs + k * step);
+        rg[u].load(gs + k * step);
+      }
+    }
+  };
+
+  float s0[kVec], s1[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) s0[k] = s1[k] = 0.f;
+  if (active) {
+    float sc[kVec], sh[kVec], mu[kVec], rs[kVec];
+    rhss::load8(args.p.scale + c, sc);
+    rhss::load8(args.p.shift + c, sh);
+    rhss::load8(args.p.mean + c, mu);
+    rhss::load8(args.p.rstd + c, rs);
+    for (int64_t i0 = 0; i0 < nk; i0 += U) {
+      fetch(i0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u < nk) {
+          float xv[kVec], gv[kVec];
+          rx[u].to_float(xv);
+          rg[u].to_float(gv);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            float dy, xhat;
+            dy_xhat<RELU>(xv[k], gv[k], sc[k], sh[k], mu[k], rs[k], dy,
+                          xhat);
+            s0[k] += dy;
+            s1[k] += dy * xhat;
+          }
+        }
+      }
+    }
+  }
+
+  // the block's row lanes in the fused pass's tree
+  float* sh0 = lanes;
+  float* sh1 = sh0 + kVec * kThreads;
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
-    ed[k] = (float)(sums[c + k] / n);
-    ey[k] = (float)(sums[channels + c + k] / n);
+    sh0[k * kThreads + t] = s0[k];
+    sh1[k * kThreads + t] = s1[k];
   }
-  const int64_t stride = (int64_t)gridDim.y * ty;
-  for (int64_t r = (int64_t)blockIdx.y * ty + y; r < rows; r += stride) {
-    const int64_t off = r * channels + c;
-    Raw<T> rx, rg;
-    rx.load(x + off);
-    rg.load(g + off);
-    float xv[kVec], gv[kVec], out[kVec];
-    rx.to_float(xv);
-    rg.to_float(gv);
+  __syncthreads();
+  int half = 1;
+  while (half * 2 < ty) half *= 2;
+  for (; half > 0; half >>= 1) {
+    if (y < half && y + half < ty) {
+      const int o = t + half * tx;
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      float dy, xhat;
-      dy_xhat<RELU>(xv[j], gv[j], sc[j], sh[j], mu[j], rs[j], dy, xhat);
-      const float q = __fmaf_rn(xhat, ey[j], ed[j]);
-      out[j] = __fmul_rn(sc[j], __fsub_rn(dy, q));
+      for (int k = 0; k < kVec; ++k) {
+        sh0[k * kThreads + t] += sh0[k * kThreads + o];
+        sh1[k * kThreads + t] += sh1[k * kThreads + o];
+      }
     }
-    store8(dx + off, out);
+    __syncthreads();
+  }
+  if (y == 0 && active) {
+    float* p0 = args.partial + (int64_t)by * C + c;
+    float* p1 = args.partial + ((int64_t)R + by) * C + c;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      p0[k] = sh0[k * kThreads + t];
+      p1[k] = sh1[k * kThreads + t];
+    }
+  }
+
+  // the strips' partials in combine_group's order, chain cy = 0..15 adding
+  // strips cy, cy + 16, ... in double, then the chains' tree, in two levels
+  // of tickets: the last block of chain by % 16 of the column group adds
+  // the chain (one thread per channel and sum, all its strips in flight,
+  // coalesced) into chains ([2][16][C] doubles after the partials); the
+  // last of the group's chains adds their tree
+  int* cnt = counters + bx * kReduceCounters;
+  const int chain = by % kCombineY;
+  if (!rhss::last_ticket(cnt + 1 + chain, (R - chain + kCombineY - 1) /
+                                              kCombineY))
+    return;
+  const int first = bx * tx * kVec;
+  const int width = first + tx * kVec < C ? tx * kVec : C - first;
+  double* chains = reinterpret_cast<double*>(args.partial + 2 * (int64_t)R * C);
+  for (int w = t; w < 2 * width; w += kThreads) {
+    const int which = w / width, ch = first + w % width;
+    const float* part = args.partial + (int64_t)which * R * C + ch;
+    double a = 0.0;
+    for (int i0 = chain; i0 < R; i0 += kCombineY * kCombineBatch) {
+      float f[kCombineBatch];
+#pragma unroll
+      for (int j = 0; j < kCombineBatch; ++j) {
+        const int i = i0 + j * kCombineY;
+        if (i < R) f[j] = __ldcg(part + (int64_t)i * C);
+      }
+#pragma unroll
+      for (int j = 0; j < kCombineBatch; ++j)
+        if (i0 + j * kCombineY < R) a += f[j];
+    }
+    chains[(int64_t)(which * kCombineY + chain) * C + ch] = a;
+  }
+  if (!rhss::last_ticket(cnt, R < kCombineY ? R : kCombineY)) return;
+  for (int w = t; w < 2 * width; w += kThreads) {
+    const int which = w / width, ch = first + w % width;
+    double v[kCombineY];
+#pragma unroll
+    for (int i = 0; i < kCombineY; ++i) {  // a chain of no strips adds 0
+      v[i] = i < R ? __ldcg(chains + (int64_t)(which * kCombineY + i) * C +
+                            ch)
+                   : 0.0;
+    }
+    // the tree: halves 8, 4, 2, 1 (kCombineY = 16)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] += v[i + 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] += v[i + 4];
+    v[0] += v[2];
+    v[1] += v[3];
+    v[0] += v[1];
+    if (which == 0) {
+      args.edz[ch] = (float)v[0];
+      args.sums[ch] = v[0];
+    } else {
+      args.eydz[ch] = (float)v[0];
+      args.sums[C + ch] = v[0];
+    }
+  }
+  if (bx == 0 && t == 0) args.sums[2 * C] = (double)args.rows;
+}
+
+// ------------------------------------------------------- the dx entry
+// dx of the split backward over the flat array of the tensor's units (8
+// channels: 16 bytes of bf16, 32 of f32; unit u is row u / cv, channel
+// vector u % cv, cv = C / 8). A block of B threads, B a multiple of cv,
+// takes rounds of K * B neighbouring units, thread t units t + k B: its
+// channel vector is t % cv in every unit it takes, since B, the round and
+// the grid's stride are multiples of cv. The block first forms the
+// coefficients of every channel in shared memory ([6][C]: scale, shift,
+// mean, rstd, and edz / n, eydz / n in double from the group's sums, sums[2C]
+// = n, rounded once as the fused combine rounds them) while its first
+// round's loads fly; each thread then keeps its 8 channels' in registers.
+template <typename T>
+__host__ __device__ constexpr int dx_units() {  // K: 64 bytes of x a round
+  return 64 / (int)sizeof(Raw<T>);
+}
+constexpr int kDxMinThreads = 128;
+constexpr int kDxMaxThreads = 512;
+constexpr int kDxMaxChannels = 8 * kDxMaxThreads;  // cv <= one block
+constexpr int kDxCoefs = 6;
+constexpr int kDxSmemCap = kDxCoefs * kDxMaxChannels * (int)sizeof(float);
+
+template <typename T, bool RELU>
+__global__ void __launch_bounds__(kDxMaxThreads)
+bn_backward_dx(const T* __restrict__ x, const T* __restrict__ g, Params p,
+               const double* __restrict__ sums, T* __restrict__ dx,
+               int64_t units, int channels) {
+  constexpr int K = dx_units<T>();
+  extern __shared__ __align__(16) float coef[];
+  const int t = threadIdx.x, B = blockDim.x, C = channels;
+  const int64_t per_round = (int64_t)B * K;
+  const int64_t stride = per_round * gridDim.x;
+  int64_t u = (int64_t)blockIdx.x * per_round + t;
+  Raw<T> rx[K], rg[K];
+  auto fetch = [&](int64_t first) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t uk = first + (int64_t)k * B;
+      if (uk < units) {
+        rx[k].load(x + uk * kVec);
+        rg[k].load(g + uk * kVec);
+      }
+    }
+  };
+  fetch(u);
+
+  const double n = sums[2 * C];
+  for (int ch = t; ch < C; ch += B) {
+    coef[ch] = p.scale[ch];
+    coef[C + ch] = p.shift[ch];
+    coef[2 * C + ch] = p.mean[ch];
+    coef[3 * C + ch] = p.rstd[ch];
+    coef[4 * C + ch] = (float)(sums[ch] / n);
+    coef[5 * C + ch] = (float)(sums[C + ch] / n);
+  }
+  __syncthreads();
+  const int c = t % (C / kVec) * kVec;
+  float sc[kVec], sh[kVec], mu[kVec], rs[kVec], ed[kVec], ey[kVec];
+  auto own = [&](int i, float v[kVec]) {  // this thread's 8 of row i
+    const float4 lo = *reinterpret_cast<const float4*>(coef + i * C + c);
+    const float4 hi = *reinterpret_cast<const float4*>(coef + i * C + c + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  };
+  own(0, sc);
+  own(1, sh);
+  own(2, mu);
+  own(3, rs);
+  own(4, ed);
+  own(5, ey);
+
+  for (; u < units; u += stride) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t uk = u + (int64_t)k * B;
+      if (uk >= units) break;
+      float xv[kVec], gv[kVec], out[kVec];
+      rx[k].to_float(xv);
+      rg[k].to_float(gv);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        float dy, xhat;
+        dy_xhat<RELU>(xv[j], gv[j], sc[j], sh[j], mu[j], rs[j], dy, xhat);
+        const float q = __fmaf_rn(xhat, ey[j], ed[j]);
+        out[j] = __fmul_rn(sc[j], __fsub_rn(dy, q));
+      }
+      store8(dx + uk * kVec, out);
+    }
+    fetch(u + stride);
   }
 }
 
+// B for cv channel vectors: the multiple of cv in [kDxMinThreads,
+// kDxMaxThreads] (or the one multiple, where there is no other) that leaves
+// the smallest share of its warps' lanes idle; the smallest such B.
+int dx_threads(int cv) {
+  int best = 0, best_idle = 0, best_lanes = 1;
+  for (int b = cv; b <= kDxMaxThreads; b += cv) {
+    if (b < kDxMinThreads && b + cv <= kDxMaxThreads) continue;
+    const int lanes = (b + 31) / 32 * 32, idle = lanes - b;
+    if (best == 0 || idle * best_lanes < best_idle * lanes) {
+      best = b;
+      best_idle = idle;
+      best_lanes = lanes;
+    }
+  }
+  return best;
+}
+
+// Blocks of `threads` threads and `smem` bytes one SM holds at once, asked
+// of the occupancy calculator once per device and block shape.
+struct Occupancy {
+  static constexpr int kSlots = 64;
+  int dev[kSlots], threads[kSlots], smem[kSlots], blocks[kSlots];
+  int used = 0;
+
+  int get(const void* kernel, int threads_, int smem_, int* out) {
+    int d = 0;
+    cudaError_t err = cudaGetDevice(&d);
+    if (err != cudaSuccess) return (int)err;
+    for (int i = 0; i < used; ++i) {
+      if (dev[i] == d && threads[i] == threads_ && smem[i] == smem_) {
+        *out = blocks[i];
+        return 0;
+      }
+    }
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads_, smem_);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int i = used < kSlots ? used++ : kSlots - 1;
+    dev[i] = d;
+    threads[i] = threads_;
+    smem[i] = smem_;
+    blocks[i] = per_sm;
+    *out = per_sm;
+    return 0;
+  }
+};
+
+// A function of (rows, channels, dtype, SM count): blocks of dx_threads(cv)
+// threads, as many as give each thread one round, at most one wave.
 template <typename T, bool RELU>
 int launch_dx(const void* x, const void* g, Params p, const double* sums,
               void* dx, int64_t rows, int channels, cudaStream_t s) {
+  auto kernel = bn_backward_dx<T, RELU>;
   static rhss::DeviceOnce once;
+  static Occupancy occupancy;
   int sms = 0;
-  const int set = once.get(&sms, [] { return cudaSuccess; });
+  const int set = once.get(&sms, [kernel] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmemCap);
+  });
   if (set != 0) return set;
-  const int c_vec = channels / kVec;
-  const int col_blocks = (c_vec + 31) / 32;
-  const int vecs = (c_vec + col_blocks - 1) / col_blocks;
-  int tx = 1;
-  while (tx < vecs) tx *= 2;
-  const int ty = rhss::kThreads / tx;
-  // 8 blocks of 256 threads per SM in all, or one row lane each
-  int64_t row_blocks = (rows + ty - 1) / ty;
-  int64_t most = (int64_t)sms * 8 / col_blocks;
-  if (most < 1) most = 1;
-  if (row_blocks > most) row_blocks = most;
-  bn_backward_dx<T, RELU><<<dim3(col_blocks, (unsigned)row_blocks),
-                            rhss::kThreads, 0, s>>>(
+  const int cv = channels / kVec;
+  const int threads = dx_threads(cv);
+  const int smem = kDxCoefs * channels * (int)sizeof(float);
+  int per_sm = 0;
+  const int occ = occupancy.get((const void*)kernel, threads, smem, &per_sm);
+  if (occ != 0) return occ;
+  const int64_t units = rows * cv;
+  const int64_t per_round = (int64_t)threads * dx_units<T>();
+  int64_t blocks = (units + per_round - 1) / per_round;
+  const int64_t wave = (int64_t)sms * per_sm;
+  if (blocks > wave) blocks = wave;
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), p, sums,
-      static_cast<T*>(dx), rows, channels, tx, vecs);
+      static_cast<T*>(dx), units, channels);
   return (int)cudaGetLastError();
 }
 
@@ -524,6 +826,29 @@ int launch(const void* x, const void* g, Params p, int64_t rows, int channels,
   return (int)cudaGetLastError();
 }
 
+// The reduce entry's launch: the fused pass's geometry, a plain launch.
+template <typename T, bool RELU>
+int launch_reduce(const void* x, const void* g, Params p, int64_t rows,
+                  int channels, float* ws, int* counters, float* edz,
+                  float* eydz, double* sums, cudaStream_t s) {
+  static rhss::DeviceOnce once;
+  int sms = 0;
+  const int set = once.get(&sms, [] { return cudaSuccess; });
+  if (set != 0) return set;
+  const Geometry geo = geometry(rows, channels, (int)sizeof(T), sms);
+  // the workspace: the partials, then the chains (2 * 16 * C doubles)
+  if (2 * geo.row_blocks + 4 * kCombineY > 2 * rhss::kTargetBlocks ||
+      geo.col_blocks > rhss::kMaxGroups)
+    return (int)cudaErrorInvalidValue;
+  const Args<T> args{static_cast<const T*>(x), static_cast<const T*>(g), p,
+                     ws, edz, eydz, static_cast<T*>(nullptr), sums, rows,
+                     geo.rows_per_block, channels, geo.tx, geo.ty,
+                     geo.col_blocks, geo.row_blocks, geo.stage_rows};
+  bn_backward_reduce<T, RELU>
+      <<<geo.col_blocks * geo.row_blocks, kThreads, 0, s>>>(args, counters);
+  return (int)cudaGetLastError();
+}
+
 // The checks every entry shares; 0 when the arguments are taken.
 int check(int64_t rows, int channels, int dtype, int act) {
   if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
@@ -541,14 +866,14 @@ Params params(const void* scale, const void* shift, const void* mean,
                 static_cast<const float*>(rstd)};
 }
 
-// launch<T, RELU>(args...) for the dtype and act codes
-template <typename... A>
-int dispatch(int dtype, int act, A... args) {
+// f(T{}, std::integral_constant<bool, RELU>{}) for the dtype and act codes
+template <typename F>
+int dispatch(int dtype, int act, F f) {
   if (dtype == 1) {
-    return act ? launch<__nv_bfloat16, true>(args...)
-               : launch<__nv_bfloat16, false>(args...);
+    return act ? f(__nv_bfloat16{}, std::true_type{})
+               : f(__nv_bfloat16{}, std::false_type{});
   }
-  return act ? launch<float, true>(args...) : launch<float, false>(args...);
+  return act ? f(0.f, std::true_type{}) : f(0.f, std::false_type{});
 }
 
 }  // namespace
@@ -566,35 +891,42 @@ extern "C" int rhss_bn_backward(const void* x, const void* g, int64_t rows,
                                 void* dx, void* stream) {
   const int bad = check(rows, channels, dtype, act);
   if (bad) return bad;
-  return dispatch(dtype, act, x, g, params(scale, shift, mean, rstd), rows,
-                  channels, static_cast<float*>(workspace),
-                  static_cast<float*>(edz), static_cast<float*>(eydz), dx,
-                  static_cast<double*>(nullptr),
-                  reinterpret_cast<cudaStream_t>(stream));
+  return dispatch(dtype, act, [&](auto tag, auto relu) {
+    return launch<decltype(tag), decltype(relu)::value>(
+        x, g, params(scale, shift, mean, rstd), rows, channels,
+        static_cast<float*>(workspace), static_cast<float*>(edz),
+        static_cast<float*>(eydz), dx, static_cast<double*>(nullptr),
+        reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
-// The reduce entry: rhss_bn_backward without dx, and sums (2 * channels + 1
-// doubles) gets [Σdy, Σdy·x̂, n] in double.
+// The reduce entry: dgamma and dbeta as rhss_bn_backward gives them, and
+// sums (2 * channels + 1 doubles) gets [Σdy, Σdy·x̂, n] in double. counters:
+// 64 * 17 ints, 0 (and left at 0); channels <= 16384.
 extern "C" int rhss_bn_backward_reduce(const void* x, const void* g,
                                        int64_t rows, int channels, int dtype,
                                        int act, const void* scale,
                                        const void* shift, const void* mean,
                                        const void* rstd, void* workspace,
-                                       void* edz, void* eydz, void* sums,
-                                       void* stream) {
+                                       void* counters, void* edz, void* eydz,
+                                       void* sums, void* stream) {
   const int bad = check(rows, channels, dtype, act);
   if (bad) return bad;
-  return dispatch(dtype, act, x, g, params(scale, shift, mean, rstd), rows,
-                  channels, static_cast<float*>(workspace),
-                  static_cast<float*>(edz), static_cast<float*>(eydz),
-                  static_cast<void*>(nullptr), static_cast<double*>(sums),
-                  reinterpret_cast<cudaStream_t>(stream));
+  if (channels > rhss::kMaxGroups * 32 * kVec)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, act, [&](auto tag, auto relu) {
+    return launch_reduce<decltype(tag), decltype(relu)::value>(
+        x, g, params(scale, shift, mean, rstd), rows, channels,
+        static_cast<float*>(workspace), static_cast<int*>(counters),
+        static_cast<float*>(edz), static_cast<float*>(eydz),
+        static_cast<double*>(sums), reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 // The dx entry: dx = scale * (dy - (x̂ * eydz / n + edz / n)) from sums =
 // [Σdy, Σdy·x̂, n] (2 * channels + 1 doubles), the reduce entry's sums added
 // over a group. x, g, dx: rows * channels elements, 16-byte aligned; scale,
-// shift, mean, rstd: channels floats, 16-byte aligned.
+// shift, mean, rstd: channels floats, 16-byte aligned; channels <= 4096.
 extern "C" int rhss_bn_backward_dx(const void* x, const void* g, int64_t rows,
                                    int channels, int dtype, int act,
                                    const void* scale, const void* shift,
@@ -602,15 +934,11 @@ extern "C" int rhss_bn_backward_dx(const void* x, const void* g, int64_t rows,
                                    const void* sums, void* dx, void* stream) {
   const int bad = check(rows, channels, dtype, act);
   if (bad) return bad;
-  const Params p = params(scale, shift, mean, rstd);
-  const double* s = static_cast<const double*>(sums);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return act ? launch_dx<__nv_bfloat16, true>(x, g, p, s, dx, rows,
-                                                channels, st)
-               : launch_dx<__nv_bfloat16, false>(x, g, p, s, dx, rows,
-                                                 channels, st);
-  }
-  return act ? launch_dx<float, true>(x, g, p, s, dx, rows, channels, st)
-             : launch_dx<float, false>(x, g, p, s, dx, rows, channels, st);
+  if (channels > kDxMaxChannels) return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, act, [&](auto tag, auto relu) {
+    return launch_dx<decltype(tag), decltype(relu)::value>(
+        x, g, params(scale, shift, mean, rstd),
+        static_cast<const double*>(sums), dx, rows, channels,
+        reinterpret_cast<cudaStream_t>(stream));
+  });
 }

@@ -9,9 +9,11 @@
 // channels (16-byte loads, Raw) and strip by, sums them in f32 registers,
 // adds its row lanes in shared memory in a fixed tree order and writes one
 // row of partials; the strips' partials are then added in double in a fixed
-// order (bn_stats.cu: by the last block of each column group to arrive; the
-// BN backward: by every block after a grid barrier, combine_group). No
-// float atomics anywhere: the result is the same from run to run.
+// order (bn_stats.cu: by the last block of each column group to arrive,
+// last_ticket; the BN backward's fused pass: by every block after a grid
+// barrier, combine_group; its reduce entry: by the last blocks of each
+// chain of strips and column group, in combine_group's order). No float
+// atomics anywhere: the result is the same from run to run.
 //
 // Loads are 16 bytes a thread (8 bf16, or 8 f32 as two float4), neighbouring
 // threads on neighbouring channel vectors of one row, and the rows of a
@@ -32,6 +34,9 @@ namespace rhss {
 
 constexpr int kVec = 8;            // channels per thread
 constexpr int kTargetBlocks = 528;  // 4 per SM of an H100 SXM (132 SMs)
+// column groups of 32 channel vectors that the ticket counters cover
+// (C <= 64 * 32 * kVec; _STATS_GROUPS in ops/fused_bn_act.py)
+constexpr int kMaxGroups = 64;
 
 struct Geometry {
   int tx;                  // channel vectors per block
@@ -105,6 +110,27 @@ struct Raw<float> {
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   }
 };
+
+// A ticket for the whole block from *counter, one of n: true for the block
+// that draws the last one, which also sets the counter back to 0 (every
+// ticket has been drawn). Release-acquire at gpu scope by one thread after
+// a block barrier: the block's earlier writes are visible to the block that
+// draws the last ticket, and that block's later reads see every writer's.
+__device__ __forceinline__ bool last_ticket(int* counter, int n) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    last = old == n - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  return last;
+}
 
 // The BN backward's combine: the strips' partials of each channel, in
 // double. A group of kCombineX * kCombineY threads owns kCombineX

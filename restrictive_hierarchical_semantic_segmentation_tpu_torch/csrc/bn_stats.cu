@@ -62,13 +62,13 @@
 
 namespace {
 
+using rhss::kMaxGroups;
 using rhss::kThreads;
 using rhss::kVec;
 using rhss::Raw;
 
 constexpr int kBlocksPerSm = 2;
 constexpr int kRoundBytes = 128;  // of x in flight per thread
-constexpr int kMaxGroups = 64;    // column groups: C <= 64 * 32 * kVec
 constexpr int kChunk = 16;        // strips a chunk's last block adds
 constexpr int kCombineLanes = 4;  // row lanes of a combining block
 constexpr int kMaxChunks = (rhss::kTargetBlocks + kChunk - 1) / kChunk;
@@ -157,27 +157,6 @@ __device__ __forceinline__ void add_lanes(S* sh, S s0[kVec], S s1[kVec],
       s1[k] = sh1[k * kThreads + t];
     }
   }
-}
-
-// A ticket for the whole block from *counter, one of n: true for the block
-// that draws the last one, which also sets the counter back to 0 (every
-// ticket has been drawn). Release-acquire at gpu scope by one thread after
-// a block barrier: the block's earlier writes are visible to the block that
-// draws the last ticket, and that block's later reads see every writer's.
-__device__ __forceinline__ bool last_ticket(int* counter, int n) {
-  __shared__ bool last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int old;
-    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                 : "=r"(old)
-                 : "l"(counter)
-                 : "memory");
-    last = old == n - 1;
-    if (last) *counter = 0;
-  }
-  __syncthreads();
-  return last;
 }
 
 // 8 partial sums written earlier in this launch, in double
@@ -318,7 +297,7 @@ bn_stats_one_pass(const Args a) {
   const int chunk = by / kChunk, first = chunk * kChunk;
   const int count = R - first < kChunk ? R - first : kChunk;
   const int n_chunks = (R + kChunk - 1) / kChunk;
-  if (!last_ticket(cnt + 1 + chunk, count)) return;
+  if (!rhss::last_ticket(cnt + 1 + chunk, count)) return;
   double d0[kVec], d1[kVec];
   combine(a.partial, R, first, count, C, c, active, t, y, tx, ty, lanes, d0,
           d1);
@@ -334,7 +313,7 @@ bn_stats_one_pass(const Args a) {
         *reinterpret_cast<double2*>(q1 + k) = make_double2(d1[k], d1[k + 1]);
       }
     }
-    if (!last_ticket(cnt, n_chunks)) return;
+    if (!rhss::last_ticket(cnt, n_chunks)) return;
     combine(a.chunks, n_chunks, 0, n_chunks, C, c, active, t, y, tx, ty,
             lanes, d0, d1);
   }

@@ -25,15 +25,17 @@ copied into the contiguous ``(rows, C)`` layout first.
 
 The statistics kernel is one launch per call: its blocks' partial sums are
 added by the blocks that draw the last ticket from integer counters (one
-per chunk of 16 strips, one per column group). Those counters must be 0
-before every launch, and every launch leaves them at 0 again. They live in
-one int32 buffer per device, made with ``torch.zeros`` at the first call on
-that device (which must not be inside CUDA graph capture) and never freed:
-one slot of ``_COUNTERS_PER_STREAM`` counters per stream, so calls on two
-streams never share a counter. A launch captured in a CUDA graph keeps the
-slot of the stream it was captured on, so do not replay a graph while calls
-run on that stream. A call that raises does so before its launch and
-leaves the counters as they were.
+per chunk of 16 strips, one per column group); so are those of the BN
+backward's reduce entry (one per chain of strips, one per column group).
+Those counters must be 0 before every launch, and every launch leaves them
+at 0 again. They live in one int32 buffer per device, made with
+``torch.zeros`` at the first call on that device (which must not be inside
+CUDA graph capture) and never freed: one slot of ``_COUNTERS_PER_STREAM``
+counters per stream, which the two kernels' launches on that stream take
+in turn, so calls on two streams never share a counter. A launch captured
+in a CUDA graph keeps the slot of the stream it was captured on, so do not
+replay a graph while calls run on that stream. A call that raises does so
+before its launch and leaves the counters as they were.
 
 :class:`FusedBNAct` is the train-mode ``act(gamma * (x - mean) * rstd +
 beta)`` as an autograd Function (the JAX ``fused_bn_act`` custom VJP): its
@@ -135,7 +137,7 @@ _SIGNATURES = {
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ("bn_stats", "rhss_bn_stats_sums"): [_P, _I64, _I, _I, _P, _P, _P, _P],
     ("bn_backward", "rhss_bn_backward_reduce"):
-        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ("bn_backward", "rhss_bn_backward_dx"):
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
@@ -190,6 +192,11 @@ def _check_rows_c(x: torch.Tensor, what: str) -> int:
     if x.data_ptr() % 16:
         raise ValueError(f"{what} needs x 16-byte aligned")
     return c
+
+
+def _check_channels(c: int, most: int, what: str) -> None:
+    if c > most:
+        raise ValueError(f"{what} takes C <= {most}, got C = {c}")
 
 
 def _check_vector(t: torch.Tensor, c: int, what: str) -> None:
@@ -283,6 +290,11 @@ def _bn_stats_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 _MAX_STRIPS = 528
 
 
+# the widest C the dx entry takes (kDxMaxChannels in csrc/bn_backward.cu:
+# one block's threads per channel vector)
+_DX_MAX_CHANNELS = 4096
+
+
 def _workspace(x: torch.Tensor, c: int) -> torch.Tensor:
     """Scratch for a column reduction's per-strip partials: two f32 sums
     per channel and strip."""
@@ -290,11 +302,15 @@ def _workspace(x: torch.Tensor, c: int) -> torch.Tensor:
                        device=x.device)
 
 
-# the statistics kernel's ticket counters (csrc/bn_stats.cu): for each of at
-# most kMaxGroups = 64 column groups of 32 channel vectors (so C <= 8 * 32 *
-# 64), one for the group and one per chunk of 16 strips (at most 33); slots:
-# the streams of one device that may call it (torch's stream pools hold 32
-# per priority, plus the default stream and the graph capture stream)
+# the ticket counters of the statistics kernel (csrc/bn_stats.cu) and the BN
+# backward's reduce entry (csrc/bn_backward.cu): for each of at most
+# kMaxGroups = 64 column groups of 32 channel vectors (so C <= 8 * 32 * 64),
+# one for the group and one per chunk of 16 strips (at most 33); the reduce
+# entry 17 per column group (its chains' tree, one per chain of strips), the
+# first 64 * 17. A launch leaves them at 0, so the two kernels share a
+# stream's slot. Slots: the streams of one device that may call them
+# (torch's stream pools hold 32 per priority, plus the default stream and
+# the graph capture stream)
 _STATS_GROUPS = 64
 _STATS_CHUNKS = -(-_MAX_STRIPS // 16)
 _COUNTERS_PER_STREAM = _STATS_GROUPS * (1 + _STATS_CHUNKS)
@@ -313,9 +329,9 @@ def _counters(x: torch.Tensor, stream: int) -> torch.Tensor:
             with torch.cuda.device(x.device):
                 if torch.cuda.is_current_stream_capturing():
                     raise RuntimeError(
-                        "bn_stats: call it once on this device outside CUDA "
-                        "graph capture first (its ticket counters are made "
-                        "then)")
+                        "bn_stats, bn_backward_reduce: call one of them once "
+                        "on this device outside CUDA graph capture first "
+                        "(their ticket counters are made then)")
                 buf = torch.zeros(_COUNTER_SLOTS, _COUNTERS_PER_STREAM,
                                   dtype=torch.int32, device=x.device)
                 torch.cuda.synchronize()  # zero before any stream reads them
@@ -344,9 +360,7 @@ def _stats_args(x: torch.Tensor, what: str):
     rows = x.numel() // c
     if rows == 0:
         raise ValueError(f"{what} needs at least one row")
-    if c > 8 * 32 * _STATS_GROUPS:
-        raise ValueError(f"{what} takes C <= {8 * 32 * _STATS_GROUPS}, "
-                         f"got C = {c}")
+    _check_channels(c, 8 * 32 * _STATS_GROUPS, what)
     stream = _stream(x)
     return rows, c, stream, _stats_workspace(x, c), _counters(x, stream)
 
@@ -548,13 +562,16 @@ def _bn_backward_dx_ref(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
 def _launch_backward_reduce(x, g, scale, shift, mean, rstd, act: str):
     c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
                                       "bn_backward_reduce")
+    _check_channels(c, 8 * 32 * _STATS_GROUPS, "bn_backward_reduce")
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
     sums = torch.empty(2 * c + 1, dtype=torch.float64, device=x.device)
+    stream = _stream(x)
     _call(x, "bn_backward_reduce",
           _fn("bn_backward", "rhss_bn_backward_reduce"), x.data_ptr(),
           g.data_ptr(), rows, c, _DTYPES[x.dtype], ACTS[act],
           *[t.data_ptr() for t in vecs], _workspace(x, c).data_ptr(),
-          out[0].data_ptr(), out[1].data_ptr(), sums.data_ptr(), _stream(x))
+          _counters(x, stream).data_ptr(), out[0].data_ptr(),
+          out[1].data_ptr(), sums.data_ptr(), stream)
     TRAIN_LAUNCHES["bn_backward_reduce"] += 1
     return out[1], out[0], sums
 
@@ -562,6 +579,7 @@ def _launch_backward_reduce(x, g, scale, shift, mean, rstd, act: str):
 def _launch_backward_dx(x, g, scale, shift, mean, rstd, sums, act: str):
     c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
                                       "bn_backward_dx")
+    _check_channels(c, _DX_MAX_CHANNELS, "bn_backward_dx")
     if (sums.shape != (2 * c + 1,) or sums.dtype != torch.float64
             or sums.device != x.device):
         raise ValueError(f"bn_backward_dx needs sums ({2 * c + 1},) f64 on "
@@ -589,7 +607,7 @@ def bn_backward_reduce(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     """The sums of :func:`bn_act_backward` without dx: ``(dgamma, dbeta,
     sums)``, ``dgamma = Σ dy·x̂`` and ``dbeta = Σ dy`` in f32 as the fused
     call returns them, and ``sums = [Σdy, Σdy·x̂, n]`` (2C + 1,) in f64 for
-    an all-reduce over a group. One (cooperative) launch per call."""
+    an all-reduce over a group. One launch per call; C <= 16384."""
     _check_train_act(act)
     if _device_of(x, "bn_backward_reduce") == "cpu":
         c = x.shape[-1]
@@ -604,7 +622,7 @@ def bn_backward_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
                    act: str) -> torch.Tensor:
     """dx of :func:`bn_act_backward` from ``sums = [Σdy, Σdy·x̂, n]`` of
     the whole group (the reduce entry's sums, all-reduced): dx in x's dtype
-    and shape. One launch per call."""
+    and shape. One launch per call; C <= 4096."""
     _check_train_act(act)
     if _device_of(x, "bn_backward_dx") == "cpu":
         c = x.shape[-1]

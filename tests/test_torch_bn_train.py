@@ -240,6 +240,11 @@ def test_bn_backward_is_one_counted_entry(act):
                    ("bn_backward", "rhss_bn_backward_dx")]
     # x, g, rows, C, dtype, act, 4 vectors, workspace, edz, eydz, dx, stream
     assert len(tfba._SIGNATURES[bwd[0]]) == 15
+    # the reduce entry: ... workspace, ticket counters, edz, eydz, sums,
+    # stream; the dx entry: x, g, rows, C, dtype, act, 4 vectors, sums, dx,
+    # stream
+    assert len(tfba._SIGNATURES[bwd[1]]) == 16
+    assert len(tfba._SIGNATURES[bwd[2]]) == 13
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((37, 24)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((37, 24)).astype(np.float32))
@@ -255,3 +260,37 @@ def test_bn_backward_is_one_counted_entry(act):
     assert none is None and dx.shape == x.shape
     assert torch.equal(dg, dg2) and torch.equal(db, db2)
 
+
+
+@pytest.mark.parametrize("act", ["relu", "none"])
+@pytest.mark.parametrize("c,split", [(24, 91), (48, 100)])
+def test_split_plain_versions_over_two_halves_match_jax_bwd(act, c, split):
+    """The split backward of a group of two ranks on the CPU: the reduce
+    entry's plain version on each half of a seeded batch, the halves' f64
+    sums added, then the dx entry's plain version on each half, against the
+    JAX custom VJP's backward (``_fba_bwd``, Pallas in interpret mode) on
+    the whole batch: dx within 1e-5 of its largest value, dgamma and dbeta
+    (the halves' added) likewise."""
+    x, ct, gamma, beta = _fba_inputs(c, 11)
+    x, ct = x.reshape(-1, c), ct.reshape(-1, c)
+    mean, var = (x.mean(0), x.var(0))
+    jdx, _, _, jdg, jdb = jfba._fba_bwd(
+        1e-5, act, tuple(map(jnp.asarray, (x, mean, var, gamma, beta))),
+        jnp.asarray(ct))
+    tmean, tvar = torch.from_numpy(mean), torch.from_numpy(var)
+    rstd = torch.rsqrt(tvar + 1e-5)
+    scale = torch.from_numpy(gamma) * rstd
+    shift = torch.from_numpy(beta) - tmean * scale
+    vecs = (scale, shift, tmean, rstd)
+    halves = [(torch.from_numpy(x[a:b]), torch.from_numpy(ct[a:b]))
+              for a, b in ((0, split), (split, len(x)))]
+    before = dict(tfba.TRAIN_LAUNCHES)
+    parts = [tfba.bn_backward_reduce(xx, gg, *vecs, act) for xx, gg in halves]
+    sums = parts[0][2] + parts[1][2]
+    assert sums.dtype == torch.float64 and float(sums[-1]) == len(x)
+    dx = torch.cat([tfba.bn_backward_dx(xx, gg, *vecs, sums, act)
+                    for xx, gg in halves])
+    assert tfba.TRAIN_LAUNCHES == before  # the CPU counts no launch
+    _close(dx.numpy(), np.asarray(jdx).reshape(-1, c))
+    _close((parts[0][0] + parts[1][0]).numpy(), jdg)
+    _close((parts[0][1] + parts[1][1]).numpy(), jdb)

@@ -9,8 +9,8 @@ a ``torch.export`` artifact launching kernel 2 (the operator's fake
 implementation against the kernel's output), the device-resident
 training set (augmentation on the card against the CPU), and the split
 entries of kernels 1 and 3 for a data-parallel group (bit for bit to the
-fused launches, each against its plain version; two gloo ranks sharing
-the card), ``--remat`` on the card (bit for bit to remat False, the
+fused launches, each against its plain version, the same bits launch after
+launch and in a replayed CUDA graph; two gloo ranks sharing the card), ``--remat`` on the card (bit for bit to remat False, the
 recompute's launches, no forward convolution recomputed in "conv"
 mode), the fold-mesh Predictor and data-mesh Evaluator over two gloo
 ranks sharing the card against one process, and the space axis: kernels
@@ -292,7 +292,13 @@ def test_bn_backward_kernel_equals_plain(cuda, shape, dtype, act):
 # version with the tolerances above (f64 sums of f32 strips against f64
 # sums: 1e-5 of the sums of |x| and x^2).
 SPLIT_SHAPES = [(16, 352, 352, 64), (16, 155, 155, 48), (2, 155, 155, 720),
-                (16, 22, 22, 512), (1001, 48), (3, 7, 720), (1, 8)]
+                (16, 22, 22, 512), (1001, 48), (3, 7, 720), (1, 8),
+                # the entries' geometry at small row counts: one row, fewer
+                # rows than the reduce's row lanes (85, 42, 21, 21, 17 at C
+                # = 48, 96, 192, 384, 720), rows whose units do not fill the
+                # dx entry's last round, and C = 8 (one vector a row)
+                (1, 48), (1, 720), (50, 48), (7, 96), (13, 192), (3, 384),
+                (77, 720), (203, 384), (1003, 96), (61, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -358,7 +364,9 @@ def _split_backward_ok(cuda, shape, dtype, act):
 # ranks: W48 at 620 px (the stem's 310 rows as 155, 155 as 78 / 77, the
 # branches' 78, 39 as 20 / 19 and 20; the head's 720 channels) and the UNet
 # at 352 px (176 rows, and 22 as 11)
-BAND_SHAPES = [((16, 155, 310, 64), torch.bfloat16),
+BAND_SHAPES = [((16, 10, 20, 48), torch.bfloat16),
+               ((16, 10, 20, 192), torch.bfloat16),
+               ((16, 155, 310, 64), torch.bfloat16),
                ((16, 77, 155, 64), torch.bfloat16),
                ((16, 39, 78, 96), torch.bfloat16),
                ((16, 19, 39, 192), torch.bfloat16),
@@ -475,6 +483,54 @@ def test_bn_backward_kernel_is_deterministic(cuda, shape, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 10, 20, 384), (16, 78, 155, 48),
+                                   (77, 720), (61, 8)])
+def test_split_entries_are_deterministic(cuda, shape, dtype):
+    """Two launches of each split entry on the same inputs give the same
+    bits: no float atomics, the strips added in a fixed order whichever
+    block draws the last ticket, and the ticket counters back at 0."""
+    x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=12)
+    first = fba.bn_backward_reduce(x, grad, *vecs, "relu")
+    second = fba.bn_backward_reduce(x, grad, *vecs, "relu")
+    dx1 = fba.bn_backward_dx(x, grad, *vecs, first[2], "relu")
+    dx2 = fba.bn_backward_dx(x, grad, *vecs, first[2], "relu")
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(dx1, dx2)
+    _counters_zero(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 19, 39, 192), (3, 720)])
+def test_split_backward_replays_in_a_cuda_graph(cuda, shape, dtype):
+    """The reduce entry, then the dx entry, captured in a CUDA graph and
+    replayed three times: each replay gives the eager calls' bits. The
+    reduce entry's ticket counters are back at 0 after every launch, so
+    each replay draws its tickets anew."""
+    x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=13)
+    want_dg, want_db, want_sums = fba.bn_backward_reduce(x, grad, *vecs,
+                                                         "relu")
+    want_dx = fba.bn_backward_dx(x, grad, *vecs, want_sums, "relu")
+    side = torch.cuda.Stream()  # a warm-up on a side stream before capture
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fba.bn_backward_reduce(x, grad, *vecs, "relu")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dg, db, sums = fba.bn_backward_reduce(x, grad, *vecs, "relu")
+        dx = fba.bn_backward_dx(x, grad, *vecs, sums, "relu")
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(dx, want_dx)
+        assert torch.equal(dg, want_dg) and torch.equal(db, want_db)
+        assert torch.equal(sums, want_sums)
+    _counters_zero(cuda)
+
+
 def test_bn_backward_copies_a_gradient_in_another_layout(cuda):
     shape = (2, 20, 20, 384)
     x, grad, *vecs = _train_inputs(shape, torch.bfloat16, cuda)
@@ -508,6 +564,11 @@ def test_train_kernels_reject_what_they_do_not_take(cuda):
     bn = BatchNormAct(16, "leaky_relu").to(cuda).train()
     with pytest.raises(ValueError, match="leaky_relu"):
         bn(torch.ones(2, 16, 3, 3, device=cuda))
+    wide = torch.ones(2, 4104, device=cuda)  # one block's threads: C <= 4096
+    with pytest.raises(ValueError, match="C <= 4096"):
+        fba.bn_backward_dx(wide, wide, *[torch.ones(4104, device=cuda)] * 4,
+                           torch.ones(8209, dtype=torch.float64,
+                                      device=cuda), "relu")
 
 
 @pytest.mark.parametrize("act", ["none", "relu"])
