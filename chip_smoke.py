@@ -8,8 +8,10 @@ ReLU tool, evaluates the trained UNet through the predict_eval CLI, serves
 fold ensembles, TTA and int8 quantization, exports and loads deployment
 artifacts, imports donor checkpoints, trains over two ranks sharing the
 card and fold-parallel, trains with rematerialization, serves and
-evaluates over ranks, traces an epoch, trains and evaluates on bands of
-rows over two ranks (the space axis), and checks what comes out.
+evaluates over ranks, traces an epoch, trains and evaluates (in float and
+int8) on bands of rows over two ranks (the space axis), serves, trains,
+exports and quantizes HRNet-W18 (widths that are no multiples of 8), and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -169,15 +171,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     every split-entry and kernel-2 band shape held to the plain versions
     and timed; the train CLI at ``--n-space 2`` through
     ``tools/multirank_check.py`` (the ranks sharing the card) against one
-    process; and
+    process;
     ``predict_eval`` of phase 13's fold over ``(data 1, space 2)`` against
-    one process (metrics.csv and PNGs).
+    one process (metrics.csv and PNGs); and the same ``Evaluator`` with
+    ``quantize`` (int8 convolutions on the bands, calibrated on them)
+    against one process's (scales, metrics.csv, PNGs).
+22. HRNet-W18 (``build/chip_smoke/w18/``; ``--config w18``: branches of
+    18, 36, 72 and 144 channels and a 270-channel head, no multiple of 8)
+    at full width and depth, 620 px, seeded weights: the ``Predictor`` in
+    f32 at batch 1 against the CPU and in bf16 at batch 4 (306 launches
+    of kernel 2); the bench.py recipe's train step (batch 16, bf16, AdamW)
+    for an eval step, a warm-up and 3 counted steps (306 launches each of
+    kernels 1, 2 and 3, finite losses) and a profiled one; a
+    ``torch.export`` artifact of the bf16 Predictor at batch 1 against
+    eager; the int8 Predictor at batch 1 against float (the int8 conv bit
+    for bit at every shape); every shape of kernels 1-3 in the forward and
+    the step held to the plain versions and timed; the split entries at the
+    step's shapes and at the band shapes of both ranks at ``--n-space 2``
+    bit for bit to the fused launches and held to their plain versions,
+    and kernel 2 at those band shapes (not timed).
 
 The serving profiles (phases 4 and 9) go through ``profile_call``, whose
 marker kernels keep a trace from losing the call's first device events.
 
-The last lines are the card line, one ``{"kernels": [...]}`` JSON line and
-the ``{"ok": true, "device": ...}`` JSON line. Imports no jax.
+The kernels line's ``w18_*`` keys are phase 22's. The last lines are the
+card line, one ``{"kernels": [...]}`` JSON line and the ``{"ok": true,
+"device": ...}`` JSON line. Imports no jax.
 """
 from __future__ import annotations
 
@@ -211,10 +230,38 @@ KERNEL_CASES = [
     ((1, 39, 39, 192), torch.bfloat16, "leaky_relu"),   # 1521 rows: ragged
     ((1, 7, 11, 96), torch.bfloat16, "relu"),           # 77 rows: ragged
 ]
-# the two donors at full width: model_select -> name, BN modules, serving
-# size, and the gain of the seeded conv weights (see random_state_dict)
-MODELS = {1: {"name": "W48", "n_bn": 306, "img": IMG, "conv_gain": 0.7},
-          0: {"name": "UNet", "n_bn": 18, "img": 352, "conv_gain": 2 ** 0.5}}
+# the two donors at full width, and HRNet-W18 (``--config w18``, whose
+# widths are no multiples of 8): key (model_select for the donors) -> name,
+# BN modules, serving size, the gain of the seeded conv weights (see
+# random_state_dict), model_select and HRNet config (``--config``)
+MODELS = {1: {"name": "W48", "n_bn": 306, "img": IMG, "conv_gain": 0.7,
+              "model_select": 1, "config": None},
+          0: {"name": "UNet", "n_bn": 18, "img": 352, "conv_gain": 2 ** 0.5,
+              "model_select": 0, "config": None},
+          "w18": {"name": "W18", "n_bn": 306, "img": IMG, "conv_gain": 0.7,
+                  "model_select": 1, "config": "w18"}}
+
+
+def build_donor(tree, key, **kw):
+    """The hierarchical model of ``MODELS[key]`` (``kw``: remat)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .hrnet import resolve_hrnet_config
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        import build_model
+
+    spec = MODELS[key]
+    config = spec["config"] and resolve_hrnet_config(spec["config"])
+    return build_model(tree, spec["model_select"], 1, config, **kw)
+
+
+def run_config(key, **kw):
+    """The ``RunConfig`` of ``MODELS[key]`` (hierarchical) with ``kw``."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+
+    spec = MODELS[key]
+    return RunConfig(model_select=spec["model_select"], model_type=1,
+                     hrnet_yaml=spec["config"], **kw)
 
 
 def log(*a):
@@ -320,13 +367,15 @@ def batch_norm_args(x, scale, shift):
 
 
 def measure_scale_bias_act(shape, dtype, act, gen, device, library: bool,
-                           eager: bool = False, exact: bool = False) -> dict:
+                           eager: bool = False, exact: bool = False,
+                           timed: bool = True) -> dict:
     """The kernel against its plain version on one seeded input (1 bf16
     ulp, or 1e-6 relative in f32; bit for bit with ``exact``), then its
     device time with the input read from device memory (``ms``) and from L2
     (``ms_l2``), the plain version's and (``library``) one F.batch_norm's
     time on cold inputs, and the bound: x read once and y written once
-    (plus the two (C,) f32 vectors) at the HBM rate."""
+    (plus the two (C,) f32 vectors) at the HBM rate. Without ``timed``, the
+    check alone."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -342,6 +391,8 @@ def measure_scale_bias_act(shape, dtype, act, gen, device, library: bool,
     else:
         err = (bf16_ulp_ok(y, ref) if dtype == torch.bfloat16
                else f32_ok(y, ref))
+    if not timed:
+        return {"max_abs_err": err}
     nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * shape[-1]
     cold = cold_inputs(x, scale, shift)
 
@@ -435,14 +486,12 @@ def phase_slice(device, model_select: int = 1, batch: int = 4,
     input in another layout would be copied before its kernel)."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli.serve \
         import preprocess_bytes
-    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run \
-        import RunConfig
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.data.png \
         import encode_png_gray8
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
         .tree import ClassTree
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
-        import BatchNormAct, build_model
+        import BatchNormAct
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -455,7 +504,7 @@ def phase_slice(device, model_select: int = 1, batch: int = 4,
     size = size or spec["img"]
     tree = ClassTree.from_json("assets/class_tree_tl.json",
                                "assets/class_map.csv")
-    model = build_model(tree, model_select, 1)
+    model = build_donor(tree, model_select)
     n_bn = sum(isinstance(m, BatchNormAct) for m in model.modules())
     # one per conv of the backbone, as in the JAX model's trace
     assert n_bn == spec["n_bn"], n_bn
@@ -471,8 +520,7 @@ def phase_slice(device, model_select: int = 1, batch: int = 4,
     pngs = [encode_png_gray8(im) for im in imgs]
     x = np.concatenate([preprocess_bytes(p, size) for p in pngs])  # f32
 
-    cfg32 = RunConfig(model_select=model_select, model_type=1, img_size=size,
-                      compute_dtype="float32")
+    cfg32 = run_config(model_select, img_size=size, compute_dtype="float32")
     pred32 = Predictor(cfg32, sd, tree=tree, device=device)
     fba.LAUNCHES = 0
     out32 = pred32(x[:1])
@@ -506,8 +554,7 @@ def phase_slice(device, model_select: int = 1, batch: int = 4,
                                       "max_abs_logit": scale,
                                       "class_map_agree": agree}
 
-    cfg16 = RunConfig(model_select=model_select, model_type=1, img_size=size,
-                      compute_dtype="bfloat16")
+    cfg16 = run_config(model_select, img_size=size, compute_dtype="bfloat16")
     pred16 = Predictor(cfg16, sd, tree=tree, device=device)
     pred16(x)  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
@@ -787,14 +834,12 @@ def train_setup(tree, sd, device, compute_dtype: str, double: bool = False,
     """The hierarchical model of one donor (``MODELS``) in train mode on
     ``device`` from ``sd`` (in float64 with ``double``, a reference on the
     CPU), with ``remat``, its AdamW state and its train step."""
-    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
-        import build_model
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
         .state import create_train_state
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
         .steps import make_train_step
 
-    model = build_model(tree, model_select, 1, remat=remat)
+    model = build_donor(tree, model_select, remat=remat)
     model.load_state_dict(sd, strict=True)
     model = model.to(device=device, memory_format=torch.channels_last,
                      dtype=torch.float64 if double else None).train()
@@ -1106,9 +1151,11 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
         xn = args[0].permute(0, 2, 3, 1)
         key = (tuple(xn.shape), xn.dtype, mod.act)
         shapes[key] = shapes.get(key, 0) + 1
-        with torch.no_grad():  # the plain version: no launch is counted
-            mean, var = fba._bn_stats_ref(xn)
-        batch_stats[mod] = (mean, var, xn.numel() // xn.shape[-1])
+        with torch.no_grad():  # in float64: no kernel, no plain version
+            xd = xn.reshape(-1, xn.shape[-1]).double()
+            mean, var = xd.mean(0), xd.var(0, unbiased=False)
+        batch_stats[mod] = (mean.float(), var.float(),
+                            xn.numel() // xn.shape[-1])
 
     # the eval step first, while the running statistics are the seeded
     # ones (after a few steps at lr 0.018 from random weights they no
@@ -1360,8 +1407,9 @@ CLI_ROOT = "build/chip_smoke/train_cli"
 
 
 def _plain_counters():
-    """Wrap the plain versions of kernels 1-3 so that a call is counted;
-    returns (counts, undo)."""
+    """Wrap the plain versions of kernels 1-3 so that a call on a card
+    tensor is counted (the CPU references' calls are not); returns
+    (counts, undo)."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -1374,7 +1422,7 @@ def _plain_counters():
 
     def wrap(name):
         def counted(*a, **k):
-            counts[name] += 1
+            counts[name] += a[0].is_cuda
             return saved[name](*a, **k)
         return counted
 
@@ -2203,8 +2251,8 @@ def phase_serving_options(card: str, device: str = "cuda") -> dict:
         real_calibrate = quantize.calibrate
         calibrated = []
 
-        def calibrate(model, batches, apply_fn=None):
-            s = real_calibrate(model, batches, apply_fn)
+        def calibrate(model, batches, apply_fn=None, **kw):
+            s = real_calibrate(model, batches, apply_fn, **kw)
             assert {p for p, _ in quantize._plain_convs(model)} == set(s)
             assert min(s.values()) > 0, s
             calibrated.append(s)
@@ -2653,8 +2701,7 @@ def phase_deployment(card: str, device: str = "cuda") -> dict:
         direct = norm.fused_scale_bias_act
         eager_op = {"direct": [], "op": []}
         try:
-            for which in ("direct", "op", "op", "direct", "direct", "op",
-                          "op", "direct"):
+            for which in ("direct", "op", "op", "direct"):
                 norm.fused_scale_bias_act = (direct if which == "direct"
                                              else via_op)
                 eager_op[which].append(_host_ms(lambda: concat.forward(xt),
@@ -3418,7 +3465,8 @@ def run_dp_ranks(world: int, args: tuple, out: str, device: str = "cuda",
             for r in range(world)]
 
 
-def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
+def measure_split(shape, dtype, act, gen, device, entries: bool,
+                  timed: bool = True) -> dict:
     """Kernels 1 and 3 through the split entries of a data-parallel group
     at one BN shape, at one rank: mean/var, dx, dgamma and dbeta bit for
     bit to the fused launches, each entry against its plain version, and
@@ -3427,7 +3475,7 @@ def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
     ``entries``, each entry's time, its plain version's and one library
     call's (PyTorch's SyncBatchNorm pieces: ``batch_norm_stats``,
     ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``) and its
-    bound."""
+    bound. Without ``timed``, the checks alone."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -3476,6 +3524,10 @@ def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
     rdx = fba._bn_backward_dx_ref(x2, g2, *vecs, bsums, act)
     err_dx = _backward_err((dx2.reshape(-1, c), dg2, db2), (rdx, dg2, db2))
     del rdx, rs
+    errs = {"bn_stats_sums": err_sums, "bn_backward_reduce": err_red,
+            "bn_backward_dx": err_dx}
+    if not timed:
+        return {"errs": errs}
 
     nb = x.numel() * x.element_size()
     n_cold = max(2, -(-2 * L2_BYTES // (2 * nb)))
@@ -3500,8 +3552,6 @@ def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
             lambda *a: fba.bn_backward_dx(*a[:6], fba.bn_backward_reduce(
                 *a[:6], act)[2], act), xg, reps=10),
     }
-    errs = {"bn_stats_sums": err_sums, "bn_backward_reduce": err_red,
-            "bn_backward_dx": err_dx}
     if not entries:
         return {"times": t, "errs": errs}
     rows_out = {
@@ -3864,7 +3914,9 @@ def phase_scale_out(card: str, train_shapes: dict,
 # ------------------------------------------------------------- phase 20
 REMAT_ROOT = "build/chip_smoke/remat"
 REMAT_MODES = (False, "module", "conv")
-REMAT_TIMED = 5
+# timed steps a mode after step 1 (5 until phase 22 came: its time
+# went to W18; the median of 2 warm steps still orders the modes)
+REMAT_TIMED = 2
 # two ranks with remat "conv" against one process, phase 19's criteria:
 # a bf16 step whose loss is held to 1e-4 and an f32 step (TF32 off) whose
 # significant updates may be 0.5 % off
@@ -3873,7 +3925,7 @@ REMAT_DP_LOSS1 = 1e-4
 REMAT_DP_SIG_BAD = 0.005
 MESH_FOLDS = 4
 MESH_BATCH = 4
-MESH_TIMED = 3
+MESH_TIMED = 2  # 3 until phase 22 came
 MESH_PROB_RTOL, MESH_PROB_ATOL = 1e-5, 1e-6  # JAX test_round3_safety.py:321
 MESH_EVAL_BATCH = 4
 
@@ -4697,19 +4749,66 @@ def _space_eval(where: str, n_space: int, device: str) -> dict:
             "result": res[0] and res[0]["overall"]}
 
 
+# the int8 Evaluator over (data 1, space 2) against one process: the
+# calibrated scales (each rank observes its band; the group's maximum) to
+# 1e-4 relative (the banded convolutions add in another order, and cuDNN
+# may pick other algorithms for a band: the CPU test reads 1.9e-7), the
+# class maps and metrics.csv at tests/test_torch_quantize.py's AGREE and
+# PROB_MAX
+SPACE_INT8_SCALE_RTOL = 1e-4
+SPACE_INT8_AGREE = 0.99
+SPACE_INT8_METRICS = 0.02
+
+
+def _space_eval_int8(where: str, n_space: int, device: str) -> dict:
+    """The ``Evaluator`` with ``quantize`` of phase 13's fold (352 px, f32,
+    the default calibration batches, images saved) with ``n_space``, into
+    ``where/fold_1``: its scales, kernel-2 launches and int8 convs."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config \
+        .run import RunConfig
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
+        .tree import ClassTree
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        int8_conv,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        import evaluate
+
+    cfg = RunConfig(tree_root="assets/class_tree_tl.json",
+                    class_map="assets/class_map.csv", model_type=1,
+                    img_size=MODELS[0]["img"], n_space=n_space,
+                    quantize=True)
+    tree = ClassTree.from_json(cfg.tree_root, cfg.class_map)
+    set_counts_to_zero()
+    int8_conv.CALLS = 0
+    t0 = time.perf_counter()
+    ev = evaluate.Evaluator(cfg, tree, f"{CLI_ROOT}/data/fold_1/val",
+                            f"{CLI_ROOT}/run/fold_1/best.ckpt",
+                            f"{where}/fold_1", device=device)
+    res = ev.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "counts": read_counts(),
+            "int8_calls": int8_conv.CALLS, "scales": ev.act_scales,
+            "result": res and res["overall"]}
+
+
 def space_rank_job(rank: int, world: int, paths: dict, plan,
                    device: str = "cuda") -> dict:
-    """One rank of phase 21 (a, b, d), the card shared with the other rank
-    over gloo: :func:`space_steps` of ``plan``; the f32 models' first step
-    again under :func:`halo_grads_dropped`; then the Evaluator over
-    ``(data 1, space world)`` into ``SPACE_ROOT/eval/rank{rank}``."""
+    """One rank of phase 21 (a, b, d, e), the card shared with the other
+    rank over gloo: :func:`space_steps` of ``plan``; the f32 models' first
+    step again under :func:`halo_grads_dropped`; then the Evaluator over
+    ``(data 1, space world)`` into ``SPACE_ROOT/eval/rank{rank}``, and with
+    ``quantize`` into ``SPACE_ROOT/eval_int8/rank{rank}``."""
     steps = space_steps(rank, world, paths, plan, device=device)
     with halo_grads_dropped():
         fault = space_steps(rank, world, paths,
                             [(ms, d, 1) for ms, d, _ in plan
                              if d == "float32"], device=device)
     ev = _space_eval(f"{SPACE_ROOT}/eval/rank{rank}", world, device)
-    return {"steps": steps, "fault": fault, "eval": ev}
+    evq = _space_eval_int8(f"{SPACE_ROOT}/eval_int8/rank{rank}", world,
+                           device)
+    return {"steps": steps, "fault": fault, "eval": ev, "eval_int8": evq}
 
 
 def phase_space(card: str, device: str = "cuda") -> dict:
@@ -4739,7 +4838,11 @@ def phase_space(card: str, device: str = "cuda") -> dict:
     (d) ``predict_eval`` of phase 13's fold over ``(data 1, space 2)``
         against one process: metrics.csv within ``EVAL_BATCH_ATOL`` and
         the PNGs within ``EVAL_BATCH_PIXELS`` differing pixels (phase 15's
-        batch bounds), only rank 0 writing.
+        batch bounds), only rank 0 writing;
+    (e) the same ``Evaluator`` with ``quantize`` (int8 convolutions on the
+        bands, calibrated on them) against one process's: the scales, the
+        class maps and metrics.csv within the ``SPACE_INT8_*`` bounds, the
+        int8 convs and kernel-2 launches counted, only rank 0 writing.
 
     Every split-entry and kernel-2 launch of (a) and (b) is at a band
     shape; :func:`phase_split_kernels` and :func:`phase_path_kernel_times`
@@ -4779,6 +4882,7 @@ def phase_space(card: str, device: str = "cuda") -> dict:
                                          in SPACE_PLAN if d == "float32"],
                            device)
     one_eval = _space_eval(f"{SPACE_ROOT}/eval/one", 1, device)
+    one_int8 = _space_eval_int8(f"{SPACE_ROOT}/eval_int8/one", 1, device)
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = run_dp_ranks(SPACE_RANKS, (paths, SPACE_PLAN, device),
@@ -4896,6 +5000,44 @@ def phase_space(card: str, device: str = "cuda") -> dict:
     assert all(n == MODELS[0]["n_bn"] * n_fwd for n in ev["rank_launches"])
     out["eval"] = ev
 
+    # (e) the int8 Evaluator over (data 1, space 2) against one process
+    want_dir = f"{SPACE_ROOT}/eval_int8/one/fold_1"
+    got_dir = f"{SPACE_ROOT}/eval_int8/rank0/fold_1"
+    want_dumps = _dumps(want_dir, names, size)
+    px = _pixels_differing(_dumps(got_dir, names, size), want_dumps)
+    n_px = sum(v.size for v in want_dumps.values())
+    assert not os.path.exists(f"{SPACE_ROOT}/eval_int8/rank1"), \
+        "rank 1 wrote"
+    scales = [r["eval_int8"]["scales"] for r in ranks]
+    want_s = one_int8["scales"]
+    assert scales[0] == scales[1], "the ranks' scales differ"
+    assert set(scales[0]) == set(want_s) and min(want_s.values()) > 0
+    scale_err = max(abs(scales[0][k] - v) / v for k, v in want_s.items())
+    evq = {"metrics_max_abs_err": float(np.abs(
+               _metrics_numbers(f"{got_dir}/metrics.csv")
+               - _metrics_numbers(f"{want_dir}/metrics.csv")).max()),
+           "class_map_agree": 1.0 - px / n_px, "scales": len(want_s),
+           "scale_max_rel_err": scale_err,
+           "one_wall_s": one_int8["wall_s"],
+           "rank_wall_s": [r["eval_int8"]["wall_s"] for r in ranks],
+           "rank_int8_calls": [r["eval_int8"]["int8_calls"] for r in ranks],
+           "one_int8_calls": one_int8["int8_calls"],
+           "rank_launches": [r["eval_int8"]["counts"]["scale_bias_act"]
+                             for r in ranks],
+           "one_launches": one_int8["counts"]["scale_bias_act"]}
+    log(f"space axis on {card}: the int8 Evaluator of phase 13's fold "
+        f"({len(names)} images, {size} px, f32, quantize) over (data 1, "
+        f"space 2) against one process: {json.dumps(evq)}")
+    assert scale_err <= SPACE_INT8_SCALE_RTOL, evq
+    assert evq["metrics_max_abs_err"] <= SPACE_INT8_METRICS, evq
+    assert evq["class_map_agree"] >= SPACE_INT8_AGREE, evq
+    # the same forwards as one process (calibration and scoring), each
+    # convolution of them in int8 on every rank
+    assert evq["rank_launches"] == [evq["one_launches"]] * SPACE_RANKS, evq
+    assert evq["rank_int8_calls"] == [evq["one_int8_calls"]] * SPACE_RANKS
+    assert evq["one_int8_calls"] > 0, evq
+    out["eval_int8"] = evq
+
     # (c) the train CLI at --n-space 2 through tools/multirank_check.py
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -4921,6 +5063,160 @@ def phase_space(card: str, device: str = "cuda") -> dict:
     out["multirank_check"] = check
     out["seconds"] = time.perf_counter() - t_phase
     log(f"space axis on {card}: the phase took {out['seconds']:.1f} s")
+    return out
+
+
+W18_ROOT = "build/chip_smoke/w18"
+W18_TIMED = 3  # train steps of the bench.py recipe, each counted
+W18_SPACE = 2  # the --n-space of the band shapes held
+
+
+def band_shapes(shapes: dict, n: int) -> dict:
+    """Every rank's band of each (NHWC shape, dtype, act) over ``n`` space
+    ranks (``parallel/bands.py:bands``: each BN input split at its own
+    global height), with its calls."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel \
+        .bands import bands
+
+    out = {}
+    for (shape, dtype, act), calls in shapes.items():
+        for a, b in bands(shape[1], n):
+            key = ((shape[0], b - a) + tuple(shape[2:]), dtype, act)
+            out[key] = out.get(key, 0) + calls
+    return out
+
+
+def phase_w18(card: str, device: str = "cuda") -> dict:
+    """Phase 22, HRNet-W18 (``--config w18``: branches of 18, 36, 72 and
+    144 channels, a 270-channel head, none a multiple of 8) at full width
+    and depth, the default tree, 620 px, seeded weights
+    (``build/chip_smoke/w18/``):
+
+    (a) the ``Predictor`` in f32 at batch 1 against the CPU and in bf16 at
+        batch 4, 306 launches of kernel 2 per forward (:func:`phase_slice`);
+    (b) the train step of the bench.py recipe (batch 16, bf16, AdamW at lr
+        0.018): an eval step, a warm-up step and ``W18_TIMED`` steps with
+        306 launches each of kernels 1, 2 and 3 and finite losses, one
+        profiled (:func:`phase_train`);
+    (c) every shape of kernel 2 in (a) and of kernels 1-3 in (b) held to the
+        plain versions and timed beside its bound and a library call; the
+        split entries at every shape of (b) and at every band shape of both
+        ranks at ``--n-space 2`` (:func:`band_shapes`) bit for bit to the
+        fused launches and against their plain versions, and kernel 2 bit
+        for bit to its plain version at those band shapes (not timed);
+    (d) a ``torch.export`` artifact of the bf16 ``Predictor`` at batch 1,
+        loaded and held to the eager forward (306 launches of kernel 2);
+    (e) the int8 ``Predictor`` at batch 1 (its default calibration batch)
+        against the float one, the int8 conv bit for bit to its plain
+        version at every shape it ran (C_out of 18, 36, 72 and 144 among
+        them; the head's 270-channel conv stays float, as in JAX).
+
+    No plain version of kernels 1-3 runs in (a), (b), (d) or (e)."""
+    import os
+    import shutil
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.cli.serve \
+        import preprocess_bytes
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        int8_conv,
+    )
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        import export as pexport
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train \
+        .serving import Predictor
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(W18_ROOT, ignore_errors=True)
+    os.makedirs(W18_ROOT)
+    dev = torch.device(device)
+    n_bn = MODELS["w18"]["n_bn"]
+    plain, undo_plain = _plain_counters()
+    try:
+        # (a) serving
+        result, pred16, tree, pngs, sd = phase_slice(dev, model_select="w18")
+        del pred16
+        torch.cuda.empty_cache()
+        # (b) the train step
+        train = phase_train(dev, tree, sd, n_bn, timed=W18_TIMED,
+                            model_select="w18")
+        torch.cuda.empty_cache()
+        # (d) the exported artifact of the bf16 Predictor at batch 1
+        x = preprocess_bytes(pngs[0], IMG)  # (1, 620, 620, 3) f32
+        cfg16 = run_config("w18", img_size=IMG, compute_dtype="bfloat16")
+        eager = Predictor(cfg16, sd, tree=tree, device=dev)
+        path = f"{W18_ROOT}/w18_bf16_b1.pt2"
+        t0 = time.perf_counter()
+        pexport.export_predictor(eager, path, batch=1)
+        export_s = time.perf_counter() - t0
+        loaded = pexport.load_exported(path, device=device)
+        got, counts = _counted(lambda: loaded(x))
+        assert counts["scale_bias_act"] == n_bn, counts
+        assert counts["bn_stats"] == counts["bn_backward"] == 0, counts
+        artifact = {"export_s": export_s, "launches": counts[
+            "scale_bias_act"], **_agree(got, eager(x), EXPORT_PROB_ATOL,
+                                        EXPORT_CLASS_AGREE)}
+        log(f"W18 artifact (bf16, batch 1) on {card}: "
+            f"{json.dumps(artifact)}")
+        del loaded, eager
+        # (e) int8 at batch 1 against float
+        cfg32 = run_config("w18", img_size=IMG, compute_dtype="float32")
+        inputs, undo_i8 = _int8_recorder()
+        try:
+            pf = Predictor(cfg32, sd, tree=tree, device=dev)
+            pq = Predictor(cfg32, sd, tree=tree, quantize=True, device=dev)
+            int8_conv.CALLS = 0
+            q_out, counts = _counted(lambda: pq(x))
+            n_int8 = int8_conv.CALLS
+            assert counts["scale_bias_act"] == n_bn, counts
+            assert n_int8 == len(pq.act_scales) - tree.num_levels, n_int8
+            f_out = pf(x)
+            q_mean = [float(np.abs(a - b).mean())
+                      for a, b in zip(q_out["probs"], f_out["probs"])]
+            assert max(q_mean) < QUANT_PROB_MEAN, q_mean
+            del pf, pq
+        finally:
+            undo_i8()
+        int8 = {"int8_calls": n_int8, "prob_mean_abs_diff": q_mean,
+                "c_out": sorted({k[1][3] for k in inputs}),
+                "launches": counts["scale_bias_act"], **_int8_held(inputs)}
+        log(f"W18 int8 Predictor (f32, batch 1) on {card}: "
+            f"{json.dumps(int8)}")
+        del inputs
+        torch.cuda.empty_cache()
+    finally:
+        undo_plain()
+    assert all(v == 0 for v in plain.values()), plain
+
+    # (c) every shape held to the plain versions; the forward's and the
+    # step's timed
+    fwd = phase_path_kernel_times(dev, result["shapes"])
+    tot = phase_train_kernel_times(dev, train["shapes"])
+    bands_ = band_shapes(train["shapes"], W18_SPACE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    split_errs = dict.fromkeys(SPLIT_ENTRIES, 0.0)
+    for shapes in (train["shapes"], bands_):
+        for shape, dtype, act in sorted(shapes, key=str):
+            r = measure_split(shape, dtype, act, gen, dev, False, timed=False)
+            for e, v in r["errs"].items():
+                split_errs[e] = max(split_errs[e], v)
+    band_err = max(measure_scale_bias_act(shape, dtype, act, gen, dev,
+                                          library=False, exact=True,
+                                          timed=False)["max_abs_err"]
+                   for shape, dtype, act in sorted(bands_, key=str))
+    log(f"W18 split entries at the step's {len(train['shapes'])} shapes and "
+        f"the {len(bands_)} band shapes of both ranks at --n-space "
+        f"{W18_SPACE}: bit for bit to the fused launches, against their "
+        f"plain versions max abs err {json.dumps(split_errs)}; kernel 2 bit "
+        "for bit to its plain version at every band shape")
+    out = {"serve": {k: v for k, v in result.items() if k != "shapes"},
+           "train": {k: v for k, v in train.items() if k != "shapes"},
+           "forward": fwd, "step": tot, "split_errs": split_errs,
+           "band_scale_bias_act_err": band_err, "artifact": artifact,
+           "int8": int8,
+           "shapes": {"forward": len(result["shapes"]),
+                      "step": len(train["shapes"]), "band": len(bands_)},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"W18 on {card}: the phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -5073,6 +5369,10 @@ def main() -> int:
     space = phase_space(card)
     torch.cuda.empty_cache()
     lap("space axis (21)")
+
+    w18 = phase_w18(card)
+    torch.cuda.empty_cache()
+    lap("W18 (22)")
     w48_conv = remat["remat"]["W48"]["conv"]["launches_per_step"]
     unet_conv = remat["remat"]["UNet"]["conv"]["launches_per_step"]
 
@@ -5100,6 +5400,7 @@ def main() -> int:
                     r["errs"][name] for r in space["split"].values()),
                 **{f"space_{k}": band[k] for k in
                    ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "w18_max_abs_err": w18["split_errs"][name],
                 "work": f"the {MODELS[0]['n_bn']} calls of one UNet step at "
                         f"a rank's shapes (batch {TRAIN_BATCH // DP_RANKS} "
                         f"of {TRAIN_BATCH}, 352 px, bf16), inputs from device"
@@ -5109,9 +5410,19 @@ def main() -> int:
                         "space ranks (W48 620 px bf16 and UNet 352 px f32 "
                         "steps, every launch at a band shape), space_ms and "
                         "its bound over the calls of one W48 step of both "
-                        "ranks at their band shapes"}
+                        "ranks at their band shapes; w18_max_abs_err: "
+                        "against the plain version at every shape of one "
+                        "W18 step (620 px, batch 16, bf16) and every band "
+                        "shape of both ranks at --n-space 2, bit for bit to "
+                        "the fused launches (phase 22)"}
 
     fused_split = {path: r["times"] for path, r in scale["split"].items()}
+    w18_work = ("; w18_*: the same over one bf16 train step of HRNet-W18 "
+                f"(--config w18, batch {w18['train']['batch']}, {IMG} px, "
+                "phase 22), w18_launches its launches a step")
+
+    def w18_row(name):
+        return {f"w18_{k}": w18["step"][name][k] for k in TOTAL_KEYS}
 
     step_work = (f"all launches of one bf16 train step (W48, batch "
                  f"{train['batch']}, {IMG} px), inputs read from device "
@@ -5147,10 +5458,17 @@ def main() -> int:
         **{f"space_{k}": space["scale_bias_act"][k]
            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                      "library_ms")},
+        "w18_serve_launches": w18["serve"]["launches"],
+        "w18_launches": w18["train"]["counts"]["scale_bias_act"],
+        **{f"w18_serve_{k}": w18["forward"][k] for k in TOTAL_KEYS},
+        **w18_row("scale_bias_act"),
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             epath["max_abs_err"],
                             ttot["scale_bias_act"]["max_abs_err"],
-                            utot["scale_bias_act"]["max_abs_err"]]
+                            utot["scale_bias_act"]["max_abs_err"],
+                            w18["forward"]["max_abs_err"],
+                            w18["step"]["scale_bias_act"]["max_abs_err"],
+                            w18["band_scale_bias_act_err"]]
                            + [c["max_abs_err"] for c in cases]),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],
@@ -5182,7 +5500,12 @@ def main() -> int:
                 "ranks (phase 20); space_*: rank 0's launches over phase "
                 "21's W48 and UNet steps on two space ranks, every one at a "
                 "band shape, and the kernel held and timed at every band "
-                "shape of both ranks' step 1",
+                "shape of both ranks' step 1; w18_serve_*: over one bf16 "
+                "forward of HRNet-W18 (--config w18) at batch "
+                f"{w18['serve']['bf16_batch']}, {IMG} px" + w18_work
+                + "; the kernel also bit for bit to its plain version at "
+                "that step's band shapes of both ranks at --n-space 2 "
+                "(phase 22)",
         **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
         **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
@@ -5191,7 +5514,7 @@ def main() -> int:
         "bn_stats", "bn_stats.cu", f"{BN_FILE}:51",
         train["counts"]["bn_stats"], ttot["bn_stats"],
         step_work + "; library_ms is one torch.batch_norm_stats per launch"
-        + unet_work,
+        + unet_work + w18_work,
         design="one launch per call, grid sized by the call's bytes: strips "
         "of one 128-byte round per thread, at most 2 blocks per SM, f32 "
         "pairwise sums, the block's rows added by warp shuffles; the "
@@ -5207,13 +5530,17 @@ def main() -> int:
         remat_launches=w48_conv[0], unet_remat_launches=unet_conv[0],
         split_entries=[split_entry("bn_stats_sums", "bn_stats.cu",
                                    f"{BN_FILE}:51")],
-        fused_vs_split_ms=fused_split, **unet("bn_stats")),
+        fused_vs_split_ms=fused_split, **unet("bn_stats"),
+        w18_launches=w18["train"]["counts"]["bn_stats"],
+        w18_profiled_kernels=w18["train"]["profile"]["kernel_counts"][
+            "bn_stats"], **w18_row("bn_stats")),
         kernel_entry(
         "bn_backward", "bn_backward.cu", f"{BN_FILE}:173",
         train["counts"]["bn_backward"], ttot["bn_backward"],
         step_work + "; one cooperative launch per call; library_ms is one "
         "aten native_batch_norm_backward(train=True) per launch, which "
-        "computes act 'none' (relu needs its mask on top)" + unet_work,
+        "computes act 'none' (relu needs its mask on top)" + unet_work
+        + w18_work,
         design="one cooperative pass: phase A into shared memory and "
         "per-thread cp.async rings, two grid barriers around a double "
         "combine, phase B re-reading on chip, evict-first dx (previously "
@@ -5226,7 +5553,9 @@ def main() -> int:
         remat_launches=w48_conv[2], unet_remat_launches=unet_conv[2],
         split_entries=[split_entry(e, "bn_backward.cu", f"{BN_FILE}:173")
                        for e in ("bn_backward_reduce", "bn_backward_dx")],
-        fused_vs_split_ms=fused_split, **unet("bn_backward")),
+        fused_vs_split_ms=fused_split, **unet("bn_backward"),
+        w18_launches=w18["train"]["counts"]["bn_backward"],
+        **w18_row("bn_backward")),
         kernel_entry(
         "conv1x1_bn_relu", "conv_bn_relu.cu", CONV_BN_REPLACES,
         conv["launches"], conv,
@@ -5256,7 +5585,8 @@ def main() -> int:
                                      if k != "shapes"},
                     "serving_options": opt, "deployment": dep,
                     "data_side": data_side, "scale_out": scale,
-                    "remat_and_meshes": remat, "space": space},
+                    "remat_and_meshes": remat, "space": space,
+                    "w18": w18},
                    default=str))
     log(f"wall seconds by stretch of phases: {json.dumps(laps)}; in all "
         f"{marks[-1] - marks[0]:.1f} s")

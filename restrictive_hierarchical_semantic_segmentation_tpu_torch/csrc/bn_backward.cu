@@ -91,7 +91,22 @@
 //    grid of one round per thread, at most one wave; dx stored evict-first.
 //    Bound: x and g read once, dx written once.
 // dx takes phase B's roundings, so at one rank the split gives the fused
-// launch's dx, dgamma and dbeta bit for bit. Between the two, x and g are
+// launch's dx, dgamma and dbeta bit for bit.
+//
+// Any C: every entry works on the view of rows of L = lcm(C, 8) columns
+// (bn_reduce.cuh; L = C where C % 8 == 0), the per-channel vectors tiled to
+// L by the wrapper, over the view's whole rows, exactly as above with L for
+// C. Where L > C: the fused pass's combine writes the columns' double sums,
+// and after one more grid barrier its blocks fold the L / C columns of each
+// channel (fold_columns) and add the tail's rows (fewer than L / C image
+// rows) one by one, writing edz, eydz and edz / n, eydz / n tiled to L; its
+// blocks write the tail's dx after the last barrier. The reduce entry's
+// column groups write their columns' sums and the block that draws the last
+// ticket of kFoldCounter folds them the same way (fold_channel: both entries
+// fold in one order, so the split stays bit for bit to the fused launch).
+// The dx entry's blocks are a multiple of L / 8 threads, their coefficients
+// tiled to L, and its first block writes the tail. n is the count of image
+// rows. Where C % 8 == 0 none of this runs. Between the two, x and g are
 // read twice from device memory (5 tensors moved in all, against the fused
 // pass's 3 where they stay on chip).
 //
@@ -150,16 +165,40 @@ struct Args {
   const T* g;
   Params p;
   float* partial;  // [2][row_blocks][channels]
+  double* cols;    // [2][channels]: the view's column sums, to fold
   float* edz;
   float* eydz;
   T* dx;  // null: dgamma and dbeta only
   double* sums;  // non-null: [Σdy (C), Σdy·x̂ (C), n] in double as well
-  int64_t rows;
+  int64_t rows;  // whole rows of the view
+  int64_t n;     // image rows
   int64_t rows_per_block;
-  int channels;
+  int channels;   // the view's width L = lcm(c, 8)
+  int c;          // the tensor's channels
+  int tail_rows;  // image rows after the view's last whole row
   int tx, ty, col_blocks, row_blocks;
   int stage_rows;  // rows of each strip kept in shared memory
 };
+
+// Channel ch's double sums Σdy, Σdy·x̂ over a view wider than C: its
+// columns' sums in order (written earlier in the launch), then the tail's
+// rows one by one (each product rounded once), in one order for both
+// entries.
+template <typename T, bool RELU>
+__device__ __forceinline__ void fold_channel(const Args<T>& args, int ch,
+                                             double& a, double& b) {
+  rhss::fold_columns(args.cols, args.channels, args.c, ch, a, b);
+  const int64_t base = args.rows * args.channels;
+  for (int r = 0; r < args.tail_rows; ++r) {
+    const int64_t e = base + (int64_t)r * args.c + ch;
+    float dy, xhat;
+    dy_xhat<RELU>(rhss::to_float(args.x[e]), rhss::to_float(args.g[e]),
+                  args.p.scale[ch], args.p.shift[ch], args.p.mean[ch],
+                  args.p.rstd[ch], dy, xhat);
+    a += dy;
+    b += __fmul_rn(dy, xhat);
+  }
+}
 
 // the 16-byte words of one thread's 8 values of a row: 1 (bf16) or 2 (f32)
 template <typename T>
@@ -347,28 +386,66 @@ bn_backward_fused(const Args<T> args) {
   // block i adds the strips' partials of channels [32 i, 32 i + 32)
   // (bn_reduce.cuh: combine_group)
   float* scaled = args.partial + 2 * (int64_t)args.row_blocks * C;  // [2][C]
+  const bool fold = args.c != C;  // uniform over the grid
+  // channel ch's (of the tensor's c) sums: edz, eydz, the double sums and,
+  // divided by n once in double, edz / n and eydz / n for phase B at each of
+  // its columns
+  const auto fin = [&](int ch, double a, double b) {
+    args.edz[ch] = (float)a;
+    args.eydz[ch] = (float)b;
+    if (args.sums != nullptr) {
+      args.sums[ch] = a;
+      args.sums[args.c + ch] = b;
+    }
+    const float ea = (float)(a / (double)args.n);
+    const float eb = (float)(b / (double)args.n);
+    for (int j = ch; j < C; j += args.c) {
+      scaled[j] = ea;
+      scaled[C + j] = eb;
+    }
+  };
   {
     double* da = reinterpret_cast<double*>(smem);  // in the ring's bytes
-    const auto fin = [&](int ch, double a, double b) {
-      args.edz[ch] = (float)a;
-      args.eydz[ch] = (float)b;
-      if (args.sums != nullptr) {
-        args.sums[ch] = a;
-        args.sums[C + ch] = b;
+    const auto col = [&](int ch, double a, double b) {
+      if (fold) {
+        args.cols[ch] = a;
+        args.cols[C + ch] = b;
+      } else {
+        fin(ch, a, b);
       }
-      // and divided by n once, in double, for phase B
-      scaled[ch] = (float)(a / (double)args.rows);
-      scaled[C + ch] = (float)(b / (double)args.rows);
     };
     const int groups = (C + kCombineX - 1) / kCombineX;
     for (int grp = blockIdx.x; grp < groups; grp += gridDim.x)
       rhss::combine_group(args.partial, args.row_blocks, C, grp, t, da,
-                          da + kThreads, fin);
+                          da + kThreads, col);
     if (args.sums != nullptr && blockIdx.x == 0 && t == 0)
-      args.sums[2 * C] = (double)args.rows;
+      args.sums[2 * args.c] = (double)args.n;
+  }
+  if (fold) {  // every channel's columns and the tail's rows
+    grid.sync();
+    for (int ch = blockIdx.x * kThreads + t; ch < args.c;
+         ch += gridDim.x * kThreads) {
+      double a, b;
+      fold_channel<T, RELU>(args, ch, a, b);
+      fin(ch, a, b);
+    }
   }
   if (args.dx == nullptr) return;  // uniform over the grid
   grid.sync();
+  if (fold) {  // the tail's dx
+    const int64_t base = args.rows * C;
+    for (int e = blockIdx.x * kThreads + t; e < args.tail_rows * args.c;
+         e += gridDim.x * kThreads) {
+      float dy, xhat;
+      const float sce = args.p.scale[e];
+      dy_xhat<RELU>(rhss::to_float(args.x[base + e]),
+                    rhss::to_float(args.g[base + e]), sce, args.p.shift[e],
+                    args.p.mean[e], args.p.rstd[e], dy, xhat);
+      const float q = __fmaf_rn(xhat, __ldcg(scaled + C + e),
+                                __ldcg(scaled + e));
+      args.dx[base + e] = rhss::from_float<T>(__fmul_rn(sce, __fsub_rn(dy, q)));
+    }
+  }
 
   // ------------------------------------------------------------ phase B
   if (!active) return;
@@ -581,7 +658,9 @@ bn_backward_reduce(const Args<T> args, int* counters) {
     v[0] += v[2];
     v[1] += v[3];
     v[0] += v[1];
-    if (which == 0) {
+    if (args.c != C) {  // a view wider than C: folded below
+      args.cols[which * C + ch] = v[0];
+    } else if (which == 0) {
       args.edz[ch] = (float)v[0];
       args.sums[ch] = v[0];
     } else {
@@ -589,7 +668,23 @@ bn_backward_reduce(const Args<T> args, int* counters) {
       args.sums[C + ch] = v[0];
     }
   }
-  if (bx == 0 && t == 0) args.sums[2 * C] = (double)args.rows;
+  if (args.c != C) {
+    // the last column group to finish folds every channel's columns and
+    // adds the tail's rows, as the fused pass does
+    if (!rhss::last_ticket(counters + rhss::kFoldCounter, args.col_blocks))
+      return;
+    for (int ch = t; ch < args.c; ch += kThreads) {
+      double a, b;
+      fold_channel<T, RELU>(args, ch, a, b);
+      args.edz[ch] = (float)a;
+      args.eydz[ch] = (float)b;
+      args.sums[ch] = a;
+      args.sums[args.c + ch] = b;
+    }
+    if (t == 0) args.sums[2 * args.c] = (double)args.n;
+    return;
+  }
+  if (bx == 0 && t == 0) args.sums[2 * C] = (double)args.n;
 }
 
 // ------------------------------------------------------- the dx entry
@@ -603,6 +698,9 @@ bn_backward_reduce(const Args<T> args, int* counters) {
 // mean, rstd, and edz / n, eydz / n in double from the group's sums, sums[2C]
 // = n, rounded once as the fused combine rounds them) while its first
 // round's loads fly; each thread then keeps its 8 channels' in registers.
+// Over a view wider than the tensor's c channels (C = lcm(c, 8)) the
+// coefficients are tiled to C, and the first block then writes the tail's
+// `tail` elements after the view's whole rows.
 template <typename T>
 __host__ __device__ constexpr int dx_units() {  // K: 64 bytes of x a round
   return 64 / (int)sizeof(Raw<T>);
@@ -617,7 +715,7 @@ template <typename T, bool RELU>
 __global__ void __launch_bounds__(kDxMaxThreads)
 bn_backward_dx(const T* __restrict__ x, const T* __restrict__ g, Params p,
                const double* __restrict__ sums, T* __restrict__ dx,
-               int64_t units, int channels) {
+               int64_t units, int channels, int c_in, int tail) {
   constexpr int K = dx_units<T>();
   extern __shared__ __align__(16) float coef[];
   const int t = threadIdx.x, B = blockDim.x, C = channels;
@@ -637,14 +735,15 @@ bn_backward_dx(const T* __restrict__ x, const T* __restrict__ g, Params p,
   };
   fetch(u);
 
-  const double n = sums[2 * C];
+  const double n = sums[2 * c_in];
   for (int ch = t; ch < C; ch += B) {
+    const int own = ch % c_in;  // ch itself where the view is the tensor
     coef[ch] = p.scale[ch];
     coef[C + ch] = p.shift[ch];
     coef[2 * C + ch] = p.mean[ch];
     coef[3 * C + ch] = p.rstd[ch];
-    coef[4 * C + ch] = (float)(sums[ch] / n);
-    coef[5 * C + ch] = (float)(sums[C + ch] / n);
+    coef[4 * C + ch] = (float)(sums[own] / n);
+    coef[5 * C + ch] = (float)(sums[c_in + own] / n);
   }
   __syncthreads();
   const int c = t % (C / kVec) * kVec;
@@ -680,6 +779,18 @@ bn_backward_dx(const T* __restrict__ x, const T* __restrict__ g, Params p,
       store8(dx + uk * kVec, out);
     }
     fetch(u + stride);
+  }
+  if (blockIdx.x == 0) {  // the tail: its element e has the view's column e
+    const int64_t base = units * kVec;
+    for (int e = t; e < tail; e += B) {
+      float dy, xhat;
+      dy_xhat<RELU>(rhss::to_float(x[base + e]), rhss::to_float(g[base + e]),
+                    coef[e], coef[C + e], coef[2 * C + e], coef[3 * C + e],
+                    dy, xhat);
+      const float q = __fmaf_rn(xhat, coef[5 * C + e], coef[4 * C + e]);
+      dx[base + e] = rhss::from_float<T>(
+          __fmul_rn(coef[e], __fsub_rn(dy, q)));
+    }
   }
 }
 
@@ -746,20 +857,25 @@ int launch_dx(const void* x, const void* g, Params p, const double* sums,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmemCap);
   });
   if (set != 0) return set;
-  const int cv = channels / kVec;
+  const int width = rhss::view_width(channels);
+  const int per = width / channels;
+  const int64_t view_rows = rows / per;
+  const int cv = width / kVec;
   const int threads = dx_threads(cv);
-  const int smem = kDxCoefs * channels * (int)sizeof(float);
+  const int smem = kDxCoefs * width * (int)sizeof(float);
   int per_sm = 0;
   const int occ = occupancy.get((const void*)kernel, threads, smem, &per_sm);
   if (occ != 0) return occ;
-  const int64_t units = rows * cv;
+  const int64_t units = view_rows * cv;
   const int64_t per_round = (int64_t)threads * dx_units<T>();
   int64_t blocks = (units + per_round - 1) / per_round;
   const int64_t wave = (int64_t)sms * per_sm;
   if (blocks > wave) blocks = wave;
+  if (blocks < 1) blocks = 1;  // a tail alone
   kernel<<<(unsigned)blocks, threads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), p, sums,
-      static_cast<T*>(dx), units, channels);
+      static_cast<T*>(dx), units, width, channels,
+      (int)((rows - view_rows * per) * channels));
   return (int)cudaGetLastError();
 }
 
@@ -803,13 +919,21 @@ int launch(const void* x, const void* g, Params p, int64_t rows, int channels,
     return per_sm < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
   });
   if (set != 0) return set;
-  const Geometry geo = geometry(rows, channels, (int)sizeof(T), sms);
-  // the workspace holds 2 * kTargetBlocks * C floats: the partials and edz /
-  // n, eydz / n
-  if (geo.row_blocks >= rhss::kTargetBlocks) return (int)cudaErrorInvalidValue;
+  const int width = rhss::view_width(channels);
+  const int per = width / channels;
+  const int64_t view_rows = rows / per;
+  const Geometry geo = geometry(view_rows > 0 ? view_rows : 1, width,
+                                (int)sizeof(T), sms);
+  // the workspace holds 2 * kTargetBlocks * L floats: the partials, edz / n
+  // and eydz / n, and where L > C the columns' double sums
+  if (2 * geo.row_blocks + (per > 1 ? 6 : 2) > 2 * rhss::kTargetBlocks)
+    return (int)cudaErrorInvalidValue;
+  double* cols = reinterpret_cast<double*>(
+      ws + 2 * ((int64_t)geo.row_blocks + 1) * width);
   const Args<T> args{static_cast<const T*>(x), static_cast<const T*>(g), p,
-                     ws, edz, eydz, static_cast<T*>(dx), sums, rows,
-                     geo.rows_per_block, channels, geo.tx, geo.ty,
+                     ws, cols, edz, eydz, static_cast<T*>(dx), sums,
+                     view_rows, rows, geo.rows_per_block, width, channels,
+                     (int)(rows - view_rows * per), geo.tx, geo.ty,
                      geo.col_blocks, geo.row_blocks, geo.stage_rows};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(geo.col_blocks * geo.row_blocks);
@@ -835,14 +959,22 @@ int launch_reduce(const void* x, const void* g, Params p, int64_t rows,
   int sms = 0;
   const int set = once.get(&sms, [] { return cudaSuccess; });
   if (set != 0) return set;
-  const Geometry geo = geometry(rows, channels, (int)sizeof(T), sms);
-  // the workspace: the partials, then the chains (2 * 16 * C doubles)
-  if (2 * geo.row_blocks + 4 * kCombineY > 2 * rhss::kTargetBlocks ||
+  const int width = rhss::view_width(channels);
+  const int per = width / channels;
+  const int64_t view_rows = rows / per;
+  const Geometry geo = geometry(view_rows > 0 ? view_rows : 1, width,
+                                (int)sizeof(T), sms);
+  // the workspace: the partials, then the chains (2 * 16 * L doubles), then
+  // the columns' sums (2 * L doubles)
+  if (2 * geo.row_blocks + 4 * kCombineY + 4 > 2 * rhss::kTargetBlocks ||
       geo.col_blocks > rhss::kMaxGroups)
     return (int)cudaErrorInvalidValue;
+  double* cols = reinterpret_cast<double*>(
+      ws + 2 * (int64_t)geo.row_blocks * width + 4 * kCombineY * width);
   const Args<T> args{static_cast<const T*>(x), static_cast<const T*>(g), p,
-                     ws, edz, eydz, static_cast<T*>(nullptr), sums, rows,
-                     geo.rows_per_block, channels, geo.tx, geo.ty,
+                     ws, cols, edz, eydz, static_cast<T*>(nullptr), sums,
+                     view_rows, rows, geo.rows_per_block, width, channels,
+                     (int)(rows - view_rows * per), geo.tx, geo.ty,
                      geo.col_blocks, geo.row_blocks, geo.stage_rows};
   bn_backward_reduce<T, RELU>
       <<<geo.col_blocks * geo.row_blocks, kThreads, 0, s>>>(args, counters);
@@ -851,7 +983,8 @@ int launch_reduce(const void* x, const void* g, Params p, int64_t rows,
 
 // The checks every entry shares; 0 when the arguments are taken.
 int check(int64_t rows, int channels, int dtype, int act) {
-  if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
+  if (rows <= 0 || channels <= 0 ||
+      (channels % kVec != 0 && rhss::view_width(channels) > rhss::kMaxWidth) ||
       (dtype != 0 && dtype != 1) || (act != 0 && act != 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -879,10 +1012,12 @@ int dispatch(int dtype, int act, F f) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 none, 1 relu. x, g: rows *
-// channels elements, 16-byte aligned; scale, shift, mean, rstd, edz, eydz:
-// channels floats, 16-byte aligned; workspace: 2 * 528 * channels floats
-// (bn_reduce.cuh's kTargetBlocks); dx: rows * channels elements in x's
-// dtype, 16-byte aligned, or null for dgamma and dbeta alone.
+// channels elements, 16-byte aligned; scale, shift, mean, rstd: L =
+// lcm(channels, 8) floats (the channels' values tiled), 16-byte aligned;
+// edz, eydz: channels floats; workspace: 2 * 528 * L floats (bn_reduce.cuh's
+// kTargetBlocks); dx: rows * channels elements in x's dtype, 16-byte
+// aligned, or null for dgamma and dbeta alone. channels % 8 == 0 or L <=
+// 16384.
 extern "C" int rhss_bn_backward(const void* x, const void* g, int64_t rows,
                                 int channels, int dtype, int act,
                                 const void* scale, const void* shift,
@@ -902,7 +1037,8 @@ extern "C" int rhss_bn_backward(const void* x, const void* g, int64_t rows,
 
 // The reduce entry: dgamma and dbeta as rhss_bn_backward gives them, and
 // sums (2 * channels + 1 doubles) gets [Σdy, Σdy·x̂, n] in double. counters:
-// 64 * 17 ints, 0 (and left at 0); channels <= 16384.
+// 64 * 34 + 1 ints (the statistics kernel's; this entry uses the first 64 *
+// 17 and kFoldCounter), 0 (and left at 0); L <= 16384.
 extern "C" int rhss_bn_backward_reduce(const void* x, const void* g,
                                        int64_t rows, int channels, int dtype,
                                        int act, const void* scale,
@@ -912,7 +1048,7 @@ extern "C" int rhss_bn_backward_reduce(const void* x, const void* g,
                                        void* sums, void* stream) {
   const int bad = check(rows, channels, dtype, act);
   if (bad) return bad;
-  if (channels > rhss::kMaxGroups * 32 * kVec)
+  if (rhss::view_width(channels) > rhss::kMaxWidth)
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, act, [&](auto tag, auto relu) {
     return launch_reduce<decltype(tag), decltype(relu)::value>(
@@ -926,7 +1062,8 @@ extern "C" int rhss_bn_backward_reduce(const void* x, const void* g,
 // The dx entry: dx = scale * (dy - (x̂ * eydz / n + edz / n)) from sums =
 // [Σdy, Σdy·x̂, n] (2 * channels + 1 doubles), the reduce entry's sums added
 // over a group. x, g, dx: rows * channels elements, 16-byte aligned; scale,
-// shift, mean, rstd: channels floats, 16-byte aligned; channels <= 4096.
+// shift, mean, rstd: L = lcm(channels, 8) floats (tiled), 16-byte aligned;
+// L <= 4096.
 extern "C" int rhss_bn_backward_dx(const void* x, const void* g, int64_t rows,
                                    int channels, int dtype, int act,
                                    const void* scale, const void* shift,
@@ -934,7 +1071,8 @@ extern "C" int rhss_bn_backward_dx(const void* x, const void* g, int64_t rows,
                                    const void* sums, void* dx, void* stream) {
   const int bad = check(rows, channels, dtype, act);
   if (bad) return bad;
-  if (channels > kDxMaxChannels) return (int)cudaErrorInvalidValue;
+  if (rhss::view_width(channels) > kDxMaxChannels)
+    return (int)cudaErrorInvalidValue;
   return dispatch(dtype, act, [&](auto tag, auto relu) {
     return launch_dx<decltype(tag), decltype(relu)::value>(
         x, g, params(scale, shift, mean, rstd),

@@ -17,8 +17,12 @@
 //
 // Loads are 16 bytes a thread (8 bf16, or 8 f32 as two float4), neighbouring
 // threads on neighbouring channel vectors of one row, and the rows of a
-// block are contiguous, so every warp reads contiguous memory. C % 8 == 0 is
-// required (the Python wrapper checks it).
+// block are contiguous, so every warp reads contiguous memory. At any C the
+// kernels reduce the view of rows of L = lcm(C, 8) columns (common.cuh:
+// view_width; L = C where C % 8 == 0) over its floor(rows / (L / C)) whole
+// rows; where L > C the blocks that draw the last tickets then fold the L / C
+// columns of each channel (fold_columns, in a fixed order) and add the last
+// rows mod (L / C) image rows, the tail, one by one.
 //
 // The workspace holds 2 * kTargetBlocks * C floats: neither kernel makes
 // more than kTargetBlocks strips (the BN backward keeps two more rows), so
@@ -37,6 +41,11 @@ constexpr int kTargetBlocks = 528;  // 4 per SM of an H100 SXM (132 SMs)
 // column groups of 32 channel vectors that the ticket counters cover
 // (C <= 64 * 32 * kVec; _STATS_GROUPS in ops/fused_bn_act.py)
 constexpr int kMaxGroups = 64;
+// a stream's counters: per column group the statistics kernel's group and
+// chunk counters (bn_stats.cu; the BN backward's reduce entry uses the first
+// 64 * 17), then the one both draw from to fold the columns of a view wider
+// than C (_COUNTERS_PER_STREAM in ops/fused_bn_act.py)
+constexpr int kFoldCounter = kMaxGroups * (1 + (kTargetBlocks + 15) / 16);
 
 struct Geometry {
   int tx;                  // channel vectors per block
@@ -110,6 +119,34 @@ struct Raw<float> {
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   }
 };
+
+// A value of x's dtype in f32, and back (round to nearest even)
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The two double sums of channel ch of a view `width` columns wide, from
+// its columns' sums cols ([2][width] doubles, written earlier in the same
+// launch): columns ch, ch + C, ... in that order.
+__device__ __forceinline__ void fold_columns(const double* cols, int width,
+                                             int C, int ch, double& a,
+                                             double& b) {
+  a = 0.0;
+  b = 0.0;
+  for (int j = ch; j < width; j += C) {
+    a += __ldcg(cols + j);
+    b += __ldcg(cols + width + j);
+  }
+}
 
 // A ticket for the whole block from *counter, one of n: true for the block
 // that draws the last one, which also sets the counter back to 0 (every

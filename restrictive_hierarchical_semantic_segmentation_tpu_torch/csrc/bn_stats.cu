@@ -49,10 +49,19 @@
 // explicit __dmul_rn / __dsub_rn (no contraction into an fma), so the caller's
 // f64 arithmetic on the sums of one rank gives the same bits as this kernel.
 //
+// Any C: the blocks reduce the view of rows of L = lcm(C, 8) columns
+// (bn_reduce.cuh) over its whole rows, exactly as above with L for C. Where
+// L > C the column groups' last blocks write their columns' double sums, and
+// the block that draws the last ticket of a third counter (kFoldCounter)
+// folds the L / C columns of each channel in order and adds the tail's rows
+// (fewer than L / C) one by one before the last step; n stays the count of
+// image rows. Where C % 8 == 0 none of this runs: L = C, no tail.
+//
 // What it cannot do: the smallest calls (under ~1 MB) still pay a launch,
 // one round trip to device memory and one or two through L2 and the
-// atomics, several times their bound (PERF.md). C must be a multiple of 8
-// and at most 16384 (kMaxGroups column groups).
+// atomics, several times their bound (PERF.md). lcm(C, 8) must be at most
+// 16384 (kMaxGroups column groups): any C up to 2048, multiples of 8 up to
+// 16384.
 //
 // Plain C interface for ctypes: returns cudaGetLastError() after the launch
 // (0 on success), or cudaErrorInvalidValue for arguments it does not take.
@@ -74,6 +83,10 @@ constexpr int kCombineLanes = 4;  // row lanes of a combining block
 constexpr int kMaxChunks = (rhss::kTargetBlocks + kChunk - 1) / kChunk;
 // per column group: the group's ticket counter, then one per chunk
 constexpr int kGroupCounters = 1 + kMaxChunks;
+static_assert(rhss::kFoldCounter == kMaxGroups * kGroupCounters,
+              "the fold counter follows the column groups' counters");
+static_assert(rhss::kMaxWidth == kMaxGroups * 32 * kVec,
+              "the widest view fills the counters' column groups");
 
 // rows a thread keeps in flight
 template <typename T>
@@ -85,13 +98,18 @@ struct Args {
   const void* x;
   float* partial;  // [2][row_blocks][channels]
   double* chunks;  // [2][chunks][channels]
-  int* counters;   // [col_blocks][kGroupCounters]: 0 before and after
+  double* cols;    // [2][channels]: the view's column sums, to fold
+  int* counters;   // [col_blocks][kGroupCounters], then kFoldCounter: 0
+                   // before and after
   float* mean;
   float* var;
   double* sums;  // non-null: [Σx (C), Σx² (C), n] instead of mean and var
-  int64_t rows;
+  int64_t rows;  // whole rows of the view
+  int64_t n;     // image rows
   int64_t rows_per_block;
-  int channels;
+  int channels;  // the view's width L = lcm(c, 8)
+  int c;         // the tensor's channels
+  int tail_rows;  // image rows after the view's last whole row
   int tx, ty, row_blocks;
   int vecs;  // channel vectors of a column group, <= tx
 };
@@ -317,26 +335,52 @@ bn_stats_one_pass(const Args a) {
     combine(a.chunks, n_chunks, 0, n_chunks, C, c, active, t, y, tx, ty,
             lanes, d0, d1);
   }
-  if (y == 0 && active) {
+  // channel ch's sums: the double sums, or mean and var
+  const auto finish = [&](int ch, double sx, double sq) {
     if (a.sums != nullptr) {
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        a.sums[c + k] = d0[k];
-        a.sums[C + c + k] = d1[k];
-      }
-      // n once: by the last block of column group 0
-      if (blockIdx.x == 0 && t == 0) a.sums[2 * C] = (double)a.rows;
+      a.sums[ch] = sx;
+      a.sums[a.c + ch] = sq;
       return;
     }
-    const double inv_n = 1.0 / (double)a.rows;
+    const double inv_n = 1.0 / (double)a.n;
+    const double m = __dmul_rn(sx, inv_n);
+    const double var = __dsub_rn(__dmul_rn(sq, inv_n), __dmul_rn(m, m));
+    a.mean[ch] = (float)m;
+    a.var[ch] = (float)(var > 0.0 ? var : 0.0);
+  };
+  if (a.c == C) {  // the view is the tensor
+    if (y == 0 && active) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) finish(c + k, d0[k], d1[k]);
+      // n once: by the last block of column group 0
+      if (a.sums != nullptr && blockIdx.x == 0 && t == 0)
+        a.sums[2 * C] = (double)a.n;
+    }
+    return;
+  }
+
+  // a view wider than C: the last column group to finish folds every
+  // channel's columns and adds the tail's rows
+  if (y == 0 && active) {
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const double m = __dmul_rn(d0[k], inv_n);
-      const double var = __dsub_rn(__dmul_rn(d1[k], inv_n), __dmul_rn(m, m));
-      a.mean[c + k] = (float)m;
-      a.var[c + k] = (float)(var > 0.0 ? var : 0.0);
+      a.cols[c + k] = d0[k];
+      a.cols[C + c + k] = d1[k];
     }
   }
+  if (!rhss::last_ticket(a.counters + rhss::kFoldCounter, gridDim.x)) return;
+  const T* tail = static_cast<const T*>(a.x) + a.rows * C;
+  for (int ch = t; ch < a.c; ch += kThreads) {
+    double sx, sq;
+    rhss::fold_columns(a.cols, C, a.c, ch, sx, sq);
+    for (int r = 0; r < a.tail_rows; ++r) {
+      const float v = rhss::to_float(tail[(int64_t)r * a.c + ch]);
+      sx += v;
+      sq += __fmul_rn(v, v);
+    }
+    finish(ch, sx, sq);
+  }
+  if (a.sums != nullptr && t == 0) a.sums[2 * a.c] = (double)a.n;
 }
 
 struct Geometry : rhss::Geometry {
@@ -372,14 +416,22 @@ int launch(const void* x, int64_t rows, int channels, float* ws,
   int sms = 0;
   const int set = once.get(&sms, [] { return cudaSuccess; });
   if (set != 0) return set;
-  const Geometry g = geometry(rows, channels, rows_in_flight<T>(), sms);
+  // the view: rows of width = lcm(channels, 8) columns, per image rows each
+  const int width = rhss::view_width(channels);
+  const int per = width / channels;
+  const int64_t view_rows = rows / per;
+  const Geometry g = geometry(view_rows > 0 ? view_rows : 1, width,
+                              rows_in_flight<T>(), sms);
   if (g.col_blocks > kMaxGroups || g.row_blocks > rhss::kTargetBlocks)
     return (int)cudaErrorInvalidValue;
-  // the chunks' sums follow the strips' partials in the workspace
+  // the chunks' sums follow the strips' partials in the workspace, then the
+  // view's column sums
   double* chunks = reinterpret_cast<double*>(
-      ws + 2 * (int64_t)rhss::kTargetBlocks * channels);
-  const Args args{x,    ws,   chunks, counters, mean,
-                  var,  sums, rows,   g.rows_per_block, channels,
+      ws + 2 * (int64_t)rhss::kTargetBlocks * width);
+  double* cols = chunks + 2 * (int64_t)kMaxChunks * width;
+  const Args args{x,    ws,         chunks, cols,  counters, mean,
+                  var,  sums,       view_rows, rows, g.rows_per_block,
+                  width, channels,  (int)(rows - view_rows * per),
                   g.tx, g.ty, g.row_blocks, g.vecs};
   bn_stats_one_pass<T>
       <<<dim3(g.col_blocks, g.row_blocks), kThreads, 0, s>>>(args);
@@ -388,8 +440,9 @@ int launch(const void* x, int64_t rows, int channels, float* ws,
 
 // The checks both entries share; 0 when the arguments are taken.
 int check(int64_t rows, int channels, int dtype) {
-  if (rows <= 0 || channels <= 0 || channels % kVec != 0 ||
-      channels > kMaxGroups * 32 * kVec || (dtype != 0 && dtype != 1)) {
+  if (rows <= 0 || channels <= 0 ||
+      rhss::view_width(channels) > rhss::kMaxWidth ||
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -404,10 +457,10 @@ int dispatch(int dtype, A... args) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x: rows * channels elements, 16-byte
-// aligned; workspace: (2 * 528 + 4 * 33) * channels floats (bn_reduce.cuh's
-// kTargetBlocks strips of f32 partials, then kMaxChunks chunks of f64 sums);
-// counters: 64 * 34 ints, 0 (and left at 0); mean, var: channels floats.
-// channels % 8 == 0 and channels <= 16384.
+// aligned; workspace: (2 * 528 + 4 * 33 + 4) * L floats, L = lcm(channels, 8)
+// (bn_reduce.cuh's kTargetBlocks strips of f32 partials, then kMaxChunks
+// chunks of f64 sums, then the view's f64 column sums); counters: 64 * 34 + 1
+// ints, 0 (and left at 0); mean, var: channels floats. L <= 16384.
 extern "C" int rhss_bn_stats(const void* x, int64_t rows, int channels,
                              int dtype, void* workspace, void* counters,
                              void* mean, void* var, void* stream) {

@@ -8,6 +8,24 @@ namespace rhss {
 
 constexpr int kThreads = 256;  // threads per block of every kernel here
 
+// The BatchNorm kernels read a contiguous (rows, C) tensor as rows of
+// view_width(C) = lcm(C, 8) elements, L / C image rows each (L = C where
+// C % 8 == 0), so 16-byte vectors of 8 channels never straddle a row of the
+// view at any C; the per-channel vectors come tiled to L. kMaxWidth: the
+// widest view of a C that is no multiple of 8 (_MAX_WIDTH in
+// ops/fused_bn_act.py).
+constexpr int kMaxWidth = 16384;
+
+inline int view_width(int channels) {
+  int a = channels, b = 8;
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  return channels / a * 8;
+}
+
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }

@@ -15,10 +15,16 @@
 //  * no padding of the row count to a tile multiple (the TPU version pads to
 //    a multiple of its row tile); a grid-stride loop covers rows * C / VEC
 //    vectors and stops at the exact end;
-//  * each thread loads and stores 16 bytes at a time (8 bf16 or 4 f32);
-//    C % 8 == 0 is required (the Python wrapper checks it), so a vector never
-//    straddles two rows and its channels are c .. c + VEC - 1;
-//  * scale and shift (C floats each, at most a few KB) go through the
+//  * each thread loads and stores 16 bytes at a time (8 bf16 or 4 f32).
+//    The tensor is read as rows of L = lcm(C, 8) elements (L / C image rows
+//    each; L = C where C % 8 == 0), and scale and shift come tiled to L by
+//    the wrapper, so a vector never straddles a row of the view and its
+//    per-channel values are those at its column .. column + VEC - 1, at any
+//    C. The last numel mod VEC elements (none where C % 8 == 0) are a scalar
+//    tail in the same launch, taken by the first block's first threads of
+//    the TAIL instantiation; where C % 8 == 0 the launch is the one without
+//    it, so that path is what it was before any C was taken;
+//  * scale and shift (L floats each, at most 64 KB) go through the
 //    read-only data cache with __ldg and stay resident in L1.
 //
 // Plain C interface for ctypes: the function returns cudaGetLastError()
@@ -34,8 +40,10 @@ namespace {
 using rhss::grid_for;
 using rhss::kThreads;
 using rhss::ldg4;
+using rhss::view_width;
 
 enum Act { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
+using rhss::kMaxWidth;
 
 template <int ACT>
 __device__ __forceinline__ float activate(float y) {
@@ -51,11 +59,11 @@ __device__ __forceinline__ float affine(float x, float s, float b) {
 }
 
 // bf16: one uint4 = 8 values per thread and iteration.
-template <int ACT>
+template <int ACT, bool TAIL>
 __global__ void __launch_bounds__(kThreads)
 scale_bias_act_bf16(const uint4* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ shift, uint4* __restrict__ y,
-                    int64_t n_vec, int c_vec) {
+                    int64_t n_vec, int c_vec, int tail) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
        i += stride) {
@@ -77,14 +85,22 @@ scale_bias_act_bf16(const uint4* __restrict__ x, const float* __restrict__ scale
     }
     y[i] = packed;
   }
+  if (TAIL && blockIdx.x == 0 && (int)threadIdx.x < tail) {  // numel mod 8
+    const int64_t e = n_vec * 8 + threadIdx.x;
+    const int c = (int)(e % ((int64_t)c_vec * 8));
+    const float v = __bfloat162float(
+        reinterpret_cast<const __nv_bfloat16*>(x)[e]);
+    reinterpret_cast<__nv_bfloat16*>(y)[e] =
+        __float2bfloat16_rn(activate<ACT>(affine(v, scale[c], shift[c])));
+  }
 }
 
 // f32: one float4 = 4 values per thread and iteration.
-template <int ACT>
+template <int ACT, bool TAIL>
 __global__ void __launch_bounds__(kThreads)
 scale_bias_act_f32(const float4* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ shift, float4* __restrict__ y,
-                   int64_t n_vec, int c_vec) {
+                   int64_t n_vec, int c_vec, int tail) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
        i += stride) {
@@ -99,21 +115,43 @@ scale_bias_act_f32(const float4* __restrict__ x, const float* __restrict__ scale
     o.w = activate<ACT>(affine(v.w, s.w, b.w));
     y[i] = o;
   }
+  if (TAIL && blockIdx.x == 0 && (int)threadIdx.x < tail) {  // numel mod 4
+    const int64_t e = n_vec * 4 + threadIdx.x;
+    const int c = (int)(e % ((int64_t)c_vec * 4));
+    reinterpret_cast<float*>(y)[e] = activate<ACT>(
+        affine(reinterpret_cast<const float*>(x)[e], scale[c], shift[c]));
+  }
+}
+
+template <int ACT, bool TAIL>
+void launch_view(int dtype, const void* x, const float* scale,
+                 const float* shift, void* y, int64_t rows, int channels,
+                 cudaStream_t stream) {
+  const int64_t numel = rows * channels;
+  const int width = view_width(channels);
+  if (dtype == 1) {
+    const int64_t n_vec = numel / 8;
+    scale_bias_act_bf16<ACT, TAIL><<<grid_for(n_vec > 0 ? n_vec : 1),
+                                     kThreads, 0, stream>>>(
+        static_cast<const uint4*>(x), scale, shift, static_cast<uint4*>(y),
+        n_vec, width / 8, (int)(numel % 8));
+  } else {
+    const int64_t n_vec = numel / 4;
+    scale_bias_act_f32<ACT, TAIL><<<grid_for(n_vec > 0 ? n_vec : 1),
+                                    kThreads, 0, stream>>>(
+        static_cast<const float4*>(x), scale, shift, static_cast<float4*>(y),
+        n_vec, width / 4, (int)(numel % 4));
+  }
 }
 
 template <int ACT>
 void launch(int dtype, const void* x, const float* scale, const float* shift,
             void* y, int64_t rows, int channels, cudaStream_t stream) {
-  if (dtype == 1) {
-    const int64_t n_vec = rows * channels / 8;
-    scale_bias_act_bf16<ACT><<<grid_for(n_vec), kThreads, 0, stream>>>(
-        static_cast<const uint4*>(x), scale, shift, static_cast<uint4*>(y),
-        n_vec, channels / 8);
+  if (channels % 8 == 0) {
+    launch_view<ACT, false>(dtype, x, scale, shift, y, rows, channels,
+                            stream);
   } else {
-    const int64_t n_vec = rows * channels / 4;
-    scale_bias_act_f32<ACT><<<grid_for(n_vec), kThreads, 0, stream>>>(
-        static_cast<const float4*>(x), scale, shift, static_cast<float4*>(y),
-        n_vec, channels / 4);
+    launch_view<ACT, true>(dtype, x, scale, shift, y, rows, channels, stream);
   }
 }
 
@@ -121,12 +159,14 @@ void launch(int dtype, const void* x, const float* scale, const float* shift,
 
 // dtype: 0 = float32, 1 = bfloat16. act: 0 none, 1 relu, 2 leaky_relu.
 // x and y: rows * channels elements, 16-byte aligned; scale and shift:
-// channels floats, 16-byte aligned; channels % 8 == 0.
+// lcm(channels, 8) floats (the channels' values tiled), 16-byte aligned;
+// channels % 8 == 0 or lcm(channels, 8) <= 16384.
 extern "C" int rhss_scale_bias_act(const void* x, const void* scale,
                                    const void* shift, void* y, int64_t rows,
                                    int channels, int dtype, int act,
                                    void* stream) {
-  if (rows < 0 || channels <= 0 || channels % 8 != 0 ||
+  if (rows < 0 || channels <= 0 ||
+      (channels % 8 != 0 && view_width(channels) > kMaxWidth) ||
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -68,6 +68,17 @@ entry. dgamma and dbeta stay the local sums: the trainer's gradient
 all-reduce adds them. On one rank the split equals the fused kernels bit
 for bit (mean, var, dx, dgamma, dbeta); a group of one rank never takes it.
 
+Any C: the kernels read the contiguous ``(rows, C)`` tensor as rows of
+``L = lcm(C, 8)`` elements (:func:`_view_width`; ``L / C`` image rows
+each, ``L = C`` where ``C % 8 == 0``), so their 16-byte vectors of 8
+channels never straddle a row of the view. The wrappers tile the
+per-channel vectors to ``L`` once per call (:func:`_tiled`). The last
+``rows mod (L / C)`` image rows are a tail that each launch takes on its
+own, and kernels 1 and 3 fold the ``L / C`` columns of each channel into
+its sums in a fixed order (``csrc/bn_reduce.cuh``). At ``C % 8 == 0`` the launches are
+what they were. ``L`` is at most 16384 (:data:`_MAX_WIDTH`: any C up to
+2048, multiples of 8 up to 16384), the dx entry's at most 4096.
+
 The kernels write new tensors (out of place): the eval-mode caller could
 let scale-bias-act overwrite the dead conv output, but the saving is one
 allocation from PyTorch's caching allocator, not device traffic.
@@ -87,6 +98,7 @@ time to every call of a host-bound forward (``PERF.md``).
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 
 import torch
@@ -171,6 +183,30 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# the widest view lcm(C, 8) of a C that is no multiple of 8 (kMaxWidth in
+# csrc/common.cuh): any C up to 2048
+_MAX_WIDTH = 16384
+
+
+def _view_width(c: int) -> int:
+    """The width L = lcm(C, 8) of the rows the kernels read."""
+    return c * 8 // math.gcd(c, 8)
+
+
+def _check_width(c: int, most: int, what: str) -> None:
+    if _view_width(c) > most:
+        raise ValueError(f"{what} takes C <= {most} where C % 8 == 0 and "
+                         f"C <= {most // 8} otherwise (lcm(C, 8) <= "
+                         f"{most}); got C = {c}")
+
+
+def _tiled(t: torch.Tensor, c: int) -> torch.Tensor:
+    """Per-channel values (..., C) tiled to the view's width L along the
+    last axis (t itself where L = C)."""
+    per = _view_width(c) // c
+    return t if per == 1 else t.repeat(*([1] * (t.dim() - 1)), per)
+
+
 def _check_layout(x: torch.Tensor, what: str) -> int:
     """The (rows, C) checks that read no data (a fake tensor passes them
     too); returns C."""
@@ -181,8 +217,7 @@ def _check_layout(x: torch.Tensor, what: str) -> int:
                          "(channels_last activations, viewed as NHWC)")
     c = x.shape[-1]
     if c % 8:
-        raise ValueError(f"{what} needs C % 8 == 0 (16-byte vectors of "
-                         f"bf16); got C = {c}")
+        _check_width(c, _MAX_WIDTH, what)
     return c
 
 
@@ -192,11 +227,6 @@ def _check_rows_c(x: torch.Tensor, what: str) -> int:
     if x.data_ptr() % 16:
         raise ValueError(f"{what} needs x 16-byte aligned")
     return c
-
-
-def _check_channels(c: int, most: int, what: str) -> None:
-    if c > most:
-        raise ValueError(f"{what} takes C <= {most}, got C = {c}")
 
 
 def _check_vector(t: torch.Tensor, c: int, what: str) -> None:
@@ -224,8 +254,8 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             act: str) -> torch.Tensor:
     global LAUNCHES
     c = _check_rows_c(x, "scale_bias_act")
-    scale = _per_channel(scale, c, x.device, "scale")
-    shift = _per_channel(shift, c, x.device, "shift")
+    scale = _tiled(_per_channel(scale, c, x.device, "scale"), c)
+    shift = _tiled(_per_channel(shift, c, x.device, "shift"), c)
     y = torch.empty_like(x)
     _call(x, "scale_bias_act", _fn("scale_bias_act", "rhss_scale_bias_act"),
           x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
@@ -290,30 +320,31 @@ def _bn_stats_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 _MAX_STRIPS = 528
 
 
-# the widest C the dx entry takes (kDxMaxChannels in csrc/bn_backward.cu:
-# one block's threads per channel vector)
+# the widest view lcm(C, 8) the dx entry takes (kDxMaxChannels in
+# csrc/bn_backward.cu: one block's threads per channel vector)
 _DX_MAX_CHANNELS = 4096
 
 
 def _workspace(x: torch.Tensor, c: int) -> torch.Tensor:
     """Scratch for a column reduction's per-strip partials: two f32 sums
-    per channel and strip."""
-    return torch.empty(2 * _MAX_STRIPS * c, dtype=torch.float32,
+    per column of the view and strip."""
+    return torch.empty(2 * _MAX_STRIPS * _view_width(c), dtype=torch.float32,
                        device=x.device)
 
 
 # the ticket counters of the statistics kernel (csrc/bn_stats.cu) and the BN
 # backward's reduce entry (csrc/bn_backward.cu): for each of at most
-# kMaxGroups = 64 column groups of 32 channel vectors (so C <= 8 * 32 * 64),
+# kMaxGroups = 64 column groups of 32 channel vectors (so L <= 8 * 32 * 64),
 # one for the group and one per chunk of 16 strips (at most 33); the reduce
 # entry 17 per column group (its chains' tree, one per chain of strips), the
-# first 64 * 17. A launch leaves them at 0, so the two kernels share a
-# stream's slot. Slots: the streams of one device that may call them
-# (torch's stream pools hold 32 per priority, plus the default stream and
-# the graph capture stream)
+# first 64 * 17; then the one both draw from to fold a view wider than C
+# (kFoldCounter in csrc/bn_reduce.cuh). A launch leaves them at 0, so the
+# two kernels share a stream's slot. Slots: the streams of one device that
+# may call them (torch's stream pools hold 32 per priority, plus the
+# default stream and the graph capture stream)
 _STATS_GROUPS = 64
 _STATS_CHUNKS = -(-_MAX_STRIPS // 16)
-_COUNTERS_PER_STREAM = _STATS_GROUPS * (1 + _STATS_CHUNKS)
+_COUNTERS_PER_STREAM = _STATS_GROUPS * (1 + _STATS_CHUNKS) + 1
 _COUNTER_SLOTS = 256
 _COUNTERS = {}  # device index -> int32 (_COUNTER_SLOTS, _COUNTERS_PER_STREAM)
 _SLOTS = {}  # (device index, stream handle) -> slot
@@ -347,9 +378,11 @@ def _counters(x: torch.Tensor, stream: int) -> torch.Tensor:
 
 
 def _stats_workspace(x: torch.Tensor, c: int) -> torch.Tensor:
-    """The column reduction's workspace, then two f64 sums per channel and
-    chunk of 16 strips (the statistics kernel's second level)."""
-    return torch.empty(2 * _MAX_STRIPS * c + 4 * _STATS_CHUNKS * c,
+    """The column reduction's workspace, then two f64 sums per column of
+    the view and chunk of 16 strips (the statistics kernel's second level),
+    then two per column (the sums it folds where L > C)."""
+    width = _view_width(c)
+    return torch.empty((2 * _MAX_STRIPS + 4 * _STATS_CHUNKS + 4) * width,
                        dtype=torch.float32, device=x.device)
 
 
@@ -360,7 +393,7 @@ def _stats_args(x: torch.Tensor, what: str):
     rows = x.numel() // c
     if rows == 0:
         raise ValueError(f"{what} needs at least one row")
-    _check_channels(c, 8 * 32 * _STATS_GROUPS, what)
+    _check_width(c, 8 * 32 * _STATS_GROUPS, what)
     stream = _stream(x)
     return rows, c, stream, _stats_workspace(x, c), _counters(x, stream)
 
@@ -477,6 +510,8 @@ def _backward_args(x: torch.Tensor, g: torch.Tensor, scale, shift, mean,
     vecs = [_per_channel(t, c, x.device, name) for t, name in
             ((scale, "scale"), (shift, "shift"), (mean, "mean"),
              (rstd, "rstd"))]
+    if _view_width(c) != c:  # tiled to the view's width, in one copy
+        vecs = list(_tiled(torch.stack(vecs), c))
     rows = x.numel() // c
     if rows == 0:
         raise ValueError(f"{what} needs at least one row")
@@ -562,7 +597,7 @@ def _bn_backward_dx_ref(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
 def _launch_backward_reduce(x, g, scale, shift, mean, rstd, act: str):
     c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
                                       "bn_backward_reduce")
-    _check_channels(c, 8 * 32 * _STATS_GROUPS, "bn_backward_reduce")
+    _check_width(c, 8 * 32 * _STATS_GROUPS, "bn_backward_reduce")
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
     sums = torch.empty(2 * c + 1, dtype=torch.float64, device=x.device)
     stream = _stream(x)
@@ -579,7 +614,7 @@ def _launch_backward_reduce(x, g, scale, shift, mean, rstd, act: str):
 def _launch_backward_dx(x, g, scale, shift, mean, rstd, sums, act: str):
     c, rows, g, vecs = _backward_args(x, g, scale, shift, mean, rstd,
                                       "bn_backward_dx")
-    _check_channels(c, _DX_MAX_CHANNELS, "bn_backward_dx")
+    _check_width(c, _DX_MAX_CHANNELS, "bn_backward_dx")
     if (sums.shape != (2 * c + 1,) or sums.dtype != torch.float64
             or sums.device != x.device):
         raise ValueError(f"bn_backward_dx needs sums ({2 * c + 1},) f64 on "
@@ -607,7 +642,7 @@ def bn_backward_reduce(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     """The sums of :func:`bn_act_backward` without dx: ``(dgamma, dbeta,
     sums)``, ``dgamma = Σ dy·x̂`` and ``dbeta = Σ dy`` in f32 as the fused
     call returns them, and ``sums = [Σdy, Σdy·x̂, n]`` (2C + 1,) in f64 for
-    an all-reduce over a group. One launch per call; C <= 16384."""
+    an all-reduce over a group. One launch per call; lcm(C, 8) <= 16384."""
     _check_train_act(act)
     if _device_of(x, "bn_backward_reduce") == "cpu":
         c = x.shape[-1]
@@ -622,7 +657,7 @@ def bn_backward_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
                    act: str) -> torch.Tensor:
     """dx of :func:`bn_act_backward` from ``sums = [Σdy, Σdy·x̂, n]`` of
     the whole group (the reduce entry's sums, all-reduced): dx in x's dtype
-    and shape. One launch per call; C <= 4096."""
+    and shape. One launch per call; lcm(C, 8) <= 4096."""
     _check_train_act(act)
     if _device_of(x, "bn_backward_dx") == "cpu":
         c = x.shape[-1]

@@ -13,10 +13,10 @@ repository; on the card it is a library product:
 * ``torch._int_mm``, cuBLASLt's int8 tensor-core GEMM with int32
   accumulation, whose rules the wrapper meets on purpose: more than 16 rows
   (fewer are padded with zero rows), K a multiple of 8 (padded with zero
-  columns: the stems have K = 27), N a multiple of 8 (refused otherwise:
-  padding N would only move the problem to the caller's bias and scales),
-  both operands K-major: the im2col (M, K) row-major and the weight as
-  the transpose of a contiguous (N, K).
+  columns: the stems have K = 27), N a multiple of 8 (the weight padded
+  with zero output channels, whose columns of the product are sliced off:
+  HRNet-W18's branches have 18 and 36), both operands K-major: the im2col
+  (M, K) row-major and the weight as the transpose of a contiguous (N, K).
 
 The plain version (:func:`_int8_conv_ref`, the CPU's path and the card's
 reference) is a float64 ``F.conv2d`` of the integer-valued tensors: every
@@ -88,9 +88,6 @@ def _card(xq: torch.Tensor, kq: torch.Tensor, stride, padding
     global CALLS
     b, h, w, c = xq.shape
     kh, kw, _, n = kq.shape
-    if n % 8:
-        raise ValueError(f"int8_conv2d on the card needs C_out % 8 == 0 "
-                         f"(torch._int_mm); got {n}")
     ho, wo = _out_hw(h, w, kh, kw, stride, padding)
     k = kh * kw * c
     k_pad = -k % 8
@@ -101,12 +98,15 @@ def _card(xq: torch.Tensor, kq: torch.Tensor, stride, padding
     w_nk = kq.permute(3, 0, 1, 2).reshape(n, k)
     if k_pad:
         w_nk = torch.cat([w_nk, w_nk.new_zeros((n, k_pad))], dim=1)
+    n_pad = -n % 8  # zero output channels, sliced off the product
+    if n_pad:
+        w_nk = torch.cat([w_nk, w_nk.new_zeros((n_pad, k + k_pad))])
     m = a.shape[0]
     if m < _MIN_ROWS:
         a = torch.cat([a, a.new_zeros((_MIN_ROWS - m, a.shape[1]))])
     acc = torch._int_mm(a.contiguous(), w_nk.contiguous().t())
     CALLS += 1
-    return acc[:m].reshape(b, ho, wo, n)
+    return acc[:m, :n].reshape(b, ho, wo, n)
 
 
 @torch.library.custom_op("rhss::int8_conv2d", mutates_args=(),

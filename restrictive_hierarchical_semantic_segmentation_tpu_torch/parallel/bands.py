@@ -26,6 +26,10 @@ rows of every activation, and the exchanges are explicit:
   each rank's rows get the gradient of every rank's use of the sum.
 * :func:`gather_bands` assembles the whole height for the host (PNG dumps,
   the flat model's reconstruction).
+* A forward installed on a conv for the duration of a call (int8 serving
+  and its calibration, ``train/quantize.py``) runs in :func:`conv2d` too,
+  on the fetched rows and with this rank's band beside them;
+  :func:`all_reduce_max` gives every rank the maximum over its group.
 
 A model built for one rank runs banded after :func:`set_space_group`:
 its modules then take the global height of their input as an argument
@@ -46,7 +50,7 @@ from ..ops.resize import resize_band_nchw, resize_nchw, source_rows
 from .mesh import DataGroup
 
 __all__ = ["band", "bands", "check_bands", "fetch_rows", "all_reduce_sum",
-           "spatial_mean", "gather_bands", "global_height",
+           "all_reduce_max", "spatial_mean", "gather_bands", "global_height",
            "set_space_group", "conv2d", "conv_height", "max_pool2", "resize",
            "pad_rows", "active", "EXCHANGES"]
 
@@ -245,6 +249,17 @@ def all_reduce_sum(t: torch.Tensor, space: Optional[DataGroup]
     return _AllReduceSum.apply(t, space.group)
 
 
+def all_reduce_max(t: torch.Tensor, space: Optional[DataGroup]
+                   ) -> torch.Tensor:
+    """The element-wise maximum of ``t`` over the ranks of ``space`` on
+    every rank (``t`` itself without a group); no gradient."""
+    if space is None or space.group is None:
+        return t
+    t = t.detach().clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=space.group)
+    return t
+
+
 def spatial_mean(t: torch.Tensor, dims: tuple, space: Optional[DataGroup]
                  ) -> torch.Tensor:
     """``t.mean(dims)`` over the whole height of a banded ``t``: the bands'
@@ -323,7 +338,10 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, h: Optional[int],
     rank's output rows, from its input rows and the halo its kernel, stride
     and padding reach (zero rows beyond the tensor: the zero padding), H
     padded 0 and W as the conv pads it. ``conv(x)`` itself without a
-    space group."""
+    space group. A forward installed on the conv for a call (an instance
+    attribute ``forward``: ``train/quantize.py``'s int8 forward or its
+    calibration) takes the fetched rows with that padding, and the band
+    ``x`` as ``band``."""
     if space is None:
         return conv(x)
     k, s, p, d = (conv.kernel_size[0], conv.stride[0], conv.padding[0],
@@ -334,6 +352,9 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, h: Optional[int],
     lo = [a * s - p for a, _ in out]
     hi = [(b - 1) * s - p + d * (k - 1) + 1 for _, b in out]
     rows = fetch_rows(x, h, lo, hi, space)
+    installed = vars(conv).get("forward")
+    if installed is not None:
+        return installed(rows, padding=(0, conv.padding[1]), band=x)
     return F.conv2d(rows, conv.weight, conv.bias, (s, conv.stride[1]),
                     (0, conv.padding[1]), conv.dilation, conv.groups)
 

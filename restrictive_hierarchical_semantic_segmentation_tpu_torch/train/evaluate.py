@@ -45,9 +45,11 @@ batch that is at most the world size over ``n_space``. Each rank runs the
 forward on its band of rows of its data rows (``parallel/bands.py``); the
 eval step adds the confusion matrices over the space group and gathers
 the maps to the whole height, before the data group's gather. The step
-group's first rank writes. ``quantize`` takes whole images: the int8
-convolutions replace the convs' ``forward``, which the bands do not call,
-so it raises with ``n_space`` above 1.
+group's first rank writes. ``quantize`` calibrates on the bands (each rank
+observes its band of every conv's input; the maxima are all-reduced over
+the space group, so every rank holds the whole image's scales) and the
+banded convolutions run the int8 forward on their fetched rows, as JAX
+wraps the forward over its ``(data, space)`` mesh in ``quantized_apply``.
 """
 from __future__ import annotations
 
@@ -161,10 +163,6 @@ class Evaluator:
         self.rows = slice(self.data.index * per, (self.data.index + 1) * per)
         self.band = slice(None)
         if self.space.size > 1:
-            if cfg.quantize:
-                raise NotImplementedError(
-                    "quantize with n_space above 1: the int8 convolutions "
-                    "take whole images (train/quantize.py)")
             check_bands(cfg.img_size, self.space.size)
             self.band = slice(*band(cfg.img_size, self.space.size,
                                     self.space.index))
@@ -271,7 +269,9 @@ class Evaluator:
         ``cfg.calib_batches`` validation batches (one image's scales can
         clip the rest of the set), decoded as the eval step decodes them,
         in its compute dtype; a ragged last batch is padded by repeating
-        its last image, which leaves the running amax unchanged."""
+        its last image, which leaves the running amax unchanged. On bands
+        each rank runs its band of every image, and the maxima are
+        all-reduced over the space group."""
         from .quantize import calibrate, quantized_apply
 
         calib = []
@@ -279,7 +279,7 @@ class Evaluator:
             if xb.shape[0] < self.batch:
                 pad = self.batch - xb.shape[0]
                 xb = np.concatenate([xb, np.repeat(xb[-1:], pad, axis=0)])
-            x = torch.from_numpy(xb).to(self.device)
+            x = torch.from_numpy(xb[:, self.band]).to(self.device)
             if x.shape[-1] == 1:  # train/steps.py:_device_decode
                 x = x.expand(*x.shape[:-1], 3).contiguous()
             calib.append(x)
@@ -293,7 +293,8 @@ class Evaluator:
                 return self.model(x)
 
         with _float32_convs(self._f32_on_card()):
-            self.act_scales = calibrate(self.model, calib, apply_fn=forward)
+            self.act_scales = calibrate(self.model, calib, apply_fn=forward,
+                                        space=self.space)
         return quantized_apply(self.model, self.act_scales)
 
     def run(self) -> Optional[dict]:

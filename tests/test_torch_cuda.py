@@ -69,9 +69,14 @@ def test_scale_bias_act_kernel_equals_plain(cuda, shape, dtype, act):
 
 def test_scale_bias_act_kernel_rejects_what_it_does_not_take(cuda):
     one = torch.ones(12, device=cuda)
-    with pytest.raises(ValueError, match="C % 8"):
-        fba.fused_scale_bias_act(torch.ones(4, 12, device=cuda), one,
-                                 one, "relu")
+    # C = 12, no multiple of 8: taken (the view of 24-wide rows and a tail)
+    x12 = torch.randn(5, 12, device=cuda)
+    assert torch.equal(fba.fused_scale_bias_act(x12, one, one, "relu"),
+                       fba._scale_bias_act_ref(x12, one, one, "relu"))
+    wide = torch.ones(2049, device=cuda)  # lcm(2049, 8) > 16384
+    with pytest.raises(ValueError, match="C <= 2048"):
+        fba.fused_scale_bias_act(torch.ones(4, 2049, device=cuda), wide,
+                                 wide, "relu")
     with pytest.raises(TypeError):
         fba.fused_scale_bias_act(torch.ones(4, 16, device=cuda,
                                             dtype=torch.float16),
@@ -391,6 +396,41 @@ def test_kernels_at_band_shapes(cuda, shape, dtype):
     assert torch.equal(y, fba._scale_bias_act_ref(x, scale, shift, "relu"))
 
 
+# C that is no multiple of 8 (HRNet-W18's 18, 36 and its 270-channel head;
+# 4, 6, 12): W18's batch-1 high-resolution branch (24,025 rows), which
+# leaves a tail of one image row after the view's rows of lcm(C, 8)
+# columns at every C here; fewer rows than one row of the view (3 of 18: 4
+# to a view's row; 2 of 270); a tail of 3 rows (7 of 6); a W18 band
+ODD_C_SHAPES = ([(1, 155, 155, c) for c in (4, 6, 12, 18, 36, 270)]
+                + [(3, 18), (2, 270), (7, 6), (16, 19, 39, 36)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ODD_C_SHAPES)
+def test_kernels_at_any_c(cuda, shape, dtype):
+    """Kernels 1-3 at a C that is no multiple of 8: each fused launch
+    against its plain version, the split entries bit for bit to the fused
+    launches and against their plain versions, kernel 2 bit for bit to its
+    plain version."""
+    x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=11)
+    c = shape[-1]
+    _stats_ok(fba.bn_stats(x), fba._bn_stats_ref(x))
+    _split_stats_ok(cuda, shape, dtype)
+    for act in ("none", "relu"):
+        dx, dgamma, dbeta = fba.bn_act_backward(x, grad, *vecs, act)
+        rdx, rdg, rdb = fba._bn_backward_ref(
+            x.reshape(-1, c), grad.reshape(-1, c), *vecs, act)
+        _dx_ok(dx, rdx.reshape(shape))
+        _sums_ok(dgamma, rdg)
+        _sums_ok(dbeta, rdb)
+        _split_backward_ok(cuda, shape, dtype, act)
+    scale, shift = vecs[0], vecs[1]
+    for act in ("none", "relu", "leaky_relu"):
+        y = fba.fused_scale_bias_act(x, scale, shift, act)
+        assert torch.equal(y, fba._scale_bias_act_ref(x, scale, shift, act))
+    _counters_zero(cuda)
+
+
 def test_space_ranks_on_one_card(cuda, tmp_path):
     """Two gloo ranks sharing the card at ``n_space`` 2: the base-width-8
     UNet's forward on bands (rows exchanged through host memory) in eval
@@ -546,8 +586,14 @@ def test_bn_backward_copies_a_gradient_in_another_layout(cuda):
 
 
 def test_train_kernels_reject_what_they_do_not_take(cuda):
-    with pytest.raises(ValueError, match="C % 8"):
-        fba.bn_stats(torch.ones(4, 12, device=cuda))
+    # C = 12, no multiple of 8: taken, against the plain versions
+    x12, g12, *v12 = _train_inputs((5, 12), torch.float32, cuda)
+    _stats_ok(fba.bn_stats(x12), fba._bn_stats_ref(x12))
+    dx, dg, db = fba.bn_act_backward(x12, g12, *v12, "relu")
+    rdx, rdg, rdb = fba._bn_backward_ref(x12, g12, *v12, "relu")
+    _dx_ok(dx, rdx)
+    _sums_ok(dg, rdg)
+    _sums_ok(db, rdb)
     with pytest.raises(TypeError):
         fba.bn_stats(torch.ones(4, 16, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
@@ -557,10 +603,8 @@ def test_train_kernels_reject_what_they_do_not_take(cuda):
         fba.bn_act_backward(x, grad, *vecs, "leaky_relu")
     with pytest.raises(ValueError, match="g like x"):
         fba.bn_act_backward(x, grad.bfloat16(), *vecs, "relu")
-    with pytest.raises(ValueError, match="C % 8"):
-        fba.bn_act_backward(torch.ones(4, 12, device=cuda),
-                            torch.ones(4, 12, device=cuda),
-                            *[torch.ones(12, device=cuda)] * 4, "relu")
+    with pytest.raises(ValueError, match="C <= 2048"):
+        fba.bn_stats(torch.ones(4, 2049, device=cuda))
     bn = BatchNormAct(16, "leaky_relu").to(cuda).train()
     with pytest.raises(ValueError, match="leaky_relu"):
         bn(torch.ones(2, 16, 3, 3, device=cuda))
@@ -917,6 +961,12 @@ INT8_SHAPES = [
     (1, 155, 155, 256, 1, 64, 1, 0),  # a 1x1: the input as it is
     (1, 78, 78, 48, 1, 96, 2, 0),     # a strided 1x1
     (1, 44, 44, 1024, 3, 256, 1, 1),  # the UNet's widest conv
+    # C_out no multiple of 8 (HRNet-W18: branches of 18 and 36 channels,
+    # its 270-channel head; 4): zero output channels padded, sliced off
+    (1, 155, 155, 18, 3, 18, 1, 1),
+    (1, 39, 39, 36, 3, 36, 1, 1),
+    (1, 155, 155, 270, 1, 270, 1, 0),
+    (1, 20, 20, 144, 3, 4, 1, 1),
 ]
 
 
@@ -948,10 +998,13 @@ def test_int8_conv_card_refuses_what_it_does_not_take(cuda):
         int8_conv,
     )
 
-    xq = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="C_out % 8"):
-        int8_conv.int8_conv2d(xq, torch.zeros((1, 1, 16, 12),
-                                              dtype=torch.int8, device=cuda))
+    xq = torch.randint(-127, 128, (1, 8, 8, 16), dtype=torch.int8,
+                       device=cuda)
+    # C_out = 12, no multiple of 8: taken (zero output channels padded)
+    kq = torch.randint(-127, 128, (1, 1, 16, 12), dtype=torch.int8,
+                       device=cuda)
+    assert torch.equal(int8_conv.int8_conv2d(xq, kq),
+                       int8_conv._int8_conv_ref(xq, kq, (1, 1), (0, 0)))
     with pytest.raises(ValueError, match="is on"):
         int8_conv.int8_conv2d(xq, torch.zeros((1, 1, 16, 8),
                                               dtype=torch.int8))

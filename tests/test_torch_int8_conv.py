@@ -7,7 +7,8 @@
   stems (K = 27): the accumulators are integers, so exactly equal.
 - The card path's im2col and padding (run here through the CPU's
   ``torch._int_mm``) equal the plain version exactly at the padded cases
-  (K = 27, K = 9 * C with C not a multiple of 8, at most 16 rows).
+  (K = 27, K = 9 * C with C not a multiple of 8, at most 16 rows, C_out =
+  4 and 18).
 - One conv module quantized end to end (float in, the same ``amax``)
   against JAX ``quantized_apply``: rtol 0, atol 1e-6 (the same int32
   accumulators times the same f32 scales; an FMA in XLA's epilogue may
@@ -96,11 +97,32 @@ def test_card_path_layout_equals_plain(shape, monkeypatch):
     assert torch.equal(got, int8_conv._int8_conv_ref(xq, kq, (s, s), (p, p)))
 
 
-def test_card_path_refuses_c_out_not_a_multiple_of_8():
-    xq = torch.zeros((1, 5, 5, 8), dtype=torch.int8)
-    with pytest.raises(ValueError, match="C_out % 8"):
-        int8_conv._card(xq, torch.zeros((1, 1, 8, 4), dtype=torch.int8),
-                        (1, 1), (0, 0))
+@pytest.mark.parametrize("shape", [
+    (1, 7, 9, 18, 3, 4, 1, 1),    # C_out = 4: 4 zero output channels
+    (2, 9, 9, 36, 3, 18, 2, 1),   # C_out = 18 (HRNet-W18): 6 of them
+])
+def test_card_path_pads_c_out_to_a_multiple_of_8(shape, monkeypatch):
+    """C_out that is no multiple of 8: the card path hands torch._int_mm a
+    weight padded with zero output channels and slices their columns off,
+    bit-equal to the plain version (the CPU's torch._int_mm in place of
+    cuBLASLt's)."""
+    b, h, w, c, k, o, s, p = shape
+    xq = torch.from_numpy(_ints((b, h, w, c), 5))
+    kq = torch.from_numpy(_ints((k, k, c, o), 6))
+    seen = []
+    real = torch._int_mm
+
+    def int_mm(a, m):
+        assert a.shape[1] % 8 == 0 and m.shape[1] % 8 == 0
+        seen.append(tuple(m.shape))
+        return real(a, m)
+
+    monkeypatch.setattr(torch, "_int_mm", int_mm)
+    monkeypatch.setattr(int8_conv, "CALLS", 0)
+    got = int8_conv._card(xq, kq, (s, s), (p, p))
+    assert seen == [(k * k * c + (-k * k * c) % 8, o + (-o) % 8)]
+    assert int8_conv.CALLS == 1 and got.shape[-1] == o
+    assert torch.equal(got, int8_conv._int8_conv_ref(xq, kq, (s, s), (p, p)))
 
 
 def test_int8_conv_rejects_what_it_does_not_take():

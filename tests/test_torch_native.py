@@ -14,7 +14,11 @@ the numpy path cv2's float32 half to even), which moves 2 of 5,947,392
 target values on 48 augmented 352 px samples and none here.
 """
 import glob
+import os
+import re
+import subprocess
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -95,7 +99,43 @@ def test_native_extended_tree():
                                   numpy_reference(mask, tree, 48, True))
 
 
-def test_bits_and_targets_equal_the_jax_bridge():
+# The JAX bridge builds its library in place (``make -B`` in its
+# ``runtime/``, straight into the final name) the first time a process asks
+# for it, and a process that loads a half-written file keeps None for the
+# rest of the run. Under ``pytest -n`` several workers collect
+# ``tests/test_native_runtime.py`` at once and race that build, so these
+# tests build their own copy of the JAX source with the JAX Makefile's flags
+# (through a temporary name and an atomic rename) and point the bridge at it.
+_JAX_RUNTIME = Path(jnative._DIR)
+
+
+def _makefile_flags() -> list:
+    text = (_JAX_RUNTIME / "Makefile").read_text()
+    return re.search(r"^CXXFLAGS \?= (.+)$", text, re.M).group(1).split()
+
+
+@pytest.fixture(scope="module")
+def jax_library_dir(tmp_path_factory) -> Path:
+    out = tmp_path_factory.mktemp("jax_native")
+    so = out / "libsample_factory.so"
+    tmp = out / f"libsample_factory.so.{os.getpid()}.tmp"
+    subprocess.run(["g++", *_makefile_flags(), "-o", str(tmp),
+                    str(_JAX_RUNTIME / "sample_factory.cpp")], check=True,
+                   capture_output=True, timeout=300)
+    os.replace(tmp, so)
+    return out
+
+
+def _point_jax_bridge_at(monkeypatch, lib_dir: Path) -> None:
+    """The JAX bridge loads the library in ``lib_dir`` (which holds no
+    source, so it builds nothing) for the test's duration."""
+    monkeypatch.setattr(jnative, "_DIR", str(lib_dir))
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    assert jnative.available()
+
+
+def _compare_with_the_jax_bridge():
     jtree, ptree = trees("default")
     _, mask = synth_sample(np.random.default_rng(4), 96)
     aff = T.sample_affine(np.random.default_rng(9))
@@ -112,6 +152,24 @@ def test_bits_and_targets_equal_the_jax_bridge():
             np.testing.assert_array_equal(
                 native.expand_bits(bits, pt, True, m, dtype=dtype),
                 jnative.expand_bits(bits, jt, True, m, dtype=dtype))
+
+
+def test_bits_and_targets_equal_the_jax_bridge(monkeypatch, jax_library_dir):
+    _point_jax_bridge_at(monkeypatch, jax_library_dir)
+    _compare_with_the_jax_bridge()
+
+
+def test_bits_and_targets_after_a_lost_jax_build(monkeypatch,
+                                                 jax_library_dir):
+    """From the state a process is left in when its load of the JAX
+    library met a half-written file (``_LIB`` None, ``_TRIED`` True: the
+    bridge gives None for the rest of the run), the comparison still runs
+    against this test's own copy."""
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", True)
+    assert not jnative.available()
+    _point_jax_bridge_at(monkeypatch, jax_library_dir)
+    _compare_with_the_jax_bridge()
 
 
 def test_refusals():

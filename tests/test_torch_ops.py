@@ -34,7 +34,7 @@ def _bf16_ulp(ref):
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
-@pytest.mark.parametrize("c", [48, 720])
+@pytest.mark.parametrize("c", [48, 720, 18])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_scale_bias_act_plain_matches_pallas(act, c, dtype):
     # 2 * 25 * 41 = 2050 rows: not a multiple of the TPU kernel's row tile
@@ -63,6 +63,34 @@ def test_scale_bias_act_rejects_bad_arguments():
     with pytest.raises(ValueError, match="cpu or cuda"):
         tfba.fused_scale_bias_act(x.to("meta"), torch.ones(8),
                                   torch.zeros(8), "relu")
+
+
+@pytest.mark.parametrize("c,width", [(1, 8), (4, 8), (6, 24), (12, 24),
+                                     (18, 72), (36, 72), (270, 1080),
+                                     (48, 48), (720, 720), (2047, 16376)])
+def test_kernels_view_rows_of_lcm_c_8(c, width):
+    """The kernels read (rows, C) as rows of lcm(C, 8) elements; the
+    per-channel vectors come tiled to that width (the same tensor where C
+    % 8 == 0)."""
+    assert tfba._view_width(c) == width
+    t = torch.arange(c, dtype=torch.float32)
+    tiled = tfba._tiled(t, c)
+    assert torch.equal(tiled, t[torch.arange(width) % c])
+    assert (tiled is t) == (width == c)
+    pair = tfba._tiled(torch.stack([t, -t]), c)
+    assert pair.shape == (2, width) and torch.equal(pair[1], -tiled)
+
+
+def test_layout_checks_take_any_c_up_to_the_limit():
+    """Every C up to 2048 passes the checks the kernels and the exported
+    operator's fake kernel share (a meta tensor: no data is read), and
+    every multiple of 8; beyond, the message names the limit."""
+    for c in (1, 3, 18, 270, 2047, 2048, 16384, 20000):
+        assert tfba._check_layout(torch.empty(2, c, device="meta"),
+                                  "k") == c
+    for c in (2049, 4095):
+        with pytest.raises(ValueError, match="C <= 2048 otherwise"):
+            tfba._check_layout(torch.empty(2, c, device="meta"), "k")
 
 
 def test_scale_bias_act_cpu_never_counts_launches():

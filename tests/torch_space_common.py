@@ -211,3 +211,51 @@ def space_runs_job(rank, world, cli_argv, fold_kw, eval_kw, weights,
         cfg, [weights], [eval_root], os.path.join(eval_save, f"rank{rank}"),
         device="cpu")
     return out
+
+
+# the Evaluator with quantize on bands (tests/test_torch_space_quantize.py):
+# the base-width-8 UNet at 48 px and the tiny HRNet at 72 px (their lowest
+# levels have 3 rows, so 3 ranks each hold one), with and without tta
+QUANT_SIZES = {"unet": 48, "hrnet": 72}
+QUANT_CASES = [(donor, tta) for donor in ("unet", "hrnet")
+               for tta in (False, True)]
+
+
+def quant_cfg_kw(donor, tta):
+    return dict(tree_root=ASSETS_TREE, class_map=ASSETS_MAP, model_type=1,
+                model_select=0 if donor == "unet" else 1,
+                img_size=QUANT_SIZES[donor], val_batch=2, num_workers=1,
+                quantize=True, calib_batches=2, tta=tta)
+
+
+def quant_evaluate(cfg, donor, root, weights, save, device="cpu"):
+    """The port's int8 Evaluator of ``donor``'s small model (patched into
+    ``train/evaluate.py``): (its result, its scales)."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
+        evaluate,
+    )
+
+    evaluate.build_model = lambda *a, **k: build_small(donor)
+    tree = evaluate.ClassTree.from_json(cfg.tree_root, cfg.class_map)
+    ev = evaluate.Evaluator(cfg, tree, root, weights, save, device=device)
+    return ev.run(), ev.act_scales
+
+
+def quantized_eval_job(rank, world, roots, weights, save):
+    """On ``world`` ranks at ``n_space = world``: every case's int8
+    Evaluator over ``roots[donor]`` with the port weights
+    ``weights[donor]``, its files into ``save/<donor>_<tta>_rank<rank>``;
+    (result, scales) per case."""
+    import os
+
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.config.run import (
+        RunConfig,
+    )
+
+    out = {}
+    for donor, tta in QUANT_CASES:
+        cfg = RunConfig(n_space=world, **quant_cfg_kw(donor, tta))
+        out[(donor, tta)] = quant_evaluate(
+            cfg, donor, roots[donor], weights[donor],
+            os.path.join(save, f"{donor}_{tta}_rank{rank}"))
+    return out

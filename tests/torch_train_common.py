@@ -162,18 +162,20 @@ class Pair:
     "hrnet" (the tiny HRNet) or "unet" (``unet_models``). ``oracle``:
     "pallas" (the JAX model with ``use_pallas_bn=True``, its kernels in
     interpret mode) or "default" (``LeanBatchNorm``; the JAX UNet has no
-    other BatchNorm). ``remat``: both sides' rematerialization mode."""
+    other BatchNorm). ``remat``: both sides' rematerialization mode.
+    ``hrnet``: the (JAX, port) HRNet configs in place of the tiny HRNet's;
+    ``n``: the batch."""
 
     def __init__(self, share=True, grad_accum=1, oracle="pallas", seed=0,
-                 donor="hrnet", remat=False):
+                 donor="hrnet", remat=False, hrnet=None, n=B):
         if donor == "unet" and oracle != "default":
             raise ValueError("the JAX UNet has LeanBatchNorm only: use "
                              "oracle='default'")
         self.oracle = oracle
         self.donor = donor
         self.jtree, self.ptree = trees("default")
-        jcfg, pcfg = tiny_configs()
-        self.x, self.y = batch(self.ptree)
+        jcfg, pcfg = hrnet or tiny_configs()
+        self.x, self.y = batch(self.ptree, n=n)
         if donor == "unet":
             jm, pm = unet_models(self.jtree, self.ptree, share=share,
                                  remat=remat)
