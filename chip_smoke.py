@@ -19,9 +19,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
 2. build: ``nvcc`` for every source in ``csrc/`` (all started together);
-3. kernels: the scale-bias-act kernel against its plain version at the
-   serving path's shapes, with the stated tolerance, and its time (CUDA
-   events) beside its bound, the plain version's time and a library call's;
+3. kernels: the scale-bias-act kernel (kernel 2's eval entry) against its
+   plain version at the serving path's shapes, with the stated tolerance,
+   and its time (CUDA events) beside its bound, the plain version's time
+   and a library call's;
 4. slice: the W48 hierarchical Predictor (random weights from a seed,
    non-trivial running statistics) in f32 on the card against the same
    model on the CPU, then bf16 at batch 4 -- the serving main path, whose
@@ -34,14 +35,17 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    parameters, AdamW at lr 0.018 -- one eval step, one warm-up step (the
    running statistics checked against the closed form with D = 2) and 5
    timed steps, each with its launches of the three BatchNorm kernels
-   counted (the statistics and the BN backward: one launch per call), then
-   one step under the profiler, which must show one device kernel of
-   ``bn_stats.cu`` per BatchNorm;
-8. train kernels: the batch-statistics, BN-backward and scale-bias-act
-   kernels against their plain versions at every shape of the train step
-   (the statistics and the BN backward also run twice and held bit for bit
-   to themselves), timed beside their bounds, the plain versions and a
-   library call;
+   counted (the statistics, kernel 2's train entry and the BN backward:
+   one launch per call; kernel 2's eval entry: none), then one step under
+   the profiler, which must show one device kernel each of ``bn_stats.cu``
+   and of kernel 2's train entry per BatchNorm; its host launches and idle
+   share are printed;
+8. train kernels: the batch-statistics and BN-backward kernels and kernel
+   2's train entry against their plain versions at every shape of the
+   train step (the statistics and the BN backward also run twice and held
+   bit for bit to themselves; the train entry bit for bit to the
+   composition it took in, ``composition_forward``), timed beside their
+   bounds, the plain versions, the composition and a library call;
 9. UNet slice: phase 4 for the hierarchical UNet at 352 px (18 BN modules,
    every BN input checked to be channels_last, so no copy precedes a BN
    kernel), its bf16 forward under the profiler, then one HTTP request to
@@ -130,15 +134,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 19. scale-out of training (``build/chip_smoke/scale_out/``, after phase
     18): the split entries of kernels 1 and 3 (a data-parallel group's
-    global-batch BatchNorm: the sums entry; the reduce and dx entries) at
-    every BN shape of the W48 and UNet train steps, bit for bit to the
-    fused launches and each against its plain version, fused against split
-    timed (CUDA events, summed per step); two ranks sharing the card over
+    global-batch BatchNorm: the sums entry, whose sums kernel 2's train
+    entry takes; the reduce and dx entries) at every BN shape of the W48
+    and UNet train steps, bit for bit to the fused launches and each
+    against its plain version, fused against split timed (CUDA events,
+    summed per step; the forward through the train entry from the sums,
+    from kernel 1's statistics, and through the composition it took in);
+    two ranks sharing the card over
     gloo, the full-width UNet at 352 px, a global batch of 16 as 8 + 8,
     three bf16 steps and one f32 step against one process at 16
     (deterministic algorithms; losses, running buffers and the f32 step's
     parameters within the stated bounds, the ranks bit-equal, each rank's
-    launches and all-reduces per step counted); the train CLI with
+    launches and all-reduces per step counted; the f32 step's gradients of
+    rank 0 and of one process against the same step in float64, printed);
+    the train CLI with
     ``--fold-parallel True`` over two
     folds against the sequential CLI (metrics.csv equal row for row), and
     its lockstep ``--auto-resume`` to epoch 3; the train CLI with
@@ -778,7 +787,9 @@ TRAIN_LR = 0.018
 # bench.py's level weights for the default tree (the reference recipe)
 LEVEL_WEIGHTS = [[0.0297, 1.577, 0.9619, 0.1770],
                  [1.5432, 0.2638, 1.0413, 3.9722]]
-TRAIN_COUNTS = ("bn_stats", "bn_backward", "scale_bias_act")
+# a train step's launches, each once per BatchNorm: kernel 1, kernel 2's
+# train entry, kernel 3 (kernel 2's eval entry: none)
+TRAIN_COUNTS = ("bn_stats", "bn_backward", "bn_act_forward")
 # f32 train step, card against CPU (see phase_train_parity)
 PARITY_LOSS_RTOL = 1e-4
 PARITY_GRAD_MEDIAN = 1e-4
@@ -1006,7 +1017,10 @@ def closed_form_error(old, batch_stats, bns, d: int) -> float:
 
 
 def classify_kernel(name: str):
-    """The port kernel a profiler event belongs to, or None."""
+    """The port kernel a profiler event belongs to, or None (kernel 2's
+    train entry first: both entries live in scale_bias_act.cu)."""
+    if "bn_act_forward" in name:
+        return "bn_act_forward"
     if "scale_bias_act" in name:
         return "scale_bias_act"
     if "bn_stats_one_pass" in name:
@@ -1171,6 +1185,7 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
     eval_ms = (time.perf_counter() - t0) * 1e3
     ec = read_counts()
     assert ec["scale_bias_act"] == n_bn and ec["bn_stats"] == 0, ec
+    assert ec["bn_act_forward"] == 0, ec
     assert np.isfinite(float(res["loss"]))
     assert int(res["confmats"][0].sum()) == batch * size * size
     assert model.training  # the eval step restores train mode
@@ -1227,6 +1242,7 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
     for c in counts:
         for k in TRAIN_COUNTS:
             assert c[k] == n_bn, (k, c)
+        assert c["scale_bias_act"] == 0, c
     assert np.isfinite(losses).all(), losses
     assert moved == len(params), (moved, len(params))
     n_pix = [int(cm.sum()) for cm in aux["confmats"]]
@@ -1242,9 +1258,17 @@ def phase_train(device, tree, sd, n_bn: int, batch: int = TRAIN_BATCH,
         f"{moved}/{len(params)} parameter tensors moved")
     prof = profile_call(lambda: step(state, x, y, mask),
                         f"one {name} train step, bf16, batch {batch}")
-    # one device kernel of bn_stats.cu per BatchNorm: one launch per call
-    assert prof["kernel_counts"].get("bn_stats") == n_bn, \
-        prof["kernel_counts"]
+    # one device kernel each of kernel 1, kernel 2's train entry and kernel
+    # 3 per BatchNorm: one launch per call, and no eval entry
+    kc = prof["kernel_counts"]
+    log(f"profiled {name} train step: {prof['host_launches']} kernel "
+        f"launches from the host, idle share {prof['idle_share'] * 100:.1f}"
+        f"%; device kernels: bn_stats {kc.get('bn_stats', 0)}, "
+        f"bn_act_forward {kc.get('bn_act_forward', 0)}, bn_backward "
+        f"{kc.get('bn_backward', 0)}, scale_bias_act "
+        f"{kc.get('scale_bias_act', 0)}")
+    assert kc.get("bn_stats") == kc.get("bn_act_forward") == n_bn, kc
+    assert "scale_bias_act" not in kc, kc
 
     return {"shapes": shapes, "counts": counts[0], "step_ms": times,
             "images_per_s": batch / step_ms * 1e3, "peak_bytes": peak,
@@ -1363,20 +1387,135 @@ def measure_train_kernels(shape, dtype, act, gen, device) -> dict:
     return {"bn_stats": stats, "bn_backward": bwd}
 
 
+def composition_forward(x, gamma, beta, act, running, mean=None, var=None,
+                        sums=None):
+    """A measurement aid, never on the port's path: a train-mode BN's
+    forward after its statistics as the port made it before kernel 2's
+    train entry, in PyTorch ops around kernel 2's eval entry (the route
+    the train entry took in): from ``sums``, :func:`stats_from_sums` and the tensor Bessel
+    factor; the six ops that form rstd, scale and shift; the eval entry;
+    the running update's ops (``running = (mean, var, momentum)``, moved in
+    place). Returns what the train entry returns."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    if sums is not None:
+        mean, var = fba.stats_from_sums(sums)
+        n = sums[-1]
+        bessel = torch.where(n > 1, n / (n - 1), 1.0)
+    else:
+        n = x.numel() // x.shape[-1]
+        bessel = n / (n - 1) if n > 1 else 1.0
+    rstd = torch.rsqrt(var + BN_EPS)
+    scale = gamma * rstd
+    shift = beta - mean * gamma * rstd
+    y = fba.fused_scale_bias_act(x, scale, shift, act)
+    rm, rv, m = running
+    rm.copy_(m * rm + (1 - m) * mean)
+    rv.copy_(m * rv + (1 - m) * (var * bessel))
+    return y, mean, var, rstd, scale, shift
+
+
+def _forward_inputs(shape, dtype, gen, device):
+    """Seeded x, gamma, beta and running buffers of a BN forward."""
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=device) * 1.5
+         + 0.3).to(dtype)
+    gamma = torch.rand(c, generator=gen, device=device) + 0.5
+    beta = torch.randn(c, generator=gen, device=device) * 0.5
+    rm = torch.randn(c, generator=gen, device=device) * 0.1
+    rv = torch.rand(c, generator=gen, device=device) + 0.5
+    return x, gamma, beta, rm, rv
+
+
+def _outputs_equal(got, want, what: str) -> None:
+    names = ("y", "mean", "var", "rstd", "scale", "shift")
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), f"{what}: {name} differs"
+
+
+def measure_bn_act_forward(shape, dtype, act, gen, device) -> dict:
+    """Kernel 2's train entry at one BN shape, from kernel 1's statistics,
+    with the running update: (a) the entry and (b) the composition it took
+    in (:func:`composition_forward`) bit for bit to each other, y and every
+    vector and the moved buffers, and to the plain version; then the
+    entry's time (inputs from device memory: ``ms``; from L2: ``ms_l2``),
+    the composition's (``composition_ms``, its launches replayed from a
+    CUDA graph: device time only), the plain version's, one
+    ``torch.batch_norm_elemt`` (act none, no running update) and the bound:
+    x read and y written once, gamma, beta, mean, var read, rstd, scale,
+    shift written, the running buffers read and written."""
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .norm import BN_MOMENTUM
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+        fused_bn_act as fba,
+    )
+
+    c = shape[-1]
+    x, gamma, beta, rm, rv = _forward_inputs(shape, dtype, gen, device)
+    mean, var = fba.bn_stats(x)
+    runs = [(rm.clone(), rv.clone(), BN_MOMENTUM) for _ in range(3)]
+    got = fba.bn_act_forward(x, gamma, beta, BN_EPS, act, mean, var,
+                             running=runs[0])
+    want = composition_forward(x, gamma, beta, act, runs[1], mean, var)
+    plain = fba._bn_act_forward_ref(x, gamma, beta, BN_EPS, act, mean, var,
+                                    running=runs[2])
+    torch.cuda.synchronize()
+    where = f"bn_act_forward at {shape} {dtype} {act}"
+    _outputs_equal(got, want, where + " against the composition")
+    _outputs_equal(got, plain, where + " against its plain version")
+    for r in runs[1:]:
+        assert torch.equal(runs[0][0], r[0]) and \
+            torch.equal(runs[0][1], r[1]), where + ": running buffers differ"
+
+    nb = x.numel() * x.element_size()
+    n_cold = max(2, -(-2 * L2_BYTES // nb))
+    cold = [(x.clone(),) for _ in range(n_cold)]
+    run = runs[0]
+
+    def entry(xx):
+        return fba.bn_act_forward(xx, gamma, beta, BN_EPS, act, mean, var,
+                                  running=run)
+
+    def composition(xx):
+        return composition_forward(xx, gamma, beta, act, run, mean, var)
+
+    def plain_fn(xx):
+        return fba._bn_act_forward_ref(xx, gamma, beta, BN_EPS, act, mean,
+                                       var, running=run)
+
+    rstd = got[3]
+
+    def library(xx):
+        nchw = xx.permute(0, 3, 1, 2) if xx.dim() == 4 else xx
+        return torch.batch_norm_elemt(nchw, gamma, beta, mean, rstd, BN_EPS)
+
+    row = {"max_abs_err": 0.0, "bytes": 2 * nb + 11 * 4 * c,
+           "ms": time_ms(entry, cold), "ms_l2": time_ms(entry, [(x,)]),
+           "composition_ms": time_ms(composition, cold),
+           "plain_ms": time_ms(plain_fn, cold),
+           "library_ms": time_ms(library, cold)}
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    return row
+
+
 def phase_train_kernel_times(device, shapes) -> dict:
     """Every kernel of the train step at every (shape, dtype, act) it was
-    launched with there, checked against its plain version (scale_bias_act
-    bit for bit), timed and bounded, summed over its launches of one step."""
+    launched with there, checked against its plain version (kernel 2's
+    train entry bit for bit, and to the composition it took in), timed and
+    bounded, summed over its launches of one step."""
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     keys = ("ms", "ms_l2", "plain_ms", "bound_ms", "library_ms", "bytes")
     tot = {k: dict.fromkeys(keys + ("max_abs_err",), 0.0)
-           for k in ("bn_stats", "bn_backward", "scale_bias_act")}
+           for k in ("bn_stats", "bn_backward", "bn_act_forward")}
+    tot["bn_act_forward"]["composition_ms"] = 0.0
     by_res = {}  # bn_stats by input height (and the calls over 100 MB)
     for (shape, dtype, act), count in sorted(shapes.items(),
                                              key=lambda kv: str(kv[0])):
         rows = measure_train_kernels(shape, dtype, act, gen, device)
-        rows["scale_bias_act"] = measure_scale_bias_act(
-            shape, dtype, act, gen, device, library=True, exact=True)
+        rows["bn_act_forward"] = measure_bn_act_forward(shape, dtype, act,
+                                                        gen, device)
         log(f"train kernel case {list(shape)} {str(dtype)[6:]} {act} x"
             f"{count}: " + json.dumps(rows))
         for name, row in rows.items():
@@ -1384,6 +1523,8 @@ def phase_train_kernel_times(device, shapes) -> dict:
             t["max_abs_err"] = max(t["max_abs_err"], row["max_abs_err"])
             for k in keys:
                 t[k] += count * row[k]
+        tot["bn_act_forward"]["composition_ms"] += \
+            count * rows["bn_act_forward"]["composition_ms"]
         key = ("over 100 MB" if rows["bn_stats"]["bytes"] > 1e8
                else f"{shape[1]} px")
         g = by_res.setdefault(key, {"calls": 0, "ms": 0.0, "bound_ms": 0.0})
@@ -1397,7 +1538,10 @@ def phase_train_kernel_times(device, shapes) -> dict:
             f"{len(shapes)} shapes, {t['bytes'] / 1e6:.1f} MB, kernel "
             f"{t['ms']:.4f} ms from device memory ({t['ms_l2']:.4f} ms from "
             f"L2), bound {t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-            f"ms, library {t['library_ms']:.4f} ms")
+            f"ms, library {t['library_ms']:.4f} ms"
+            + (f", the composition it took in {t['composition_ms']:.4f} ms "
+               "(device time), bit for bit at every shape"
+               if "composition_ms" in t else ""))
     return tot
 
 
@@ -1416,7 +1560,7 @@ def _plain_counters():
 
     names = ("_bn_stats_ref", "_bn_backward_ref", "_scale_bias_act_ref",
              "_bn_stats_sums_ref", "_bn_backward_reduce_ref",
-             "_bn_backward_dx_ref")
+             "_bn_backward_dx_ref", "_bn_act_forward_ref")
     counts = dict.fromkeys(names, 0)
     saved = {n: getattr(fba, n) for n in names}
 
@@ -1546,7 +1690,7 @@ def phase_train_cli(n_bn: int, bare_step_ms: float, card: str) -> dict:
         val_loader.close()
     ratio = loader_ms[2] / bare_step_ms
     total = {k: runs[0]["counts"][k] + runs[1]["counts"][k]
-             for k in TRAIN_COUNTS}
+             for k in TRAIN_COUNTS + ("scale_bias_act",)}
     log(f"train CLI on {card}: 64 + 16 images at 352 px written in "
         f"{data_s:.2f} s; 2 epochs in {runs[0]['wall_s']:.2f} s, the resume "
         f"to 3 in {runs[1]['wall_s']:.2f} s of wall time (model build, "
@@ -2781,7 +2925,8 @@ def phase_deployment(card: str, device: str = "cuda") -> dict:
         steps = CLI_TRAIN_IMAGES // TRAIN_BATCH
         val = max(2, CLI_TRAIN_IMAGES // 4)
         assert counts["bn_stats"] == counts["bn_backward"] == n_unet * steps
-        assert counts["scale_bias_act"] == n_unet * (steps + val), counts
+        assert counts["bn_act_forward"] == n_unet * steps, counts
+        assert counts["scale_bias_act"] == n_unet * val, counts
         rows = _read_csv(f"{root}/train_from_donor/fold_1/metrics.csv")
         assert [r[0] for r in rows[1:]] == ["1"], rows
         out["train_from_donor"] = {"leaves": n_uleaves, "wall_s": wall,
@@ -2934,7 +3079,8 @@ def _train_cli_runs(argv_base, plan, n_bn, steps, val) -> list:
             wall = time.perf_counter() - t0
             c = read_counts()
             assert c["bn_stats"] == c["bn_backward"] == n_bn * steps * n_ep, c
-            assert c["scale_bias_act"] == n_bn * (steps + val) * n_ep, c
+            assert c["bn_act_forward"] == n_bn * steps * n_ep, c
+            assert c["scale_bias_act"] == n_bn * val * n_ep, c
             runs.append({"epochs": epochs, "wall_s": wall, "counts": c})
     finally:
         undo()
@@ -3133,7 +3279,7 @@ def phase_data_side(n_bn: int, card: str, tf32_defaults, cli13: dict,
     assert np.isfinite(loss["resumed"]).all(), loss
     assert resumed == unbroken, "the resume differs from an unbroken run"
     launches = {k: sum(r["counts"][k] for r in runs[1:3])
-                for k in TRAIN_COUNTS}
+                for k in TRAIN_COUNTS + ("scale_bias_act",)}
     log(f"train CLI --device-data True on {card}: 2 epochs in "
         f"{runs[0]['wall_s']:.2f} s; with deterministic algorithms 2 "
         f"epochs in {runs[1]['wall_s']:.2f} s, the resume to 3 in "
@@ -3329,8 +3475,10 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
     weights at ``sd_path`` on this rank's rows of the global batch at
     ``batch_path``, over the WORLD group when ``world`` > 1 (the
     BatchNorms' statistics and the gradients span the group); f32 without
-    TF32. The launches of every kernel entry and the all-reduces are
-    counted per step (counts 0 just before, read just after)."""
+    TF32; "float64": the model and batch in float64 (a reference, under
+    :func:`plain_float64` on the card). The launches of every kernel entry
+    and the all-reduces are counted per step (counts 0 just before, read
+    just after)."""
     import torch.distributed as dist
 
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.hierarchy \
@@ -3348,9 +3496,9 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
 
     tree = ClassTree.from_json("assets/class_tree_tl.json",
                                "assets/class_map.csv")
-    x, y = torch.load(batch_path)
-    per = x.shape[0] // world
-    x = x[rank * per:(rank + 1) * per].to(device)
+    x0, y = torch.load(batch_path)
+    per = x0.shape[0] // world
+    x0 = x0[rank * per:(rank + 1) * per].to(device)
     y = y[rank * per:(rank + 1) * per].to(device)
     group = dist.group.WORLD if world > 1 else None
     reduces = [0]
@@ -3365,14 +3513,18 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
     results = {}
     try:
         for dtype, steps in plan:
+            wide = torch.float64 if dtype == "float64" else None
+            x = x0.to(dtype=wide)
             model = build_model(tree, 0, 1, remat=remat)
             model.load_state_dict(torch.load(sd_path), strict=True)
-            model = model.to(device, memory_format=torch.channels_last)
+            model = model.to(device, memory_format=torch.channels_last,
+                             dtype=wide)
             set_bn_group(model.train(), group)
             state = create_train_state(model, TRAIN_LR)
             step = make_train_step(model, tree, True,
                                    level_weights=LEVEL_WEIGHTS,
-                                   compute_dtype=dtype, group=group)
+                                   compute_dtype="float32" if wide
+                                   else dtype, group=group)
             mask = torch.ones(tree.num_levels, device=device)
             out = {"loss": [], "per_level": [], "counts": [],
                    "all_reduces": [], "ms": [], "buckets": len(step.buckets)}
@@ -3393,7 +3545,7 @@ def dp_steps(rank: int, world: int, sd_path: str, batch_path: str,
                         out["params1"] = {
                             n: p.detach().cpu().clone()
                             for n, p in model.named_parameters()}
-                        if dtype == "float32":  # phase 21 reads them
+                        if dtype != "bfloat16":  # the gradients held
                             out["grads1"] = {
                                 n: p.grad.detach().cpu().clone()
                                 for n, p in model.named_parameters()}
@@ -3469,9 +3621,14 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
                   timed: bool = True) -> dict:
     """Kernels 1 and 3 through the split entries of a data-parallel group
     at one BN shape, at one rank: mean/var, dx, dgamma and dbeta bit for
-    bit to the fused launches, each entry against its plain version, and
-    the times (inputs from device memory) of the fused calls and the split
-    ones (the sums entry with ``stats_from_sums``; reduce and dx). With
+    bit to the fused launches, each entry against its plain version; the
+    group's forward (the sums entry, then kernel 2's train entry from the
+    sums, running update included) bit for bit to the fused route (kernel
+    1, then the train entry) and to the composition it took in (the sums
+    entry, ``stats_from_sums`` and :func:`composition_forward`), its mean
+    and var kernel 1's bits; and the times (inputs from device memory) of
+    the fused calls and the split ones (those three forward routes;
+    reduce and dx against kernel 3). With
     ``entries``, each entry's time, its plain version's and one library
     call's (PyTorch's SyncBatchNorm pieces: ``batch_norm_stats``,
     ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``) and its
@@ -3492,6 +3649,25 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
     m2, v2 = fba.stats_from_sums(sums)
     assert torch.equal(m2, mean) and torch.equal(v2, var), \
         f"split statistics differ from the fused kernel's at {shape}"
+    from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
+        .norm import BN_MOMENTUM
+    rm = torch.randn(c, generator=gen, device=device) * 0.1
+    rv = torch.rand(c, generator=gen, device=device) + 0.5
+    runs = [(rm.clone(), rv.clone(), BN_MOMENTUM) for _ in range(3)]
+    split_f = fba.bn_act_forward(x, gamma, beta, BN_EPS, act, sums=sums,
+                                 running=runs[0])
+    fused_f = fba.bn_act_forward(x, gamma, beta, BN_EPS, act, mean, var,
+                                 running=runs[1])
+    comp_f = composition_forward(x, gamma, beta, act, runs[2], sums=sums)
+    torch.cuda.synchronize()
+    assert torch.equal(split_f[1], mean) and torch.equal(split_f[2], var), \
+        f"the train entry's statistics from sums differ at {shape}"
+    _outputs_equal(split_f, fused_f, f"split forward at {shape} {act}")
+    _outputs_equal(split_f, comp_f, f"split composition at {shape} {act}")
+    for r in runs[1:]:
+        assert torch.equal(runs[0][0], r[0]) and \
+            torch.equal(runs[0][1], r[1]), f"running buffers at {shape}"
+    del split_f, fused_f, comp_f
     rstd = torch.rsqrt(var + BN_EPS)
     scale, shift = gamma * rstd, beta - mean * gamma * rstd
     vecs = (scale, shift, mean, rstd)
@@ -3542,10 +3718,17 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
     xg = [a[:6] for a in cold]
     xgs = [a[:7] for a in cold]
     lib = [(a[0], a[1], a[4], a[5], a[7]) for a in cold]
+    run = runs[0]
     t = {
-        "fused_stats": time_ms(fba.bn_stats, xs, reps=10),
-        "split_stats": time_ms(lambda xx: fba.stats_from_sums(
-            fba.bn_stats_sums(xx)), xs, reps=10),
+        "fused_forward": time_ms(lambda xx: fba.bn_act_forward(
+            xx, gamma, beta, BN_EPS, act, *fba.bn_stats(xx), running=run),
+            xs, reps=10),
+        "split_forward": time_ms(lambda xx: fba.bn_act_forward(
+            xx, gamma, beta, BN_EPS, act, sums=fba.bn_stats_sums(xx),
+            running=run), xs, reps=10),
+        "composition_forward": time_ms(lambda xx: composition_forward(
+            xx, gamma, beta, act, run, sums=fba.bn_stats_sums(xx)), xs,
+            reps=10),
         "fused_backward": time_ms(
             lambda *a: fba.bn_act_backward(*a, act), xg, reps=10),
         "split_backward": time_ms(
@@ -3625,8 +3808,9 @@ def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
     out = {}
     for path, shapes in shapes_by_path.items():
         full = path == entries_path
-        times = dict.fromkeys(("fused_stats", "split_stats",
-                               "fused_backward", "split_backward"), 0.0)
+        times = dict.fromkeys(("fused_forward", "split_forward",
+                               "composition_forward", "fused_backward",
+                               "split_backward"), 0.0)
         errs = dict.fromkeys(SPLIT_ENTRIES, 0.0)
         entries = {e: dict.fromkeys(("max_abs_err", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bytes"), 0.0)
@@ -3656,8 +3840,11 @@ def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
             out[path]["per_shape"] = per_shape
         log(f"split against fused ({path}, {len(shapes)} shapes, "
             f"{sum(shapes.values())} BN calls, bit for bit at every shape): "
-            f"statistics {times['fused_stats']:.4f} ms fused, "
-            f"{times['split_stats']:.4f} split; backward "
+            f"forward (statistics, kernel 2's train entry, running update) "
+            f"{times['fused_forward']:.4f} ms fused, "
+            f"{times['split_forward']:.4f} split, "
+            f"{times['composition_forward']:.4f} split through the "
+            f"composition the entry took in; backward "
             f"{times['fused_backward']:.4f} fused, "
             f"{times['split_backward']:.4f} split (CUDA events, summed per "
             f"step, inputs from device memory, no all-reduce); entries "
@@ -3682,7 +3869,11 @@ def phase_scale_out(card: str, train_shapes: dict,
       stated tolerances (``DP_TOL``), the f32 step's parameters on the
       significant-update criterion, the ranks' parameters and buffers
       bit-equal, each rank's launches of kernels 1-3 (through the split
-      entries) and all-reduces per step counted;
+      entries and kernel 2's train entry) and all-reduces per step
+      counted; the f32 step's gradients (rank 0's and one process's)
+      against the same step in float64 in one process (the model and batch
+      in float64, kernels 1-3 through their plain versions:
+      :func:`plain_float64`), printed;
     * the train CLI with ``--fold-parallel True``: two folds of synthetic
       radiographs (phase 13's generator, 32 + 8 images each), 2 epochs, one
       process, against the sequential CLI over the same folds, with
@@ -3735,6 +3926,9 @@ def phase_scale_out(card: str, train_shapes: dict,
     ranks_s = time.perf_counter() - t0
     with deterministic_algorithms():
         one = dp_steps(0, 1, *args, device=device)
+        with plain_float64():  # the f32 step's float64 anchor
+            wide = dp_steps(0, 1, *args, plan=(("float64", 1),),
+                            device=device)["float64"]
     n_bn = MODELS[0]["n_bn"]
     for r in ranks:
         assert all(v == 0 for v in r["plain_calls"].values()), r
@@ -3747,8 +3941,9 @@ def phase_scale_out(card: str, train_shapes: dict,
         for r in rk:
             for c in r["counts"]:
                 assert c["bn_stats_sums"] == c["bn_backward_reduce"] == \
-                    c["bn_backward_dx"] == c["scale_bias_act"] == n_bn, c
+                    c["bn_backward_dx"] == c["bn_act_forward"] == n_bn, c
                 assert c["bn_stats"] == c["bn_backward"] == 0, c
+                assert c["scale_bias_act"] == 0, c
             # 2 per BN call, one for the Dice counts, the gradient buckets
             # and one for the step's aux
             assert r["all_reduces"] == [2 * n_bn + 1 + r["buckets"] + 1] \
@@ -3792,13 +3987,20 @@ def phase_scale_out(card: str, train_shapes: dict,
         assert max(loss_err + level_err) <= tol["loss"], (loss_err,
                                                           level_err)
         assert stats_err <= tol["stats1"], stats_err
-        grads1 = None
+        grads1 = grads64 = None
         if dtype == "float32":
             assert n_sig > 1000 and bad < DP_SIG_BAD, (n_sig, bad)
             grads1 = _grad_errors(rk[0]["grads1"], on["grads1"])
+            grads64 = {"rank0": _grad_errors(rk[0]["grads1"],
+                                             wide["grads1"]),
+                       "one": _grad_errors(on["grads1"], wide["grads1"])}
             log(f"data axis on {card}, float32: step 1's gradients of rank 0 "
                 f"against one process (the weight gradients' sums split over "
                 f"batch halves; printed, not held): {json.dumps(grads1)}")
+            log(f"data axis on {card}, float32: step 1's gradients against "
+                f"the same step in float64 (one process, plain BN versions; "
+                f"printed, not held), rank 0: {json.dumps(grads64['rank0'])}"
+                f"; one process: {json.dumps(grads64['one'])}")
         out["data_axis"][dtype] = {
             "loss": rk[0]["loss"], "one_loss": on["loss"],
             "loss_rel_err": loss_err, "level_rel_err": level_err,
@@ -3808,7 +4010,7 @@ def phase_scale_out(card: str, train_shapes: dict,
                                for e in SPLIT_ENTRIES},
             "all_reduces": rk[0]["all_reduces"][0],
             "buckets": rk[0]["buckets"], "rank_ms": [r["ms"] for r in rk],
-            "one_ms": on["ms"], "grads1": grads1}
+            "one_ms": on["ms"], "grads1": grads1, "grads1_f64": grads64}
     del ranks, one
     torch.cuda.empty_cache()
 
@@ -3841,7 +4043,8 @@ def phase_scale_out(card: str, train_shapes: dict,
                 n_ep = 1 if name == "resumed" else 2
                 assert c["bn_stats"] == c["bn_backward"] == \
                     2 * n_bn * steps * n_ep, (name, c)
-                assert c["scale_bias_act"] == 2 * n_bn * (steps + val) * n_ep
+                assert c["bn_act_forward"] == 2 * n_bn * steps * n_ep, c
+                assert c["scale_bias_act"] == 2 * n_bn * val * n_ep, c
                 fp_runs[name] = {"wall_s": time.perf_counter() - t0,
                                  "counts": c, "csv": [
                                      _read_csv(f"{run}/fold_{k}/metrics.csv")
@@ -4072,7 +4275,7 @@ def phase_remat(card: str, tree, model_select: int,
         r = runs[mode]
         k12 = n_bn + (r["region_bns"] if mode else 0)
         for c in [r["first_counts"]] + r["counts"]:
-            assert (c["bn_stats"], c["scale_bias_act"], c["bn_backward"]) \
+            assert (c["bn_stats"], c["bn_act_forward"], c["bn_backward"]) \
                 == (k12, k12, n_bn), (name, mode, c)
         want_convs = r["region_convs"] if mode == "module" else 0
         assert r["backward_convs"]["convolution_ops"] == want_convs, \
@@ -4390,7 +4593,7 @@ def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
         on = one_dp[dtype]
         for r in rk:
             c = r["counts"][0]
-            assert c["bn_stats_sums"] == c["scale_bias_act"] == 2 * n_bn, c
+            assert c["bn_stats_sums"] == c["bn_act_forward"] == 2 * n_bn, c
             assert c["bn_backward_reduce"] == c["bn_backward_dx"] == n_bn, c
             assert c["bn_stats"] == c["bn_backward"] == 0, c
             # 2 per BN call, the Dice count, the buckets, the aux, and the
@@ -4398,7 +4601,7 @@ def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
             assert r["all_reduces"] == [3 * n_bn + r["buckets"] + 2], \
                 r["all_reduces"]
         c = on["counts"][0]
-        assert (c["bn_stats"], c["scale_bias_act"], c["bn_backward"]) == \
+        assert (c["bn_stats"], c["bn_act_forward"], c["bn_backward"]) == \
             (2 * n_bn, 2 * n_bn, n_bn), c
         differ = [k for k, v in rk[0]["state"].items()
                   if not torch.equal(v, rk[1]["state"][k])]
@@ -4901,8 +5104,9 @@ def phase_space(card: str, device: str = "cuda") -> dict:
         for r in rk:
             for c in r["counts"]:
                 assert c["bn_stats_sums"] == c["bn_backward_reduce"] == \
-                    c["bn_backward_dx"] == c["scale_bias_act"] == n_bn, c
+                    c["bn_backward_dx"] == c["bn_act_forward"] == n_bn, c
                 assert c["bn_stats"] == c["bn_backward"] == 0, c
+                assert c["scale_bias_act"] == 0, c
             assert sum(r["shapes"].values()) == n_bn, r["shapes"]
         for c in on["counts"]:
             assert c["bn_stats"] == c["bn_backward"] == n_bn, c
@@ -4924,7 +5128,7 @@ def phase_space(card: str, device: str = "cuda") -> dict:
                "launches": [r["counts"][0] for r in rk],
                "launches_total": {e: sum(c[e] for c in rk[0]["counts"])
                                   for e in SPLIT_ENTRIES
-                                  + ("scale_bias_act",)},
+                                  + ("bn_act_forward",)},
                "exchanges": [r["exchanges"][0] for r in rk]}
         if device == "cuda":
             row["peak_share"] = [p / row["one_peak_gib"]
@@ -5440,34 +5644,31 @@ def main() -> int:
         "source": "restrictive_hierarchical_semantic_segmentation_tpu_torch/"
                   "csrc/scale_bias_act.cu",
         "replaces": f"{BN_FILE}:100",
+        "design": "fixed columns a thread: blocks of a multiple of lcm(C, "
+                  "8) / 8 threads (column groups of up to 512 units wider), "
+                  "the block's coefficients once in shared memory, each "
+                  "thread's 8 in registers, 64 bytes of x in flight a "
+                  "thread, a one-wave grid, y stored evict-first, (C,) "
+                  "vectors untiled (previously a grid-stride loop of one "
+                  "16-byte vector a thread, a 64-bit modulo and 64 bytes "
+                  "of coefficient loads per vector, vectors tiled per call)",
         "launches": result["launches"],
-        "train_launches": train["counts"]["scale_bias_act"],
         "unet_serve_launches": uresult["launches"],
-        "unet_launches": utrain["counts"]["scale_bias_act"],
         "cli_launches": cli["launches"]["scale_bias_act"],
         "eval_launches": ev["launches"],
         "options_launches": opt["launches"],
         "export_launches": dep["launches"],
         "device_data_launches": dd_launches["scale_bias_act"],
-        "remat_launches": w48_conv[1], "unet_remat_launches": unet_conv[1],
         "fold_mesh_launches": remat["fold_mesh"]["tta=False"]["launches"],
         "data_mesh_launches": remat["data_mesh"]["launches"][0],
-        "space_launches": sum(
-            space["models"][MODELS[ms]["name"]]["launches_total"][
-                "scale_bias_act"] for ms, _, _ in SPACE_PLAN),
         **{f"space_{k}": space["scale_bias_act"][k]
            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                      "library_ms")},
         "w18_serve_launches": w18["serve"]["launches"],
-        "w18_launches": w18["train"]["counts"]["scale_bias_act"],
         **{f"w18_serve_{k}": w18["forward"][k] for k in TOTAL_KEYS},
-        **w18_row("scale_bias_act"),
         "max_abs_err": max([path["max_abs_err"], upath["max_abs_err"],
                             epath["max_abs_err"],
-                            ttot["scale_bias_act"]["max_abs_err"],
-                            utot["scale_bias_act"]["max_abs_err"],
                             w18["forward"]["max_abs_err"],
-                            w18["step"]["scale_bias_act"]["max_abs_err"],
                             w18["band_scale_bias_act_err"]]
                            + [c["max_abs_err"] for c in cases]),
         "ms": path["ms"],
@@ -5480,11 +5681,11 @@ def main() -> int:
                 f"batch {result['bf16_batch']}, {IMG} px, inputs read from "
                 "device memory (ms_l2: from L2); library_ms is one "
                 "F.batch_norm(training=False) per launch (the relu launches "
-                "would need a second call); train_*: the same over the "
-                "train_launches of one train step (" + step_work + ")"
-                "; unet_serve_*: over one bf16 UNet forward at batch "
-                f"{uresult['bf16_batch']}, {uimg} px" + unet_work
-                + "; eval_*: over the eval_launches of the predict_eval "
+                "would need a second call); unet_serve_*: over one bf16 UNet "
+                f"forward at batch {uresult['bf16_batch']}, {uimg} px; "
+                "cli_launches: the train CLI's validation forwards over its "
+                "2 epochs and its resume to 3 (phase 13)"
+                "; eval_*: over the eval_launches of the predict_eval "
                 "CLI's card runs (phase 15: the UNet at 352 px, f32 at "
                 "batches 1, 3 and 8 (TTA of 4), bf16 at batch 4); "
                 "options_launches: phase 16's counted runs (fold ensembles, "
@@ -5493,24 +5694,60 @@ def main() -> int:
                 "as the operator torch.ops.rhss.scale_bias_act); "
                 "device_data_launches: the train CLI's 2 epochs and resume "
                 "to 3 with --device-data True (phase 18), as cli_launches; "
-                "remat_launches / unet_remat_launches: one W48 / UNet train "
-                "step with --remat conv (phase 20); fold_mesh_launches: one "
+                "fold_mesh_launches: one "
                 "rank's forward of a 4-fold UNet ensemble over two ranks; "
                 "data_mesh_launches: one rank's predict_eval run over two "
-                "ranks (phase 20); space_*: rank 0's launches over phase "
-                "21's W48 and UNet steps on two space ranks, every one at a "
-                "band shape, and the kernel held and timed at every band "
-                "shape of both ranks' step 1; w18_serve_*: over one bf16 "
-                "forward of HRNet-W18 (--config w18) at batch "
-                f"{w18['serve']['bf16_batch']}, {IMG} px" + w18_work
-                + "; the kernel also bit for bit to its plain version at "
-                "that step's band shapes of both ranks at --n-space 2 "
-                "(phase 22)",
-        **{f"train_{k}": ttot["scale_bias_act"][k] for k in TOTAL_KEYS},
+                "ranks (phase 20); space_*: the kernel held and timed at "
+                "every band shape of both ranks' step 1 of phase 21; "
+                "w18_serve_*: over one bf16 forward of HRNet-W18 (--config "
+                f"w18) at batch {w18['serve']['bf16_batch']}, {IMG} px; the "
+                "kernel also bit for bit to its plain version at the W18 "
+                "step's band shapes of both ranks at --n-space 2 (phase 22)",
         **{f"unet_serve_{k}": upath[k] for k in TOTAL_KEYS},
         **{f"eval_{k}": epath[k] for k in TOTAL_KEYS},
-        **unet("scale_bias_act"),
     }, kernel_entry(
+        "bn_act_forward", "scale_bias_act.cu", f"{BN_FILE}:100",
+        train["counts"]["bn_act_forward"], ttot["bn_act_forward"],
+        step_work + "; kernel 2's train entry from kernel 1's statistics, "
+        "running update included; plain_ms: its plain version (PyTorch "
+        "ops throughout); composition_ms: the route it took in (six "
+        "PyTorch ops, kernel 2's eval entry, the running update's ops), "
+        "device time from a CUDA graph; library_ms is one "
+        "torch.batch_norm_elemt per launch (act none, no running update)"
+        + unet_work + w18_work + "; remat_launches / unet_remat_launches: "
+        "one W48 / UNet train step with --remat conv (phase 20); "
+        "space_launches: rank 0's launches over phase 21's W48 and UNet "
+        "steps on two space ranks, from the group's sums, every one at a "
+        "band shape",
+        design="the eval entry's streaming body with a prologue: each "
+        "block forms its columns' coefficients from kernel 1's (mean, var) "
+        "or the group's f64 sums (kernel 1's last step), gamma, beta and "
+        "eps in the PyTorch ops' order and roundings; one thread per "
+        "channel writes mean, var, rstd, scale, shift and moves the running "
+        "statistics in place (previously six PyTorch ops, the eval entry "
+        "and nine ops of the running update; over a group eight more of "
+        "stats_from_sums and four of the Bessel factor)",
+        composition_ms=ttot["bn_act_forward"]["composition_ms"],
+        profiled_kernels=train["profile"]["kernel_counts"]["bn_act_forward"],
+        unet_profiled_kernels=utrain["profile"]["kernel_counts"][
+            "bn_act_forward"],
+        unet_launches=utrain["counts"]["bn_act_forward"],
+        unet_composition_ms=utot["bn_act_forward"]["composition_ms"],
+        cli_launches=cli["launches"]["bn_act_forward"],
+        device_data_launches=dd_launches["bn_act_forward"],
+        remat_launches=w48_conv[1], unet_remat_launches=unet_conv[1],
+        space_launches=sum(
+            space["models"][MODELS[ms]["name"]]["launches_total"][
+                "bn_act_forward"] for ms, _, _ in SPACE_PLAN),
+        split_forward_ms={path: {k: v for k, v in r["times"].items()
+                                 if k.endswith("forward")}
+                          for path, r in scale["split"].items()},
+        **unet("bn_act_forward"),
+        w18_launches=w18["train"]["counts"]["bn_act_forward"],
+        w18_profiled_kernels=w18["train"]["profile"]["kernel_counts"][
+            "bn_act_forward"],
+        w18_composition_ms=w18["step"]["bn_act_forward"]["composition_ms"],
+        **w18_row("bn_act_forward")), kernel_entry(
         "bn_stats", "bn_stats.cu", f"{BN_FILE}:51",
         train["counts"]["bn_stats"], ttot["bn_stats"],
         step_work + "; library_ms is one torch.batch_norm_stats per launch"

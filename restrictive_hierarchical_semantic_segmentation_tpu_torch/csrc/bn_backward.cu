@@ -811,38 +811,6 @@ int dx_threads(int cv) {
   return best;
 }
 
-// Blocks of `threads` threads and `smem` bytes one SM holds at once, asked
-// of the occupancy calculator once per device and block shape.
-struct Occupancy {
-  static constexpr int kSlots = 64;
-  int dev[kSlots], threads[kSlots], smem[kSlots], blocks[kSlots];
-  int used = 0;
-
-  int get(const void* kernel, int threads_, int smem_, int* out) {
-    int d = 0;
-    cudaError_t err = cudaGetDevice(&d);
-    if (err != cudaSuccess) return (int)err;
-    for (int i = 0; i < used; ++i) {
-      if (dev[i] == d && threads[i] == threads_ && smem[i] == smem_) {
-        *out = blocks[i];
-        return 0;
-      }
-    }
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads_, smem_);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int i = used < kSlots ? used++ : kSlots - 1;
-    dev[i] = d;
-    threads[i] = threads_;
-    smem[i] = smem_;
-    blocks[i] = per_sm;
-    *out = per_sm;
-    return 0;
-  }
-};
-
 // A function of (rows, channels, dtype, SM count): blocks of dx_threads(cv)
 // threads, as many as give each thread one round, at most one wave.
 template <typename T, bool RELU>
@@ -850,7 +818,7 @@ int launch_dx(const void* x, const void* g, Params p, const double* sums,
               void* dx, int64_t rows, int channels, cudaStream_t s) {
   auto kernel = bn_backward_dx<T, RELU>;
   static rhss::DeviceOnce once;
-  static Occupancy occupancy;
+  static rhss::Occupancy occupancy;
   int sms = 0;
   const int set = once.get(&sms, [kernel] {
     return cudaFuncSetAttribute(

@@ -6,12 +6,13 @@
 
 namespace rhss {
 
-constexpr int kThreads = 256;  // threads per block of every kernel here
+constexpr int kThreads = 256;  // threads per block of kernel 1
 
 // The BatchNorm kernels read a contiguous (rows, C) tensor as rows of
 // view_width(C) = lcm(C, 8) elements, L / C image rows each (L = C where
 // C % 8 == 0), so 16-byte vectors of 8 channels never straddle a row of the
-// view at any C; the per-channel vectors come tiled to L. kMaxWidth: the
+// view at any C; kernels 1 and 3 take the per-channel vectors tiled to L,
+// kernel 2 (scale_bias_act.cu) takes them untiled. kMaxWidth: the
 // widest view of a C that is no multiple of 8 (_MAX_WIDTH in
 // ops/fused_bn_act.py).
 constexpr int kMaxWidth = 16384;
@@ -28,21 +29,6 @@ inline int view_width(int channels) {
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// Blocks for a grid-stride loop over n_vec items at kThreads a block: enough
-// resident blocks to fill every SM several times over; the loop covers the
-// rest.
-inline int grid_for(int64_t n_vec) {
-  static int max_blocks = 0;
-  if (max_blocks == 0) {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    max_blocks = sms * 8;
-  }
-  const int64_t need = (n_vec + kThreads - 1) / kThreads;
-  return (int)(need < max_blocks ? need : max_blocks);
 }
 
 // One kernel's set-up on each device it runs on, done once per device (the
@@ -71,6 +57,38 @@ struct DeviceOnce {
     }
     *sms_out = sms[dev];
     return (int)cudaSuccess;
+  }
+};
+
+// Blocks of `threads` threads and `smem` bytes one SM holds at once, asked
+// of the occupancy calculator once per device and block shape.
+struct Occupancy {
+  static constexpr int kSlots = 64;
+  int dev[kSlots], threads[kSlots], smem[kSlots], blocks[kSlots];
+  int used = 0;
+
+  int get(const void* kernel, int threads_, int smem_, int* out) {
+    int d = 0;
+    cudaError_t err = cudaGetDevice(&d);
+    if (err != cudaSuccess) return (int)err;
+    for (int i = 0; i < used; ++i) {
+      if (dev[i] == d && threads[i] == threads_ && smem[i] == smem_) {
+        *out = blocks[i];
+        return 0;
+      }
+    }
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads_, smem_);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int i = used < kSlots ? used++ : kSlots - 1;
+    dev[i] = d;
+    threads[i] = threads_;
+    smem[i] = smem_;
+    blocks[i] = per_sm;
+    *out = per_sm;
+    return 0;
   }
 };
 

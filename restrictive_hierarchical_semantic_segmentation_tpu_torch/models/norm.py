@@ -18,10 +18,10 @@ its multiply-add (``norm.py:85-87``). The kernel, like the Pallas one, keeps
 the two agree.
 
 Train mode: normalize with the batch statistics of x through
-:func:`..ops.fused_bn_act.batch_norm_act` (the ``bn_stats`` kernel, then the
-scale-bias-act kernel as the forward of an autograd Function whose backward
-is the BN backward kernel), then update the running buffers under
-``no_grad`` as both JAX modules do::
+:func:`..ops.fused_bn_act.batch_norm_act` (the ``bn_stats`` kernel, then
+kernel 2's train entry as the forward of an autograd Function whose
+backward is the BN backward kernel), which in the same launch updates the
+running buffers in place as both JAX modules do::
 
     running_mean = m * running_mean + (1 - m) * mean
     running_var  = m * running_var  + (1 - m) * var * n / (n - 1)
@@ -34,7 +34,9 @@ of every rank of the group (``LeanBatchNorm`` under ``data`` and ``space``
 mesh axes: SyncBatchNorm), through
 :func:`..ops.fused_bn_act.sync_batch_norm_act`; ``n`` is then the group's
 row count, all-reduced with the sums (bands of rows differ in height from
-rank to rank). The group is used in train mode only. Inside the recompute of a
+rank to rank). The group is used in train mode only. The update bumps the
+buffers' version counters, so ``folded()`` forms eval's ``(a, b)`` anew
+after it. Inside the recompute of a
 rematerialized region (``models/remat.py``) the buffers are left as they
 are: the region's forward already moved them, once. Train mode takes act
 "none" or "relu": the JAX backward treats every other act as the
@@ -122,24 +124,16 @@ class BatchNormAct(nn.Module):
         return y.permute(0, 3, 1, 2)
 
     def _train(self, xn: torch.Tensor) -> torch.Tensor:
-        # fused_bn_act raises for an act other than "none" and "relu"
+        # fused_bn_act raises for an act other than "none" and "relu"; the
+        # forward of a recompute leaves the buffers (this step's forward
+        # moved them already)
+        running = None if recomputing() else (
+            self.running_mean, self.running_var, self.momentum)
         if self.group is None:
-            y, mean, var = batch_norm_act(xn, self.weight, self.bias,
-                                          self.eps, self.act)
-            n = xn.numel() // xn.shape[-1]
-            bessel = n / (n - 1) if n > 1 else 1.0
-        else:  # n: the group's rows, a 0-dim f64 tensor on the device
-            y, mean, var, n = sync_batch_norm_act(
-                xn, self.weight, self.bias, self.group, self.eps, self.act)
-            bessel = torch.where(n > 1, n / (n - 1), 1.0)
-        if recomputing():  # the forward of this step updated them already
-            return y
-        m = self.momentum
-        with torch.no_grad():
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var
-                                   + (1 - m) * (var * bessel))
-        return y
+            return batch_norm_act(xn, self.weight, self.bias, self.eps,
+                                  self.act, running)[0]
+        return sync_batch_norm_act(xn, self.weight, self.bias, self.group,
+                                   self.eps, self.act, running)[0]
 
     def extra_repr(self) -> str:
         return f"{self.weight.shape[0]}, act={self.act}, eps={self.eps}"

@@ -10,6 +10,8 @@ beside it:
 Pallas kernel (JAX file)               CUDA source          plain version
 =====================================  ===================  ==============================
 ``_scale_bias_act_kernel``             ``scale_bias_act.cu``  :func:`_scale_bias_act_ref`
+``_scale_bias_act_kernel`` with the    ``scale_bias_act.cu``  :func:`_bn_act_forward_ref`
+XLA prologue of ``_fba_fwd``           (``bn_act_forward``)
 ``_stats_kernel`` (``bn_stats``)       ``bn_stats.cu``        :func:`_bn_stats_ref`
                                        (one launch per call)
 ``_bwd_kernel`` + the tail of          ``bn_backward.cu``     :func:`_bn_backward_ref`
@@ -18,8 +20,9 @@ Pallas kernel (JAX file)               CUDA source          plain version
 
 Every wrapper picks by where the tensor lies: a CPU tensor goes through the
 plain version, a CUDA tensor through the kernel (or the call raises).
-``LAUNCHES`` counts ``scale_bias_act`` launches and ``TRAIN_LAUNCHES`` the
-train-mode kernels', by name; both count kernel launches and nothing else.
+``LAUNCHES`` counts ``scale_bias_act`` launches (the eval entry of kernel 2)
+and ``TRAIN_LAUNCHES`` the train-mode kernels', by name (``bn_act_forward``:
+kernel 2's train entry); both count kernel launches and nothing else.
 ``GRAD_COPIES`` counts backward launches whose incoming gradient had to be
 copied into the contiguous ``(rows, C)`` layout first.
 
@@ -39,9 +42,13 @@ before its launch and leaves the counters as they were.
 
 :class:`FusedBNAct` is the train-mode ``act(gamma * (x - mean) * rstd +
 beta)`` as an autograd Function (the JAX ``fused_bn_act`` custom VJP): its
-forward is the scale-bias-act kernel, it saves only x and ``(C,)`` vectors,
-and its backward is the BN backward kernel (one launch per call).
-:func:`batch_norm_act` takes the statistics first, on ``x.detach()``.
+forward is kernel 2's train entry (:func:`bn_act_forward`: one launch that
+forms rstd, scale and shift from the statistics, streams y and, when asked,
+moves the running statistics in place), it saves only x and ``(C,)``
+vectors, and its backward is the BN backward kernel (one launch per call).
+:func:`batch_norm_act` takes the statistics first, on ``x.detach()``: a
+train-mode BatchNorm on the card is kernel 1, then kernel 2, and no PyTorch
+op between them.
 
 Global-batch BatchNorm over a data-parallel group of ranks
 (:func:`sync_batch_norm_act`, :class:`SyncFusedBNAct`; the JAX
@@ -61,8 +68,9 @@ entry (CUDA source)                plain version
 =================================  ==========================================
 
 The forward all-reduces the ``(2C + 1)`` f64 sums of kernel 1 over the
-group and forms mean and var from them in f64 (:func:`stats_from_sums`, the
-kernel's own arithmetic), then runs kernel 2 as a single rank does; the
+group and hands them to kernel 2's train entry, which forms mean and var in
+f64 with kernel 1's own last step (:func:`stats_from_sums` is the same
+arithmetic in PyTorch, the plain version's) before it streams y; the
 backward all-reduces the sums of the reduce entry between it and the dx
 entry. dgamma and dbeta stay the local sums: the trainer's gradient
 all-reduce adds them. On one rank the split equals the fused kernels bit
@@ -71,8 +79,9 @@ for bit (mean, var, dx, dgamma, dbeta); a group of one rank never takes it.
 Any C: the kernels read the contiguous ``(rows, C)`` tensor as rows of
 ``L = lcm(C, 8)`` elements (:func:`_view_width`; ``L / C`` image rows
 each, ``L = C`` where ``C % 8 == 0``), so their 16-byte vectors of 8
-channels never straddle a row of the view. The wrappers tile the
-per-channel vectors to ``L`` once per call (:func:`_tiled`). The last
+channels never straddle a row of the view. Kernels 1 and 3's wrappers tile
+the per-channel vectors to ``L`` once per call (:func:`_tiled`); kernel 2
+takes them untiled (column j of the view is channel ``j mod C``). The last
 ``rows mod (L / C)`` image rows are a tail that each launch takes on its
 own, and kernels 1 and 3 fold the ``L / C`` columns of each channel into
 its sums in a fixed order (``csrc/bn_reduce.cuh``). At ``C % 8 == 0`` the launches are
@@ -105,7 +114,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["fused_scale_bias_act", "bn_stats", "bn_act_backward",
-           "FusedBNAct", "fused_bn_act", "batch_norm_act", "bn_stats_sums",
+           "bn_act_forward", "FusedBNAct", "fused_bn_act", "batch_norm_act",
+           "bn_stats_sums",
            "stats_from_sums", "bn_backward_reduce", "bn_backward_dx",
            "SyncFusedBNAct", "sync_batch_norm_act", "ACTS", "TRAIN_ACTS",
            "LAUNCHES", "TRAIN_LAUNCHES", "GRAD_COPIES"]
@@ -117,7 +127,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the count was last set to 0 (chip_smoke.py reads it)
 LAUNCHES = 0
 TRAIN_LAUNCHES = {"bn_stats": 0, "bn_backward": 0, "bn_stats_sums": 0,
-                  "bn_backward_reduce": 0, "bn_backward_dx": 0}
+                  "bn_backward_reduce": 0, "bn_backward_dx": 0,
+                  "bn_act_forward": 0}
 GRAD_COPIES = 0
 
 
@@ -144,6 +155,12 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     ("scale_bias_act", "rhss_scale_bias_act"):
         [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # x, y, rows, C, dtype, act, gamma, beta, eps, mean, var, sums, the
+    # running mean and var, momentum, update, the out mean, var, rstd,
+    # scale and shift, stream
+    ("scale_bias_act", "rhss_bn_act_forward"):
+        [_P, _P, _I64, _I, _I, _I, _P, _P, ctypes.c_float, _P, _P, _P, _P,
+         _P, ctypes.c_double, _I, _P, _P, _P, _P, _P, _P],
     ("bn_stats", "rhss_bn_stats"): [_P, _I64, _I, _I, _P, _P, _P, _P, _P],
     ("bn_backward", "rhss_bn_backward"):
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -254,8 +271,8 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             act: str) -> torch.Tensor:
     global LAUNCHES
     c = _check_rows_c(x, "scale_bias_act")
-    scale = _tiled(_per_channel(scale, c, x.device, "scale"), c)
-    shift = _tiled(_per_channel(shift, c, x.device, "shift"), c)
+    scale = _per_channel(scale, c, x.device, "scale")
+    shift = _per_channel(shift, c, x.device, "shift")
     y = torch.empty_like(x)
     _call(x, "scale_bias_act", _fn("scale_bias_act", "rhss_scale_bias_act"),
           x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
@@ -440,8 +457,9 @@ def _launch_stats_sums(x: torch.Tensor) -> torch.Tensor:
 def bn_stats_sums(x: torch.Tensor) -> torch.Tensor:
     """``[Σx, Σx², n]`` of ``x`` (..., C) per channel over every other
     axis, one (2C + 1,) f64 tensor: kernel 1's sums before it divides, for
-    an all-reduce over the ranks of a group (:func:`stats_from_sums` then
-    forms the statistics). One launch per call."""
+    an all-reduce over the ranks of a group (kernel 2's train entry,
+    :func:`bn_act_forward`, then forms the statistics; on the CPU
+    :func:`stats_from_sums`). One launch per call."""
     if _device_of(x, "bn_stats_sums") == "cpu":
         return _bn_stats_sums_ref(x)
     return _launch_stats_sums(x)
@@ -667,18 +685,123 @@ def bn_backward_dx(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     return _launch_backward_dx(x, g, scale, shift, mean, rstd, sums, act)
 
 
-def _bn_forward(ctx, x, mean, var, gamma, beta, eps: float, act: str):
-    """The forward both autograd Functions share: kernel 2 with (C,)
-    vectors in f32 (f64 for an f64 reference), autocast off."""
-    with torch.autocast(x.device.type, enabled=False):
-        mean, var, gamma, beta = map(_wide, (mean, var, gamma, beta))
-        rstd = torch.rsqrt(var + eps)
-        scale = gamma * rstd
-        shift = beta - mean * gamma * rstd
-        y = fused_scale_bias_act(x, scale, shift, act)
-    ctx.save_for_backward(x, mean, rstd, scale, shift)
-    ctx.act = act
-    return y
+# ------------------------------------------------- the train-mode BN forward
+def _bn_act_forward_ref(x: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, eps: float, act: str,
+                        mean=None, var=None, sums=None, running=None):
+    """Plain version of the train entry: ``(y, mean, var, rstd, scale,
+    shift)`` by the PyTorch ops the entry takes in, in their order: mean and
+    var from ``sums`` (:func:`stats_from_sums`) where given, ``rstd =
+    rsqrt(var + eps)``, ``scale = gamma * rstd``, ``shift = beta - mean *
+    gamma * rstd``, y by :func:`_scale_bias_act_ref`; with ``running =
+    (running_mean, running_var, m)`` the running update ``m * r + (1 - m) *
+    v`` with var times ``n / (n - 1)``, n the rows (of the group, from
+    sums). The buffers are written through ``.data``, as the kernel writes
+    them: their version counters are the caller's to move."""
+    if sums is not None:
+        mean, var = stats_from_sums(sums, _wide(x).dtype)
+        n = sums[-1]
+        bessel = torch.where(n > 1, n / (n - 1), 1.0)
+    else:
+        n = x.numel() // x.shape[-1]
+        bessel = n / (n - 1) if n > 1 else 1.0
+    mean, var, gamma, beta = map(_wide, (mean, var, gamma, beta))
+    rstd = torch.rsqrt(var + eps)
+    scale = gamma * rstd
+    shift = beta - mean * gamma * rstd
+    y = _scale_bias_act_ref(x, scale, shift, act)
+    if running is not None:
+        running_mean, running_var, m = running
+        with torch.no_grad():
+            running_mean.data.copy_(m * running_mean + (1 - m) * mean)
+            running_var.data.copy_(m * running_var
+                                   + (1 - m) * (var * bessel))
+    return y, mean, var, rstd, scale, shift
+
+
+def _f32_vector(t: torch.Tensor, c: int, device, what: str) -> torch.Tensor:
+    """A (C,) f32 vector on x's device, as the train entry reads it (one
+    float at a time: no alignment asked)."""
+    _check_vector(t, c, what)
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, x on {device}")
+    return t.to(torch.float32).contiguous()
+
+
+def _launch_bn_act_forward(x, gamma, beta, eps: float, act: str, mean, var,
+                           sums, running):
+    c = _check_rows_c(x, "bn_act_forward")
+    rows = x.numel() // c
+    if rows == 0:
+        raise ValueError("bn_act_forward needs at least one row")
+    dev = x.device
+    gamma = _f32_vector(gamma, c, dev, "gamma")
+    beta = _f32_vector(beta, c, dev, "beta")
+    out = [torch.empty(c, dtype=torch.float32, device=dev) for _ in range(5)]
+    if sums is None:
+        mean = _f32_vector(mean, c, dev, "mean")
+        var = _f32_vector(var, c, dev, "var")
+        stats = (mean.data_ptr(), var.data_ptr(), None, None, None)
+    else:
+        if (sums.shape != (2 * c + 1,) or sums.dtype != torch.float64
+                or sums.device != dev):
+            raise ValueError(f"bn_act_forward needs sums ({2 * c + 1},) f64 "
+                             f"on {dev}; got {tuple(sums.shape)} "
+                             f"{sums.dtype} {sums.device}")
+        sums = sums.contiguous()
+        mean, var = out[0], out[1]
+        stats = (None, None, sums.data_ptr(), mean.data_ptr(),
+                 var.data_ptr())
+    rm = rv = None
+    momentum = 0.0
+    if running is not None:
+        rm, rv, momentum = running
+        for t, name in ((rm, "running_mean"), (rv, "running_var")):
+            _check_vector(t, c, name)
+            if (t.dtype != torch.float32 or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(f"bn_act_forward moves {name} in place: it "
+                                 f"must be contiguous f32 on {dev}")
+    rstd, scale, shift = out[2:]
+    y = torch.empty_like(x)
+    _call(x, "bn_act_forward", _fn("scale_bias_act", "rhss_bn_act_forward"),
+          x.data_ptr(), y.data_ptr(), rows, c, _DTYPES[x.dtype], ACTS[act],
+          gamma.data_ptr(), beta.data_ptr(), eps, stats[0], stats[1],
+          stats[2], None if rm is None else rm.data_ptr(),
+          None if rv is None else rv.data_ptr(), momentum,
+          int(running is not None), stats[3], stats[4], rstd.data_ptr(),
+          scale.data_ptr(), shift.data_ptr(), _stream(x))
+    TRAIN_LAUNCHES["bn_act_forward"] += 1
+    return y, mean, var, rstd, scale, shift
+
+
+def bn_act_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float = 1e-5, act: str = "relu", mean=None, var=None,
+                   sums=None, running=None):
+    """The train-mode BatchNorm's forward after its statistics, kernel 2's
+    train entry (one launch per call on the card): ``y = act(x * scale +
+    shift)`` with ``rstd = rsqrt(var + eps)``, ``scale = gamma * rstd`` and
+    ``shift = beta - mean * gamma * rstd``, from either ``mean`` and ``var``
+    (f32, kernel 1's) or ``sums = [Σx, Σx², n]`` (f64, a group's, kernel 1's
+    last step forming mean and var). ``running = (running_mean,
+    running_var, momentum)`` moves the running statistics in place,
+    ``m * r + (1 - m) * v`` with var times ``n / (n - 1)`` (the flax
+    momentum m, n the rows of x or of the group), and bumps their version
+    counters; None leaves them. Returns ``(y, mean, var, rstd, scale,
+    shift)``, the vectors ``(C,)`` f32. ``act``: "none" or "relu"."""
+    _check_train_act(act)
+    if (sums is None) == (mean is None or var is None):
+        raise ValueError("bn_act_forward takes mean and var, or sums")
+    if _device_of(x, "bn_act_forward") == "cpu":
+        out = _bn_act_forward_ref(x, gamma, beta, eps, act, mean, var, sums,
+                                  running)
+    else:
+        out = _launch_bn_act_forward(x, gamma, beta, eps, act, mean, var,
+                                     sums, running)
+    if running is not None:  # the folded (a, b) of eval read them anew
+        torch.autograd.graph.increment_version(running[0])
+        torch.autograd.graph.increment_version(running[1])
+    return out
 
 
 class FusedBNAct(torch.autograd.Function):
@@ -686,15 +809,24 @@ class FusedBNAct(torch.autograd.Function):
     eps)`` and (mean, var) the batch statistics of x, computed without
     gradient by the caller (JAX ``fused_bn_act`` and its custom VJP).
 
-    Forward: the scale-bias-act kernel. Saved: x and ``(C,)`` vectors only;
-    saving y as well would double the activation memory of a train step.
-    Backward: the BN backward kernel, whose dx carries the gradient that
-    flows through the batch statistics. Autocast is off inside: x keeps its
-    dtype (bf16 under a bf16 autocast), every ``(C,)`` vector stays f32."""
+    Forward: kernel 2's train entry (:func:`bn_act_forward`), which also
+    moves the running statistics when ``running`` is given. Saved: x and
+    ``(C,)`` vectors only; saving y as well would double the activation
+    memory of a train step. Backward: the BN backward kernel, whose dx
+    carries the gradient that flows through the batch statistics. Autocast
+    is off inside: x keeps its dtype (bf16 under a bf16 autocast), every
+    ``(C,)`` vector stays f32."""
 
     @staticmethod
-    def forward(ctx, x, mean, var, gamma, beta, eps: float, act: str):
-        return _bn_forward(ctx, x, mean, var, gamma, beta, eps, act)
+    def forward(ctx, x, mean, var, gamma, beta, eps: float, act: str,
+                running=None):
+        with torch.autocast(x.device.type, enabled=False):
+            y, mean, _, rstd, scale, shift = bn_act_forward(
+                x, gamma, beta, eps, act, mean=mean, var=var,
+                running=running)
+        ctx.save_for_backward(x, mean, rstd, scale, shift)
+        ctx.act = act
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -703,47 +835,58 @@ class FusedBNAct(torch.autograd.Function):
         with torch.autocast(x.device.type, enabled=False):
             dx, dgamma, dbeta = bn_act_backward(x, g, scale, shift, mean,
                                                 rstd, ctx.act, need_dx)
-        return dx, None, None, dgamma, dbeta, None, None
+        return dx, None, None, dgamma, dbeta, None, None, None
 
 
 def fused_bn_act(x, mean, var, gamma, beta, eps: float = 1e-5,
-                 act: str = "relu") -> torch.Tensor:
-    """Train-mode fused BN + act on (..., C) ``x`` (see :class:`FusedBNAct`).
-    ``act``: "relu" | "none"."""
+                 act: str = "relu", running=None) -> torch.Tensor:
+    """Train-mode fused BN + act on (..., C) ``x`` (see :class:`FusedBNAct`;
+    ``running`` as in :func:`bn_act_forward`). ``act``: "relu" | "none"."""
     if act not in TRAIN_ACTS:
         # the JAX custom VJP treats every act but relu as the identity,
         # which is wrong for leaky_relu: refuse rather than copy that
         raise ValueError(f"train-mode BN takes act in {TRAIN_ACTS}, not "
                          f"{act!r} (the backward differentiates those only)")
-    return FusedBNAct.apply(x, mean, var, gamma, beta, eps, act)
+    return FusedBNAct.apply(x, mean, var, gamma, beta, eps, act, running)
 
 
 def batch_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   eps: float = 1e-5, act: str = "relu"):
+                   eps: float = 1e-5, act: str = "relu", running=None):
     """Train-mode BN + act from raw activations: ``(y, mean, var)``, the
     batch statistics taken on ``x.detach()`` (their gradient is folded into
-    the backward's dx) and returned for the running-statistics update."""
+    the backward's dx). ``running = (running_mean, running_var, momentum)``
+    moves the running statistics in the same launch as y (None: left as
+    they are). On the card: kernel 1, then kernel 2's train entry."""
     mean, var = bn_stats(x.detach())
-    return fused_bn_act(x, mean, var, gamma, beta, eps, act), mean, var
+    return fused_bn_act(x, mean, var, gamma, beta, eps, act, running), \
+        mean, var
 
 
 class SyncFusedBNAct(torch.autograd.Function):
     """:class:`FusedBNAct` whose statistics are those of the whole batch of
-    a data-parallel ``group`` (mean and var from
-    :func:`sync_batch_norm_act`). The forward is the same kernel 2 launch.
-    The backward splits kernel 3: the reduce entry, one all-reduce of its
-    (2C + 1) f64 sums over the group, then the dx entry. dgamma and dbeta
-    are this rank's sums (the gradient all-reduce adds them). Without dx
-    (the input needs no gradient; the same on every rank) the backward is
-    the reduce entry alone, with no all-reduce."""
+    a data-parallel ``group``: the forward is kernel 2's train entry on the
+    group's all-reduced sums (from :func:`sync_batch_norm_act`), which
+    forms mean and var itself; it returns ``(y, mean, var)``, the two
+    statistics not differentiable. The backward splits kernel 3: the reduce
+    entry, one all-reduce of its (2C + 1) f64 sums over the group, then the
+    dx entry. dgamma and dbeta are this rank's sums (the gradient all-reduce
+    adds them). Without dx (the input needs no gradient; the same on every
+    rank) the backward is the reduce entry alone, with no all-reduce."""
 
     @staticmethod
-    def forward(ctx, x, mean, var, gamma, beta, eps: float, act: str, group):
+    def forward(ctx, x, sums, gamma, beta, eps: float, act: str, group,
+                running=None):
+        with torch.autocast(x.device.type, enabled=False):
+            y, mean, var, rstd, scale, shift = bn_act_forward(
+                x, gamma, beta, eps, act, sums=sums, running=running)
+        ctx.save_for_backward(x, mean, rstd, scale, shift)
+        ctx.act = act
         ctx.group = group
-        return _bn_forward(ctx, x, mean, var, gamma, beta, eps, act)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _mean_grad, _var_grad):
         x, mean, rstd, scale, shift = ctx.saved_tensors
         with torch.autocast(x.device.type, enabled=False):
             if x.device.type == "cuda":  # one copy for both entries
@@ -755,22 +898,22 @@ class SyncFusedBNAct(torch.autograd.Function):
                 dist.all_reduce(sums, group=ctx.group)
                 dx = bn_backward_dx(x, g, scale, shift, mean, rstd, sums,
                                     ctx.act)
-        return dx, None, None, dgamma, dbeta, None, None, None
+        return dx, None, dgamma, dbeta, None, None, None, None
 
 
 def sync_batch_norm_act(x: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, group, eps: float = 1e-5,
-                        act: str = "relu"):
+                        act: str = "relu", running=None):
     """:func:`batch_norm_act` over the batch of every rank of ``group``:
-    ``(y, mean, var, n)`` with mean and var (f32) those of the concatenated
-    batches and ``n`` (a 0-dim f64 tensor on x's device) the group's row
-    count. One all-reduce of kernel 1's (2C + 1) f64 sums in the forward,
-    one of kernel 3's in the backward."""
+    ``(y, mean, var)`` with mean and var (f32) those of the concatenated
+    batches; ``running`` as in :func:`bn_act_forward`, its Bessel factor
+    from the group's row count. One all-reduce of kernel 1's (2C + 1) f64
+    sums in the forward (on the card: the sums entry, the all-reduce, then
+    kernel 2's train entry), one of kernel 3's in the backward."""
     if act not in TRAIN_ACTS:
         raise ValueError(f"train-mode BN takes act in {TRAIN_ACTS}, not "
                          f"{act!r} (the backward differentiates those only)")
     sums = bn_stats_sums(x.detach())
     dist.all_reduce(sums, group=group)
-    mean, var = stats_from_sums(sums, _wide(x).dtype)
-    y = SyncFusedBNAct.apply(x, mean, var, gamma, beta, eps, act, group)
-    return y, mean, var, sums[-1]
+    return SyncFusedBNAct.apply(x, sums, gamma, beta, eps, act, group,
+                                running)

@@ -1,17 +1,23 @@
 """The BatchNorm kernels of this tree against those of another tree of the
 port (an earlier commit's ``csrc/``), on the card, at every BN shape of the
-W48 and UNet train steps and forwards.
+W48, UNet and HRNet-W18 train steps and forwards.
 
 Both trees' ``scale_bias_act.cu``, ``bn_stats.cu`` and ``bn_backward.cu``
 are built with the same ``nvcc`` flags (the other tree's into
 ``build/other_kernels/``) and called through this tree's wrappers
 (``ops/fused_bn_act.py``) on the same seeded inputs: the other tree's
 C entries must take the same arguments, which holds for every tree whose
-entries have this tree's signatures. At each (shape, dtype, act) that a
-bf16 train-mode forward of each donor at batch 16 (W48 at 620 px, the UNet
-at 352 px; ``<donor> step``) gives its BatchNorms, every output of kernel
+entries have this tree's signatures; an entry the other tree lacks (kernel
+2's train entry, ``rhss_bn_act_forward``, before it came) is not compared.
+A tree without that entry takes kernel 2's ``(C,)`` vectors tiled to the
+view's width ``lcm(C, 8)``: its ``rhss_scale_bias_act`` is handed the
+tiled copies, made once per shape before the timing (so its time is the
+kernel's alone, without the two ``repeat`` launches its own wrapper made
+per call). At each (shape, dtype, act) that a bf16 train-mode forward of
+each model at batch 16 (W48 and W18 at 620 px, the UNet at 352 px;
+``<model> step``) gives its BatchNorms, every output of kernel
 2, kernel 1 and its sums entry, and kernel 3 and its reduce and dx
-entries, and at each of a bf16 eval-mode forward at batch 4 (``<donor>
+entries, and at each of a bf16 eval-mode forward at batch 4 (``<model>
 forward``) every output of kernel 2, must be the same bits from both
 builds. Each kernel's time is taken with CUDA events around a CUDA graph
 of launches that take in turn copies of the inputs holding twice the L2
@@ -37,13 +43,16 @@ from pathlib import Path
 
 import torch
 
+from ..config.hrnet import resolve_hrnet_config
 from ..hierarchy.tree import ClassTree
 from ..models import BatchNormAct, build_model
 from ..ops import _build
 from ..ops import fused_bn_act as fba
 
 LIBS = ("scale_bias_act", "bn_stats", "bn_backward")
-DONORS = ((1, "W48", 620), (0, "UNet", 352))
+# model_select, name, size, HRNet config
+MODELS = ((1, "W48", 620, None), (0, "UNet", 352, None),
+          (1, "W18", 620, "w18"))
 PASSES = (("step", 16, True), ("forward", 4, False))  # batch, train mode
 EPS = 1e-5
 L2_BYTES = 50 * 2 ** 20
@@ -65,15 +74,40 @@ def build_other(csrc: Path, out: Path) -> dict:
     return {name: ctypes.CDLL(str(out / f"lib{name}.so")) for name in LIBS}
 
 
+class TiledVectors:
+    """The ``rhss_scale_bias_act`` of a tree that takes scale and shift
+    tiled to ``lcm(C, 8)``, called with this tree's arguments: the untiled
+    vectors' addresses are swapped for those of their tiled copies, which
+    :meth:`add` registers first."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.tiled = {}  # address of an untiled vector -> its tiled copy
+
+    def add(self, vectors, c: int) -> None:
+        for t in vectors:
+            self.tiled[t.data_ptr()] = fba._tiled(t, c).contiguous()
+
+    def __call__(self, x, scale, shift, y, rows, c, *rest):
+        if fba._view_width(c) != c:
+            scale, shift = (self.tiled[p].data_ptr() for p in (scale, shift))
+        return self.fn(x, scale, shift, y, rows, c, *rest)
+
+
 def other_fns(libs: dict) -> dict:
-    """The other tree's entries with this tree's argument types."""
+    """The other tree's entries with this tree's argument types (the ones
+    it has); kernel 2's eval entry behind :class:`TiledVectors` where the
+    tree has no train entry."""
     fns = {}
     for (lib, sym), argtypes in fba._SIGNATURES.items():
-        if lib in libs:
+        if lib in libs and hasattr(libs[lib], sym):
             fn = getattr(libs[lib], sym)
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
             fns[(lib, sym)] = fn
+    if not hasattr(libs["scale_bias_act"], "rhss_bn_act_forward"):
+        key = ("scale_bias_act", "rhss_scale_bias_act")
+        fns[key] = TiledVectors(fns[key])
     return fns
 
 
@@ -83,9 +117,10 @@ def bn_shapes(device) -> dict:
     tree = ClassTree.from_json("assets/class_tree_tl.json",
                                "assets/class_map.csv")
     out = {}
-    for (ms, name, size), (kind, batch, train) in (
-            (d, p) for d in DONORS for p in PASSES):
-        model = build_model(tree, ms, 1).to(
+    for (ms, name, size, config), (kind, batch, train) in (
+            (d, p) for d in MODELS for p in PASSES):
+        model = build_model(tree, ms, 1,
+                            config and resolve_hrnet_config(config)).to(
             device, memory_format=torch.channels_last).train(train)
         shapes = {}
 
@@ -107,10 +142,11 @@ def bn_shapes(device) -> dict:
     return out
 
 
-def calls(shape, dtype, act, gen, device, train: bool):
+def calls(shape, dtype, act, gen, device, train: bool, tiled=None):
     """{kernel: a call of it on input set i} at one shape (every kernel of
     a train-mode BN, or kernel 2 alone), over seeded input sets that hold
-    twice the L2 cache together; and the number of sets."""
+    twice the L2 cache together; and the number of sets. ``tiled``: the
+    other tree's :class:`TiledVectors`, given kernel 2's vectors."""
     c = shape[-1]
     x = (torch.randn(shape, generator=gen, device=device) * 1.5
          + 0.3).to(dtype)
@@ -120,6 +156,8 @@ def calls(shape, dtype, act, gen, device, train: bool):
     mean, var = fba._bn_stats_ref(x)
     rstd = torch.rsqrt(var + EPS)
     vecs = (gamma * rstd, beta - mean * gamma * rstd, mean, rstd)
+    if tiled is not None:
+        tiled.add(vecs[:2], c)
     bact = act if act in fba.TRAIN_ACTS else "none"
     sums = fba._bn_backward_reduce_ref(x.reshape(-1, c), g.reshape(-1, c),
                                        *vecs, bact)[2]
@@ -185,6 +223,8 @@ def main(argv=None) -> int:
     mine = {key: fba._fn(*key) for key in fba._SIGNATURES if key[0] in LIBS}
     theirs = other_fns(build_other(Path(args.other),
                                    Path("build/other_kernels")))
+    tiled = theirs[("scale_bias_act", "rhss_scale_bias_act")]
+    tiled = tiled if isinstance(tiled, TiledVectors) else None
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
@@ -195,7 +235,7 @@ def main(argv=None) -> int:
         tot = {}
         for (shape, dtype, act), n in sorted(shapes.items(), key=str):
             fns, sets = calls(shape, dtype, act, gen, device,
-                              path.endswith("step"))
+                              path.endswith("step"), tiled)
             for name, fn in fns.items():
                 row = tot.setdefault(name, {"calls": 0, "shapes": 0,
                                             "bits_equal": True, "ms": 0.0,

@@ -233,7 +233,7 @@ def test_bn_backward_is_one_counted_entry(act):
     with or without dx."""
     assert set(tfba.TRAIN_LAUNCHES) == {"bn_stats", "bn_backward",
                                         "bn_stats_sums", "bn_backward_reduce",
-                                        "bn_backward_dx"}
+                                        "bn_backward_dx", "bn_act_forward"}
     bwd = [k for k in tfba._SIGNATURES if k[0] == "bn_backward"]
     assert bwd == [("bn_backward", "rhss_bn_backward"),
                    ("bn_backward", "rhss_bn_backward_reduce"),

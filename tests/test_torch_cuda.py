@@ -10,7 +10,9 @@ implementation against the kernel's output), the device-resident
 training set (augmentation on the card against the CPU), and the split
 entries of kernels 1 and 3 for a data-parallel group (bit for bit to the
 fused launches, each against its plain version, the same bits launch after
-launch and in a replayed CUDA graph; two gloo ranks sharing the card), ``--remat`` on the card (bit for bit to remat False, the
+launch and in a replayed CUDA graph; two gloo ranks sharing the card),
+kernel 2's train entry (bit for bit to its plain version, one launch a
+call, in a replayed CUDA graph), ``--remat`` on the card (bit for bit to remat False, the
 recompute's launches, no forward convolution recomputed in "conv"
 mode), the fold-mesh Predictor and data-mesh Evaluator over two gloo
 ranks sharing the card against one process, and the space axis: kernels
@@ -52,7 +54,10 @@ def cuda():
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 310, 310, 64), (2, 20, 20, 384),
-                                   (1001, 48), (3, 7, 720)])
+                                   (1001, 48), (3, 7, 720),
+                                   # views wider than one block's 512 units:
+                                   # 2 and 4 column groups, and 4 with a tail
+                                   (3, 5000), (2, 16384), (5, 2047)])
 def test_scale_bias_act_kernel_equals_plain(cuda, shape, dtype, act):
     g = torch.Generator(device=cuda).manual_seed(0)
     c = shape[-1]
@@ -461,9 +466,10 @@ def test_space_ranks_on_one_card(cuda, tmp_path):
             got = torch.cat([r[train][0][L] for r in ranks], dim=1)
             torch.testing.assert_close(got, z.cpu(), rtol=0,
                                        atol=1e-5 * float(z.abs().max()))
-    for r in ranks:  # the train forward: the sums entry; both: kernel 2
+    for r in ranks:  # train: the sums entry and kernel 2's train entry
         n = r["launches"]
-        assert n["bn_stats_sums"] == 18 and n["scale_bias_act"] == 36, n
+        assert n["bn_stats_sums"] == n["bn_act_forward"] == 18, n
+        assert n["scale_bias_act"] == 18, n  # eval: kernel 2's eval entry
         assert n["bn_stats"] == n["bn_backward"] == 0, n
 
 
@@ -640,7 +646,8 @@ def test_train_mode_batchnorm_on_card_equals_cpu(cuda, act):
         (y * ct.to(xx.device)).sum().backward()
         outs.append(y)
     torch.cuda.synchronize()
-    fused = ("bn_stats", "bn_backward")  # no group: the fused entries only
+    # no group: kernel 1, kernel 2's train entry and kernel 3, fused
+    fused = ("bn_stats", "bn_act_forward", "bn_backward")
     assert all(fba.TRAIN_LAUNCHES[k] == before[k] + (k in fused)
                for k in before)
     torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-5, atol=1e-5)
@@ -667,6 +674,124 @@ def test_fused_bn_act_under_bf16_autocast_keeps_vectors_f32(cuda):
     assert x.grad.dtype == torch.bfloat16
     assert bn.weight.grad.dtype == bn.bias.grad.dtype == torch.float32
     assert bn.running_mean.dtype == bn.running_var.dtype == torch.float32
+
+
+# ------------------------------------------------- kernel 2's train entry
+# HRNet-W18's widths (views of 72 and 1,080 columns with a tail), W48's 48
+# and 720, one row, fewer rows than a view's row, and views wider than one
+# block's 512 units (5,000 channels: 2 column groups; 16,384: 4)
+TRAIN_ENTRY_SHAPES = [(16, 155, 155, 18), (4, 78, 78, 36), (2, 39, 39, 270),
+                      (16, 78, 78, 48), (2, 20, 20, 720), (1, 18), (3, 270),
+                      (3, 5000), (2, 16384)]
+
+
+def _train_entry_inputs(shape, dtype, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=cuda) * 1.5 + 0.7).to(dtype)
+    gamma = torch.rand(c, generator=g, device=cuda) + 0.5
+    beta = torch.randn(c, generator=g, device=cuda) * 0.5
+    rm = torch.randn(c, generator=g, device=cuda) * 0.1
+    rv = torch.rand(c, generator=g, device=cuda) + 0.5
+    return x, gamma, beta, rm, rv
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRAIN_ENTRY_SHAPES)
+def test_train_entry_equals_plain(cuda, shape, dtype, act):
+    """Kernel 2's train entry bit for bit to its plain version run on the
+    card (the PyTorch composition it replaces): y, mean, var, rstd, scale,
+    shift and the moved running buffers, from kernel 1's statistics and
+    from the sums entry's sums (whose mean and var are then kernel 1's
+    bits, at one rank); one launch counted per call."""
+    x, gamma, beta, rm, rv = _train_entry_inputs(shape, dtype, cuda)
+    mean, var = fba.bn_stats(x)
+    sums = fba.bn_stats_sums(x)
+    for kw in (dict(mean=mean, var=var), dict(sums=sums)):
+        got_r, want_r = (rm.clone(), rv.clone(), 0.9), (rm.clone(),
+                                                        rv.clone(), 0.9)
+        before = dict(fba.TRAIN_LAUNCHES)
+        got = fba.bn_act_forward(x, gamma, beta, 1e-5, act, running=got_r,
+                                 **kw)
+        assert fba.TRAIN_LAUNCHES == dict(
+            before, bn_act_forward=before["bn_act_forward"] + 1)
+        want = fba._bn_act_forward_ref(x, gamma, beta, 1e-5, act,
+                                       running=want_r, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y", "mean", "var", "rstd", "scale", "shift"),
+                              got, want):
+            assert torch.equal(a, b), (name, shape, kw.keys())
+        assert torch.equal(got_r[0], want_r[0])
+        assert torch.equal(got_r[1], want_r[1])
+        assert torch.equal(got[1], mean) and torch.equal(got[2], var)
+    _counters_zero(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 39, 39, 270), (16, 19, 39, 192)])
+def test_train_entry_replays_in_a_cuda_graph(cuda, shape, dtype):
+    """Kernel 1, then kernel 2's train entry with the running update,
+    captured in a CUDA graph and replayed three times: each replay gives
+    the eager calls' y and vectors and moves the buffers as the next eager
+    call does; so does the group route (the sums entry, then the entry)."""
+    x, gamma, beta, rm, rv = _train_entry_inputs(shape, dtype, cuda, seed=3)
+
+    def forward(running, group):
+        if group:
+            return fba.bn_act_forward(x, gamma, beta, 1e-5, "relu",
+                                      sums=fba.bn_stats_sums(x),
+                                      running=running)
+        mean, var = fba.bn_stats(x)
+        return fba.bn_act_forward(x, gamma, beta, 1e-5, "relu", mean, var,
+                                  running=running)
+
+    for group in (False, True):
+        eager_r = (rm.clone(), rv.clone(), 0.9)
+        want = []
+        for _ in range(3):
+            out = forward(eager_r, group)
+            want.append(([t.clone() for t in out], eager_r[0].clone(),
+                         eager_r[1].clone()))
+        side = torch.cuda.Stream()  # a warm-up on a side stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            forward(None, group)
+        torch.cuda.current_stream().wait_stream(side)
+        graph_r = (rm.clone(), rv.clone(), 0.9)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = forward(graph_r, group)
+        for outs, m, v in want:
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, outs))
+            assert torch.equal(graph_r[0], m) and torch.equal(graph_r[1], v)
+    _counters_zero(cuda)
+
+
+def test_train_entry_rejects_what_it_does_not_take(cuda):
+    x, gamma, beta, rm, rv = _train_entry_inputs((5, 12), torch.float32,
+                                                 cuda)
+    mean, var = fba.bn_stats(x)
+    before = dict(fba.TRAIN_LAUNCHES)
+    with pytest.raises(ValueError, match="leaky_relu"):
+        fba.bn_act_forward(x, gamma, beta, 1e-5, "leaky_relu", mean, var)
+    with pytest.raises(ValueError, match="mean and var, or sums"):
+        fba.bn_act_forward(x, gamma, beta, 1e-5, "relu", mean)
+    with pytest.raises(ValueError, match="sums"):
+        fba.bn_act_forward(x, gamma, beta, 1e-5, "relu",
+                           sums=torch.ones(25, device=cuda))
+    with pytest.raises(ValueError, match="in place"):
+        fba.bn_act_forward(x, gamma, beta, 1e-5, "relu", mean, var,
+                           running=(rm.bfloat16(), rv, 0.9))
+    with pytest.raises(ValueError, match="on cpu, x on"):
+        fba.bn_act_forward(x, gamma.cpu(), beta, 1e-5, "relu", mean, var)
+    with pytest.raises(ValueError, match="C <= 2048"):
+        wide = torch.ones(2049, device=cuda)
+        fba.bn_act_forward(torch.ones(4, 2049, device=cuda), wide, wide,
+                           1e-5, "relu", wide, wide)
+    assert fba.TRAIN_LAUNCHES == before
 
 
 # ------------------------------------------------ 1x1 conv + BN + ReLU (GEMM)
@@ -1302,12 +1427,14 @@ def _remat_step(mode, sd, x, y, dtype):
     model.load_state_dict(sd, strict=True)
     model = model.to("cuda", memory_format=torch.channels_last)
     step = make_train_step(model, tree, True, compute_dtype=dtype)
-    before = (fba.TRAIN_LAUNCHES["bn_stats"], fba.LAUNCHES,
+    before = (fba.TRAIN_LAUNCHES["bn_stats"],
+              fba.TRAIN_LAUNCHES["bn_act_forward"],
               fba.TRAIN_LAUNCHES["bn_backward"])
     _, aux = step(create_train_state(model, 0.018), x, y,
                   torch.ones(2, device="cuda"))
     torch.cuda.synchronize()
-    after = (fba.TRAIN_LAUNCHES["bn_stats"], fba.LAUNCHES,
+    after = (fba.TRAIN_LAUNCHES["bn_stats"],
+             fba.TRAIN_LAUNCHES["bn_act_forward"],
              fba.TRAIN_LAUNCHES["bn_backward"])
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     return model, aux, grads, [a - b for a, b in zip(after, before)]

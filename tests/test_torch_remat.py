@@ -40,6 +40,9 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.models import (
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.models.backbones.hrnet import (
     HighResolutionModule,
 )
+from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
+    fused_bn_act as fba,
+)
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import (
     create_train_state,
 )
@@ -164,6 +167,36 @@ def test_running_buffers_move_once_per_step(donor, mode, inputs,
     assert calls[False] == len(bns)
     assert calls[True] == (_regions_bns(donor, model) if mode else 0)
     assert not remat.recomputing()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("donor", ["unet", "hrnet"])
+def test_recompute_hands_the_train_entry_no_buffers(donor, mode, inputs,
+                                                    monkeypatch):
+    """The running update lives in kernel 2's train entry
+    (``bn_act_forward``): a step's forward hands it every BatchNorm's
+    buffers once, the recompute of its regions none."""
+    x, y, sds = inputs
+    calls = {(False, True): 0, (False, False): 0, (True, True): 0,
+             (True, False): 0}
+    real = fba.bn_act_forward
+
+    def counted(*a, **k):
+        calls[(remat.recomputing(), k.get("running") is not None)] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(fba, "bn_act_forward", counted)
+    model = build_small(donor, mode)
+    model.load_state_dict(sds[donor], strict=True)
+    model = model.to(memory_format=torch.channels_last)
+    n_bn = sum(isinstance(m, norm.BatchNormAct) for m in model.modules())
+    _, tree = trees("default")
+    step = make_train_step(model, tree, True, level_weights=LEVEL_WEIGHTS)
+    step(create_train_state(model, LR), torch.from_numpy(x),
+         torch.from_numpy(y), torch.ones(2))
+    assert calls == {(False, True): n_bn, (False, False): 0,
+                     (True, True): 0,
+                     (True, False): _regions_bns(donor, model)}
 
 
 class _CountConvs(TorchDispatchMode):
