@@ -1023,7 +1023,7 @@ def classify_kernel(name: str):
         return "bn_act_forward"
     if "scale_bias_act" in name:
         return "scale_bias_act"
-    if "bn_stats_one_pass" in name:
+    if "bn_stats_cluster" in name:
         return "bn_stats"
     if "bn_backward_fused" in name:
         return "bn_backward"
@@ -3431,6 +3431,16 @@ FP_FOLD_IMAGES = 32    # per fold: 2 steps of 16; write_synth_dataset adds 8
 SPLIT_ENTRIES = ("bn_stats_sums", "bn_backward_reduce", "bn_backward_dx")
 # the kernels line's design of kernel 3's split entries
 SPLIT_DESIGNS = {
+    "bn_stats_sums":
+        "the fused entry's launch with another last step (the f64 sums and "
+        "n): thread block clusters of up to 8 blocks a column group, each "
+        "strip's f32 sums stored into the cluster's first block's shared "
+        "memory (distributed shared memory, one cluster barrier) and added "
+        "there in double; one cluster a group while each "
+        "thread takes at most 4 rounds, else clusters' sums through the "
+        "workspace and one ticket; a fold over every group in the same "
+        "block (previously every strip's partials to device memory and up "
+        "to three ticketed levels)",
     "bn_backward_reduce":
         "a plain launch, nothing staged for a phase B: the fused pass's "
         "blocks and order of adds, 4 rows of bf16 (2 of f32) of x and of g "
@@ -3617,22 +3627,25 @@ def run_dp_ranks(world: int, args: tuple, out: str, device: str = "cuda",
             for r in range(world)]
 
 
-def measure_split(shape, dtype, act, gen, device, entries: bool,
-                  timed: bool = True) -> dict:
+def measure_split(shape, dtype, act, gen, device, entries: bool) -> dict:
     """Kernels 1 and 3 through the split entries of a data-parallel group
     at one BN shape, at one rank: mean/var, dx, dgamma and dbeta bit for
-    bit to the fused launches, each entry against its plain version; the
+    bit to the fused launches, each entry against its plain version, both
+    entries of kernel 1 run to run bit for bit and the launch they make
+    (``stats_geometry``: blocks a cluster, clusters a column group,
+    levels); the
     group's forward (the sums entry, then kernel 2's train entry from the
     sums, running update included) bit for bit to the fused route (kernel
     1, then the train entry) and to the composition it took in (the sums
     entry, ``stats_from_sums`` and :func:`composition_forward`), its mean
     and var kernel 1's bits; and the times (inputs from device memory) of
     the fused calls and the split ones (those three forward routes;
-    reduce and dx against kernel 3). With
-    ``entries``, each entry's time, its plain version's and one library
-    call's (PyTorch's SyncBatchNorm pieces: ``batch_norm_stats``,
+    reduce and dx against kernel 3), and under ``stats`` each of kernel
+    1's entries alone, one ``torch.batch_norm_stats`` and their bounds. With
+    ``entries``, each split entry's time, its plain version's and one
+    library call's (PyTorch's SyncBatchNorm pieces: ``batch_norm_stats``,
     ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``) and its
-    bound. Without ``timed``, the checks alone."""
+    bound."""
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.ops import (
         fused_bn_act as fba,
     )
@@ -3644,11 +3657,18 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
     g = torch.randn(shape, generator=gen, device=device).to(dtype)
     gamma = torch.rand(c, generator=gen, device=device) + 0.5
     beta = torch.randn(c, generator=gen, device=device) * 0.5
+    geo = fba.stats_geometry(x)
     mean, var = fba.bn_stats(x)
     sums = fba.bn_stats_sums(x)
+    again = fba.bn_stats(x), fba.bn_stats_sums(x)
     m2, v2 = fba.stats_from_sums(sums)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0][0], mean) and \
+        torch.equal(again[0][1], var) and torch.equal(again[1], sums), \
+        f"kernel 1 not run to run bit for bit at {shape}"
     assert torch.equal(m2, mean) and torch.equal(v2, var), \
         f"split statistics differ from the fused kernel's at {shape}"
+    del again
     from restrictive_hierarchical_semantic_segmentation_tpu_torch.models \
         .norm import BN_MOMENTUM
     rm = torch.randn(c, generator=gen, device=device) * 0.1
@@ -3702,8 +3722,10 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
     del rdx, rs
     errs = {"bn_stats_sums": err_sums, "bn_backward_reduce": err_red,
             "bn_backward_dx": err_dx}
-    if not timed:
-        return {"errs": errs}
+    stats = {"geometry": geo,
+             "bn_stats": {"max_abs_err": _stats_err((mean, var),
+                                                    fba._bn_stats_ref(x))},
+             "bn_stats_sums": {"max_abs_err": err_sums}}
 
     nb = x.numel() * x.element_size()
     n_cold = max(2, -(-2 * L2_BYTES // (2 * nb)))
@@ -3735,15 +3757,21 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
             lambda *a: fba.bn_backward_dx(*a[:6], fba.bn_backward_reduce(
                 *a[:6], act)[2], act), xg, reps=10),
     }
+    library = time_ms(lambda xx: torch.batch_norm_stats(nchw(xx), BN_EPS),
+                      xs, reps=10)
+    for name, fn, written in (("bn_stats", fba.bn_stats, 2 * 4 * c),
+                              ("bn_stats_sums", fba.bn_stats_sums,
+                               (2 * c + 1) * 8)):
+        stats[name].update(ms=time_ms(fn, xs, reps=10), library_ms=library,
+                           bound_ms=(nb + written) / HBM_BYTES_PER_S * 1e3)
     if not entries:
-        return {"times": t, "errs": errs}
+        return {"times": t, "errs": errs, "stats": stats}
     rows_out = {
         "bn_stats_sums": {
             "max_abs_err": err_sums,
-            "ms": time_ms(fba.bn_stats_sums, xs, reps=10),
+            "ms": stats["bn_stats_sums"]["ms"],
             "plain_ms": time_ms(fba._bn_stats_sums_ref, xs, reps=10),
-            "library_ms": time_ms(lambda xx: torch.batch_norm_stats(
-                nchw(xx), BN_EPS), xs, reps=10),
+            "library_ms": library,
             "bytes": nb + (2 * c + 1) * 8},
         "bn_backward_reduce": {
             "max_abs_err": err_red,
@@ -3773,7 +3801,7 @@ def measure_split(shape, dtype, act, gen, device, entries: bool,
     }
     for row in rows_out.values():
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
-    return {"times": t, "errs": errs, "entries": rows_out}
+    return {"times": t, "errs": errs, "stats": stats, "entries": rows_out}
 
 
 def _split_shape_line(path, shape, dtype, act, calls, entries) -> dict:
@@ -3796,14 +3824,34 @@ def _split_shape_line(path, shape, dtype, act, calls, entries) -> dict:
     return row
 
 
-def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
+def _stats_shape_line(path, shape, dtype, act, calls, stats) -> list:
+    """Logs kernel 1's figures at one (shape, dtype, act) of ``path`` (the
+    launch it took; one call of each entry: ms, bound ms, library ms) and
+    returns them as a row."""
+    geo = stats["geometry"]
+    row = [list(shape), str(dtype).split(".")[-1], act, calls,
+           geo["column_groups"], geo["cluster"], geo["clusters"],
+           geo["levels"], stats["bn_stats"]["ms"],
+           stats["bn_stats_sums"]["ms"], stats["bn_stats_sums"]["bound_ms"],
+           stats["bn_stats_sums"]["library_ms"]]
+    log(f"kernel 1 per shape ({path}) {tuple(shape)} {row[1]} {act} "
+        f"x{calls}: {row[4]} column group(s) of {row[5]} x {row[6]}, "
+        f"{row[7]} level(s); fused {row[8]:.5f} ms, sums {row[9]:.5f} ms "
+        f"(bound {row[10]:.5f}, {100 * row[10] / row[9]:.1f} % of it; "
+        f"library {row[11]:.5f})")
+    return row
+
+
+def phase_split_kernels(device, shapes_by_path: dict, entries_path=None
                         ) -> dict:
     """:func:`measure_split` at every (shape, dtype, act) of each path's
     train step (``{path: {(shape, dtype, act): calls}}``), summed over the
-    step's calls: fused against split ms per step; on ``entries_path`` also
-    each split entry's totals (the kernels line's rows 1 and 3) and, logged
-    and kept under ``per_shape``, the reduce and dx entries' figures at
-    each shape."""
+    step's calls: fused against split ms per step, and under ``stats``
+    kernel 1's two entries (ms, bound and library ms, the calls by the
+    launch they took, logged and kept under ``per_shape`` at each shape);
+    on ``entries_path`` also each split entry's totals (the kernels line's
+    rows 1 and 3) and, logged and kept under ``per_shape``, the reduce and
+    dx entries' figures at each shape."""
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
     out = {}
     for path, shapes in shapes_by_path.items():
@@ -3816,11 +3864,24 @@ def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
                                      "library_ms", "bound_ms", "bytes"), 0.0)
                    for e in SPLIT_ENTRIES}
         per_shape = []
+        stats = {e: dict.fromkeys(("max_abs_err", "ms", "bound_ms",
+                                   "library_ms"), 0.0)
+                 for e in ("bn_stats", "bn_stats_sums")}
+        stats_rows, by_launch = [], {}
         for (shape, dtype, act), n in sorted(shapes.items(),
                                              key=lambda kv: str(kv[0])):
             r = measure_split(shape, dtype, act, gen, device, full)
             for k, v in r["times"].items():
                 times[k] += n * v
+            for e, tot in stats.items():
+                tot["max_abs_err"] = max(tot["max_abs_err"],
+                                         r["stats"][e]["max_abs_err"])
+                for k in ("ms", "bound_ms", "library_ms"):
+                    tot[k] += n * r["stats"][e][k]
+            row = _stats_shape_line(path, shape, dtype, act, n, r["stats"])
+            stats_rows.append(row)
+            key = f"{row[5]} x {row[6]}, {row[7]} level(s)"
+            by_launch[key] = by_launch.get(key, 0) + n
             for e, v in r["errs"].items():
                 errs[e] = max(errs[e], v)
             for e, row in r.get("entries", {}).items():
@@ -3833,8 +3894,18 @@ def phase_split_kernels(device, shapes_by_path: dict, entries_path: str
             if full:
                 per_shape.append(_split_shape_line(path, shape, dtype, act,
                                                    n, r["entries"]))
+        card_clusters = r["stats"]["geometry"]["card_clusters"]
         out[path] = {"times": times, "errs": errs, "shapes": len(shapes),
-                     "launches": sum(shapes.values())}
+                     "launches": sum(shapes.values()),
+                     "stats": {"entries": stats,
+                               "launches_by_geometry": by_launch,
+                               "per_shape": stats_rows,
+                               "card_clusters": card_clusters}}
+        log(f"kernel 1 over {path} ({len(shapes)} shapes, "
+            f"{sum(shapes.values())} calls): {json.dumps(stats)}; calls by "
+            f"launch (blocks a cluster x clusters a group) "
+            f"{json.dumps(by_launch)}; the card holds {card_clusters} "
+            "clusters of 8 blocks at once")
         if full:
             out[path]["entries"] = entries
             out[path]["per_shape"] = per_shape
@@ -4525,8 +4596,15 @@ def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
         maps equal), 36 kernel-2 launches a rank a forward, the export
         refused;
     (e) the same two ranks: the predict_eval CLI over phase 15's fold, f32,
-        ``--val-batch 4``, against one process at batch 4: metrics.csv and
-        PNG dumps byte-equal, only rank 0 wrote files;
+        ``--val-batch 4`` (forwards of 2 rows a rank), against one process
+        at ``--val-batch 2`` (the same forwards): metrics.csv and PNG dumps
+        byte-equal; against one process at batch 4: metrics.csv within
+        ``EVAL_BATCH_ATOL`` and the PNGs within ``EVAL_BATCH_PIXELS``
+        differing pixels (phase 15's batch bounds: cuDNN may take another
+        algorithm at another batch, which moves near-tie pixels; printed, the
+        files that differ between one process at batch 4 and at 2 with cuDNN
+        and with it off, where every convolution is a GEMM a sample); only
+        rank 0 wrote files;
     (f) :func:`phase_place`.
     Step and forward ms are on the host clock; two ranks sharing one card
     is not a scaling number."""
@@ -4580,6 +4658,20 @@ def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
         one_dp = dp_steps(0, 1, *dp_args, device=device)
     one_fold = _fold_mesh_forwards(0, fold_paths, images, None, device)
     one_eval = _eval_cli(f"{eval_root}/one", eval_argv)
+    # one process at the ranks' rows a forward
+    per_rank = MESH_EVAL_BATCH // DP_RANKS
+    at = eval_argv.index("--val-batch") + 1
+    rows_argv = eval_argv[:at] + [str(per_rank)] + eval_argv[at + 1:]
+    one_rows = _eval_cli(f"{eval_root}/one_rows", rows_argv)
+    # the witness of the batch's effect: both one-process runs again with
+    # cuDNN off (PyTorch's own convolutions, a GEMM a sample at any batch)
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        _eval_cli(f"{eval_root}/off", eval_argv)
+        _eval_cli(f"{eval_root}/off_rows", rows_argv)
+    finally:
+        torch.backends.cudnn.enabled = cudnn
 
     if device == "cuda":  # no plain version ran where a kernel could
         for r in ranks:
@@ -4667,37 +4759,69 @@ def phase_remat_and_meshes(card: str, device: str = "cuda") -> dict:
 
     # (e) the data mesh
     one_dir = f"{eval_root}/one/Predictions/mesh/fold_1"
+    rows_dir = f"{eval_root}/one_rows/Predictions/mesh/fold_1"
     rank_dir = f"{eval_root}/rank0/Predictions/mesh/fold_1"
-    files = sorted(os.path.relpath(os.path.join(d, f), one_dir)
-                   for d, _, fs in os.walk(one_dir) for f in fs)
-    assert files == sorted(os.path.relpath(os.path.join(d, f), rank_dir)
-                           for d, _, fs in os.walk(rank_dir) for f in fs)
-    differ = []
-    for f in files:
-        with open(f"{one_dir}/{f}", "rb") as a, \
-                open(f"{rank_dir}/{f}", "rb") as b:
-            if a.read() != b.read():
-                differ.append(f)
+
+    def listing(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    def differing(a_dir, b_dir):
+        found = []
+        for f in files:
+            with open(f"{a_dir}/{f}", "rb") as a, open(f"{b_dir}/{f}",
+                                                       "rb") as b:
+                if a.read() != b.read():
+                    found.append(f)
+        return found
+
+    files = listing(one_dir)
+    assert files == listing(rank_dir) == listing(rows_dir)
+    differ = differing(rows_dir, rank_dir)
     assert not os.path.exists(f"{eval_root}/rank1/Predictions")
+    names = sorted(os.listdir(f"{one_dir}/0"))
+    size = MODELS[0]["img"]
+    batch_px = _pixels_differing(_dumps(rank_dir, names, size),
+                                 _dumps(one_dir, names, size))
+    off_dir = f"{eval_root}/off/Predictions/mesh/fold_1"
+    off_rows_dir = f"{eval_root}/off_rows/Predictions/mesh/fold_1"
+    cudnn_files = len(differing(rows_dir, one_dir))
+    off_files = len(differing(off_rows_dir, off_dir))
+    off_px = _pixels_differing(_dumps(off_rows_dir, names, size),
+                               _dumps(off_dir, names, size))
+    batch_err = float(np.abs(_metrics_numbers(f"{rank_dir}/metrics.csv")
+                             - _metrics_numbers(f"{one_dir}/metrics.csv")
+                             ).max())
     n_val = CLI_TRAIN_IMAGES // 4
     ev_launches = [r["eval"]["counts"]["scale_bias_act"] for r in ranks]
     log(f"data mesh on {card}: the predict_eval CLI over phase 15's fold "
         f"({n_val} images, f32, --val-batch {MESH_EVAL_BATCH}) on "
         f"{DP_RANKS} ranks: {len(files)} files (metrics.csv and PNGs), "
-        f"{len(differ)} differing from one process's at batch "
-        f"{MESH_EVAL_BATCH} {differ[:4]}; rank 1 wrote none; kernel-2 "
+        f"{len(differ)} differing from one process's at --val-batch "
+        f"{per_rank} {differ[:4]}; against one process at batch "
+        f"{MESH_EVAL_BATCH}: {batch_px} PNG pixels differing, metrics.csv "
+        f"max abs err {batch_err:.3e}; one process at batch "
+        f"{MESH_EVAL_BATCH} against {per_rank}: {cudnn_files} files "
+        f"differing with cuDNN, {off_files} ({off_px} PNG pixels) without "
+        f"(printed, not held); rank 1 wrote none; kernel-2 "
         f"launches per rank {ev_launches}, one process "
         f"{one_eval['counts']['scale_bias_act']}; wall s per rank "
         f"{[round(r['eval']['wall_s'], 3) for r in ranks]}, one process "
         f"{one_eval['wall_s']:.3f}")
     assert not differ, differ
+    assert batch_px <= EVAL_BATCH_PIXELS, batch_px
+    assert batch_err <= EVAL_BATCH_ATOL, batch_err
     assert "metrics.csv" in files and len(files) == 1 + 8 * n_val
     assert ev_launches == [n_bn * n_val // MESH_EVAL_BATCH] * DP_RANKS
     assert one_eval["counts"]["scale_bias_act"] == \
         n_bn * n_val // MESH_EVAL_BATCH
     assert ranks[1]["eval"]["result"] == ranks[0]["eval"]["result"] == \
-        one_eval["result"]
+        one_rows["result"]
     out["data_mesh"] = {"files": len(files), "launches": ev_launches,
+                        "batch_pixels_differing": batch_px,
+                        "batch_metrics_max_abs_err": batch_err,
+                        "batch_files_differing": {"cudnn": cudnn_files,
+                                                  "no_cudnn": off_files},
                         "rank_wall_s": [r["eval"]["wall_s"] for r in ranks],
                         "one_wall_s": one_eval["wall_s"]}
     out["ranks_s"] = ranks_s
@@ -5396,13 +5520,11 @@ def phase_w18(card: str, device: str = "cuda") -> dict:
     fwd = phase_path_kernel_times(dev, result["shapes"])
     tot = phase_train_kernel_times(dev, train["shapes"])
     bands_ = band_shapes(train["shapes"], W18_SPACE)
+    split = phase_split_kernels(dev, {"W18 step": train["shapes"],
+                                      "W18 band": bands_})
+    split_errs = {e: max(r["errs"][e] for r in split.values())
+                  for e in SPLIT_ENTRIES}
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
-    split_errs = dict.fromkeys(SPLIT_ENTRIES, 0.0)
-    for shapes in (train["shapes"], bands_):
-        for shape, dtype, act in sorted(shapes, key=str):
-            r = measure_split(shape, dtype, act, gen, dev, False, timed=False)
-            for e, v in r["errs"].items():
-                split_errs[e] = max(split_errs[e], v)
     band_err = max(measure_scale_bias_act(shape, dtype, act, gen, dev,
                                           library=False, exact=True,
                                           timed=False)["max_abs_err"]
@@ -5415,6 +5537,7 @@ def phase_w18(card: str, device: str = "cuda") -> dict:
     out = {"serve": {k: v for k, v in result.items() if k != "shapes"},
            "train": {k: v for k, v in train.items() if k != "shapes"},
            "forward": fwd, "step": tot, "split_errs": split_errs,
+           "split": split,
            "band_scale_bias_act_err": band_err, "artifact": artifact,
            "int8": int8,
            "shapes": {"forward": len(result["shapes"]),
@@ -5605,6 +5728,12 @@ def main() -> int:
                 **{f"space_{k}": band[k] for k in
                    ("ms", "plain_ms", "bound_ms", "library_ms")},
                 "w18_max_abs_err": w18["split_errs"][name],
+                **({"stats_entries": {
+                    path: {"calls": r["launches"], "shapes": r["shapes"],
+                           **r["stats"]["entries"][name]}
+                    for part in (scale, space, w18)
+                    for path, r in part["split"].items()}}
+                   if name == "bn_stats_sums" else {}),
                 "work": f"the {MODELS[0]['n_bn']} calls of one UNet step at "
                         f"a rank's shapes (batch {TRAIN_BATCH // DP_RANKS} "
                         f"of {TRAIN_BATCH}, 352 px, bf16), inputs from device"
@@ -5618,7 +5747,11 @@ def main() -> int:
                         "against the plain version at every shape of one "
                         "W18 step (620 px, batch 16, bf16) and every band "
                         "shape of both ranks at --n-space 2, bit for bit to "
-                        "the fused launches (phase 22)"}
+                        "the fused launches (phase 22)"
+                        + ("; stats_entries: ms, bound and one "
+                           "torch.batch_norm_stats per call, summed over "
+                           "each path's calls (phases 19, 21, 22)"
+                           if name == "bn_stats_sums" else "")}
 
     fused_split = {path: r["times"] for path, r in scale["split"].items()}
     w18_work = ("; w18_*: the same over one bf16 train step of HRNet-W18 "
@@ -5751,14 +5884,31 @@ def main() -> int:
         "bn_stats", "bn_stats.cu", f"{BN_FILE}:51",
         train["counts"]["bn_stats"], ttot["bn_stats"],
         step_work + "; library_ms is one torch.batch_norm_stats per launch"
-        + unet_work + w18_work,
-        design="one launch per call, grid sized by the call's bytes: strips "
-        "of one 128-byte round per thread, at most 2 blocks per SM, f32 "
-        "pairwise sums, the block's rows added by warp shuffles; the "
-        "strips' partials added in double in a fixed order on 4 row lanes "
-        "by the blocks that draw the last integer ticket, per chunk of 16 "
-        "strips and then per column group (previously two launches: column "
-        "partials over up to 528 strips, then a combine kernel)",
+        + unet_work + w18_work + "; stats_entries: the entry again at each "
+        "path's shapes (W48 and UNet steps, a UNet rank's, both ranks' "
+        "bands of W48 and the UNet at --n-space 2, W18's step and bands), "
+        "ms, bound and library summed over the path's calls, the calls by "
+        "the launch they took; card_clusters: the clusters of 8 blocks the "
+        "card holds at once",
+        design="one launch per call of thread block clusters: strips of "
+        "128-byte rounds per thread, f32 pairwise sums, the block's rows "
+        "added by warp shuffles; each block stores its strip's sums into the "
+        "cluster's first block's shared memory (distributed shared memory, "
+        "one cluster barrier), which adds them in double; one cluster of up "
+        "to 8 strips a column group while each thread takes at most 4 "
+        "rounds, else clusters of 8, as many as the card holds at once, "
+        "whose sums the block that draws the last integer ticket adds "
+        "column by column "
+        "in cluster order (previously every strip's partials "
+        "through device memory and tickets per chunk of 16 strips, per "
+        "column group and to fold; before that two launches)",
+        stats_entries={path: {"calls": r["launches"], "shapes": r["shapes"],
+                              "launches_by_geometry":
+                                  r["stats"]["launches_by_geometry"],
+                              **r["stats"]["entries"]["bn_stats"]}
+                       for part in (scale, space, w18)
+                       for path, r in part["split"].items()},
+        card_clusters=scale["split"]["W48 step"]["stats"]["card_clusters"],
         profiled_kernels=train["profile"]["kernel_counts"]["bn_stats"],
         unet_profiled_kernels=utrain["profile"]["kernel_counts"]["bn_stats"],
         unet_launches=utrain["counts"]["bn_stats"],

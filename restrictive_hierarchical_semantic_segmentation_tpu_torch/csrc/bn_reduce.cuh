@@ -6,28 +6,30 @@
 // the next, because the TPU runs its grid in order on one core. Hopper runs
 // blocks in parallel and in no order, so both kernels split the rows into
 // contiguous strips (split_rows): block (bx, by) owns channel vectors of 8
-// channels (16-byte loads, Raw) and strip by, sums them in f32 registers,
-// adds its row lanes in shared memory in a fixed tree order and writes one
-// row of partials; the strips' partials are then added in double in a fixed
-// order (bn_stats.cu: by the last block of each column group to arrive,
-// last_ticket; the BN backward's fused pass: by every block after a grid
-// barrier, combine_group; its reduce entry: by the last blocks of each
-// chain of strips and column group, in combine_group's order). No float
-// atomics anywhere: the result is the same from run to run.
+// channels (16-byte loads, Raw) and strip by, sums them in f32 registers
+// and adds its row lanes in a fixed tree order; the strips' sums are then
+// added in double in a fixed order (bn_stats.cu: within each thread block
+// cluster through distributed shared memory, then the clusters' sums by the
+// block that draws the last ticket, last_ticket; the BN backward's fused
+// pass: rows of partials added by every block after a grid barrier,
+// combine_group; its reduce entry: by the last blocks of each chain of
+// strips and column group, in combine_group's order). No float atomics
+// anywhere: the result is the same from run to run.
 //
 // Loads are 16 bytes a thread (8 bf16, or 8 f32 as two float4), neighbouring
 // threads on neighbouring channel vectors of one row, and the rows of a
 // block are contiguous, so every warp reads contiguous memory. At any C the
 // kernels reduce the view of rows of L = lcm(C, 8) columns (common.cuh:
 // view_width; L = C where C % 8 == 0) over its floor(rows / (L / C)) whole
-// rows; where L > C the blocks that draw the last tickets then fold the L / C
-// columns of each channel (fold_columns, in a fixed order) and add the last
-// rows mod (L / C) image rows, the tail, one by one.
+// rows; where L > C the blocks that finish then fold the L / C columns of
+// each channel (fold_columns, in a fixed order) and add the last rows mod
+// (L / C) image rows, the tail, one by one.
 //
-// The workspace holds 2 * kTargetBlocks * C floats: neither kernel makes
-// more than kTargetBlocks strips (the BN backward keeps two more rows), so
-// the caller sizes it from C alone (_MAX_STRIPS in ops/fused_bn_act.py must
-// equal kTargetBlocks) and needs no query per launch.
+// The BN backward's workspace holds 2 * kTargetBlocks * C floats: it makes
+// no more than kTargetBlocks strips (and keeps two more rows), so the caller
+// sizes it from C alone (_MAX_STRIPS in ops/fused_bn_act.py must equal
+// kTargetBlocks) and needs no query per launch; the statistics kernel's
+// holds its clusters' sums (bn_stats.cu: kMaxClusters).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,10 +43,10 @@ constexpr int kTargetBlocks = 528;  // 4 per SM of an H100 SXM (132 SMs)
 // column groups of 32 channel vectors that the ticket counters cover
 // (C <= 64 * 32 * kVec; _STATS_GROUPS in ops/fused_bn_act.py)
 constexpr int kMaxGroups = 64;
-// a stream's counters: per column group the statistics kernel's group and
-// chunk counters (bn_stats.cu; the BN backward's reduce entry uses the first
-// 64 * 17), then the one both draw from to fold the columns of a view wider
-// than C (_COUNTERS_PER_STREAM in ops/fused_bn_act.py)
+// a stream's counters: 34 per column group (the statistics kernel draws
+// from the first of each, bn_stats.cu; the BN backward's reduce entry from
+// the first 17), then the one both draw from to fold the columns of a view
+// wider than C (_COUNTERS_PER_STREAM in ops/fused_bn_act.py)
 constexpr int kFoldCounter = kMaxGroups * (1 + (kTargetBlocks + 15) / 16);
 
 struct Geometry {

@@ -11,63 +11,79 @@
 // Bound on the H100 SXM: memory. x is read once (2 flops an element), so the
 // least time is numel * elem_bytes / 3.35 TB/s. The train steps call it once
 // per BatchNorm, mostly on a few MB (W48: 225 of its 306 calls have a bound
-// under 10 us), so a fixed cost per call weighs as much as the streaming.
+// under 10 us; a rank's band of the space axis halves them), so a fixed cost
+// per call weighs as much as the streaming.
 //
-// Design: one launch per call, its grid sized by the call's bytes.
+// Design: one launch per call, whose blocks of a column group form thread
+// block clusters (Hopper) that add their strips on the chip.
 //  * Block (bx, by) owns the channel vectors of column group bx (8
 //    channels, 16 bytes of bf16, a thread; at most 32 vectors a group,
 //    balanced, on tx lanes, tx the power of 2 at or above them) and a
 //    contiguous strip of rows. Each thread keeps 128 bytes of its rows in
 //    flight (8 rows of bf16, 4 of f32), adds each such round pairwise and
 //    the rounds into two f32 sums; the block adds its row lanes with warp
-//    shuffles and then across its 8 warps, in a fixed order, and writes one
-//    row of partials.
-//  * Strips: as many as give each thread one round, at most one wave (2
-//    blocks of 256 threads per SM) and at most kTargetBlocks (bn_reduce.cuh).
-//  * The partials are combined in double by the blocks that arrive last, in
-//    two levels so that no block reads more than 16 strips' or 33 chunks'
-//    partials: each block draws a ticket (an integer atomic, release-acquire
-//    at gpu scope, by one thread) from its chunk of 16 strips; the last of a
-//    chunk adds the chunk's partials and, if its column group has more than
-//    one chunk, writes them and draws a ticket from the group; the last of
-//    the group adds the chunks' sums and writes mean and var. Whoever draws
-//    the last ticket sets that counter back to 0. A combining block adds on
-//    4 row lanes (each every 4th row of partials) and then a fixed tree:
-//    more lanes made the tree cost more than the loads saved, fewer made
-//    the chain of L2 round trips longer. Which block combines changes the
-//    order of no add, and there are no float atomics: the result is the
-//    same bits from run to run.
+//    shuffles and then across its 8 warps, in a fixed order.
+//  * The strips of a column group come in clusters of `cluster` blocks
+//    (launched with cudaLaunchKernelEx and a cluster dimension). Each block
+//    stores its strip's sums into the cluster's first block's shared memory
+//    (distributed shared memory, once a relaxed cluster barrier shows every
+//    block started, which it passes as soon as its reads are done) and
+//    arrives on a release barrier, after which it leaves; the first block
+//    waits for every arrival and adds the strips in double, block 0 first.
+//    Nothing goes to device memory and no counter is touched.
+//  * A call of at most kCluster * kSingleRounds rounds a thread (one round:
+//    ty * 128 bytes of rows a column) is one cluster a column group, whose
+//    blocks take several rounds each: the first block writes the
+//    statistics. Larger calls take clusters of kCluster blocks, as many
+//    as the card holds at once over the column groups
+//    (cudaOccupancyMaxActiveClusters), at most kMaxClusters a group and at
+//    least one; each cluster's first block writes the
+//    cluster's double sums to the workspace and draws a ticket (an integer
+//    atomic, release-acquire at gpu scope, by one thread), and the first
+//    block of the column group's last cluster adds the clusters' sums of
+//    each column in cluster order and writes the statistics. It sets the
+//    counter back to 0.
+//    Which cluster finishes changes the order of no add, and there are no
+//    float atomics: the result is the same bits from run to run.
 // The counters must be 0 before every launch; the Python wrapper keeps a
 // zeroed buffer per (device, stream), and every launch leaves it at 0 again,
 // so a launch captured in a CUDA graph replays.
 //
 // The sums entry (rhss_bn_stats_sums) is the same launch with another last
-// step: the column groups' last blocks write the double sums (Σx, Σx²) and n
-// instead of mean and var, for a caller that adds them over the ranks of a
-// data-parallel group before forming the statistics (global-batch BatchNorm,
-// ops/fused_bn_act.py:sync_batch_norm_act). Mean and var are formed with
-// explicit __dmul_rn / __dsub_rn (no contraction into an fma), so the caller's
-// f64 arithmetic on the sums of one rank gives the same bits as this kernel.
+// step: the finishing block writes the double sums (Σx, Σx²) and n instead
+// of mean and var, for a caller that adds them over the ranks of a
+// data-parallel group before forming the statistics (global-batch
+// BatchNorm, ops/fused_bn_act.py:sync_batch_norm_act). Mean and var are
+// formed with explicit __dmul_rn / __dsub_rn (no contraction into an fma),
+// so the caller's f64 arithmetic on the sums of one rank gives the same bits
+// as this kernel.
 //
 // Any C: the blocks reduce the view of rows of L = lcm(C, 8) columns
 // (bn_reduce.cuh) over its whole rows, exactly as above with L for C. Where
-// L > C the column groups' last blocks write their columns' double sums, and
-// the block that draws the last ticket of a third counter (kFoldCounter)
-// folds the L / C columns of each channel in order and adds the tail's rows
-// (fewer than L / C) one by one before the last step; n stays the count of
-// image rows. Where C % 8 == 0 none of this runs: L = C, no tail.
+// L > C, the finishing block folds the L / C columns of each channel in
+// order and adds the tail's rows (fewer than L / C) one by one before the
+// last step; n stays the count of image rows. With one column group (L <=
+// 256: every W18 width but the 270-channel head) and one cluster, the
+// cluster's first block folds its own sums in shared memory; otherwise one
+// ticket for the whole call (kFoldCounter) picks the block that adds every
+// group's clusters and folds. Where C % 8 == 0 none of this runs.
 //
-// What it cannot do: the smallest calls (under ~1 MB) still pay a launch,
-// one round trip to device memory and one or two through L2 and the
-// atomics, several times their bound (PERF.md). lcm(C, 8) must be at most
-// 16384 (kMaxGroups column groups): any C up to 2048, multiples of 8 up to
-// 16384.
+// What it cannot do: a call still pays a launch, one read of its strip and
+// the cluster's barrier; a large call one round trip through L2 and the
+// atomic more. lcm(C, 8) must be at most 16384 (kMaxGroups column
+// groups): any C up to 2048, multiples of 8 up to 16384. The card must hold
+// a cluster of kCluster blocks: a refused launch returns its error and the
+// wrapper raises.
 //
-// Plain C interface for ctypes: returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for arguments it does not take.
-// The launch goes on the caller's stream; nothing synchronises and nothing is
-// allocated here.
+// Plain C interface for ctypes: returns the launch's error (0 on success),
+// or cudaErrorInvalidValue for arguments it does not take. The launch goes
+// on the caller's stream; nothing synchronises and nothing is allocated
+// here.
+#include <cooperative_groups.h>
+
 #include "bn_reduce.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,15 +94,24 @@ using rhss::Raw;
 
 constexpr int kBlocksPerSm = 2;
 constexpr int kRoundBytes = 128;  // of x in flight per thread
-constexpr int kChunk = 16;        // strips a chunk's last block adds
-constexpr int kCombineLanes = 4;  // row lanes of a combining block
-constexpr int kMaxChunks = (rhss::kTargetBlocks + kChunk - 1) / kChunk;
-// per column group: the group's ticket counter, then one per chunk
-constexpr int kGroupCounters = 1 + kMaxChunks;
+constexpr int kGroupWidth = 32 * kVec;  // the widest column group
+// the blocks of a cluster (of a one-level call: the power of 2 at or above
+// its strips, at most this): 8, the portable size (16, which a card must
+// allow as non-portable, was slower over the train steps' calls)
+constexpr int kCluster = 8;
+// rounds a thread may take before a call takes a second cluster a group
+constexpr int kSingleRounds = 4;
+// the most clusters a column group (the workspace's rows of double sums;
+// _STATS_CLUSTERS in ops/fused_bn_act.py)
+constexpr int kMaxClusters = 64;
+// a column group's ticket counter, in the counters' layout (bn_reduce.cuh)
+constexpr int kGroupCounters = 1 + (rhss::kTargetBlocks + 15) / 16;
 static_assert(rhss::kFoldCounter == kMaxGroups * kGroupCounters,
               "the fold counter follows the column groups' counters");
-static_assert(rhss::kMaxWidth == kMaxGroups * 32 * kVec,
+static_assert(rhss::kMaxWidth == kMaxGroups * kGroupWidth,
               "the widest view fills the counters' column groups");
+static_assert(kCluster <= 8 && (kCluster & (kCluster - 1)) == 0,
+              "a portable cluster holds at most 8 blocks, a power of 2");
 
 // rows a thread keeps in flight
 template <typename T>
@@ -96,8 +121,7 @@ __host__ __device__ constexpr int rows_in_flight() {
 
 struct Args {
   const void* x;
-  float* partial;  // [2][row_blocks][channels]
-  double* chunks;  // [2][chunks][channels]
+  double* ws;      // [2][clusters][channels]: the clusters' sums
   double* cols;    // [2][channels]: the view's column sums, to fold
   int* counters;   // [col_blocks][kGroupCounters], then kFoldCounter: 0
                    // before and after
@@ -110,8 +134,9 @@ struct Args {
   int channels;  // the view's width L = lcm(c, 8)
   int c;         // the tensor's channels
   int tail_rows;  // image rows after the view's last whole row
-  int tx, ty, row_blocks;
-  int vecs;  // channel vectors of a column group, <= tx
+  int tx, ty;
+  int vecs;      // channel vectors of a column group, <= tx
+  int clusters;  // clusters a column group
 };
 
 // Σx and Σx² of one thread's 8 channels over rows [0, N) of a round, added
@@ -141,85 +166,19 @@ struct RoundSum<T, 1> {
   }
 };
 
-// Adds the ty row lanes of each channel in shared memory (sh: 2 * kVec *
-// kThreads values, [k][thread], so neighbouring threads touch neighbouring
-// words) in a fixed tree order; ty need not be a power of 2. Lane 0 gets the
-// block's sums back in s0, s1. Every thread of the block calls it.
-template <typename S>
-__device__ __forceinline__ void add_lanes(S* sh, S s0[kVec], S s1[kVec],
-                                          int t, int y, int tx, int ty) {
-  S* sh1 = sh + kVec * kThreads;
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    sh[k * kThreads + t] = s0[k];
-    sh1[k * kThreads + t] = s1[k];
-  }
-  __syncthreads();
-  int half = 1;
-  while (half * 2 < ty) half *= 2;
-  for (; half > 0; half >>= 1) {
-    if (y < half && y + half < ty) {
-      const int o = t + half * tx;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        sh[k * kThreads + t] += sh[k * kThreads + o];
-        sh1[k * kThreads + t] += sh1[k * kThreads + o];
-      }
-    }
-    __syncthreads();
-  }
-  if (y == 0) {
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      s0[k] = sh[k * kThreads + t];
-      s1[k] = sh1[k * kThreads + t];
-    }
-  }
+// The halves of a cluster barrier (PTX barrier.cluster; every thread of
+// the cluster's blocks arrives once a phase, and wait returns when all
+// have). A relaxed arrival orders nothing; a release arrival and an acquire
+// wait make the writes before the arrival, to any block's shared memory,
+// visible to the threads past the wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
-
-// 8 partial sums written earlier in this launch, in double
-__device__ __forceinline__ void load_part(const float* p, double v[kVec]) {
-  float f[kVec];
-  rhss::load8_cg(p, f);
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) v[k] = f[k];
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void load_part(const double* p, double v[kVec]) {
-#pragma unroll
-  for (int j = 0; j < kVec / 2; ++j) {
-    const double2 d = __ldcg(reinterpret_cast<const double2*>(p) + j);
-    v[2 * j] = d.x;
-    v[2 * j + 1] = d.y;
-  }
-}
-
-// Rows [first, first + count) of partials part ([2][total][C]) of this
-// thread's 8 channels, in double in a fixed order (row lane y <
-// kCombineLanes takes every kCombineLanes-th row, then add_lanes): lane 0
-// gets the sums in d0, d1.
-template <typename P>
-__device__ __forceinline__ void combine(const P* part, int64_t total,
-                                        int first, int count, int C, int c,
-                                        bool active, int t, int y, int tx,
-                                        int ty, double* lanes,
-                                        double d0[kVec], double d1[kVec]) {
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) d0[k] = d1[k] = 0.0;
-  const int lanes_used = ty < kCombineLanes ? ty : kCombineLanes;
-  if (active && y < lanes_used) {
-#pragma unroll 4
-    for (int i = y; i < count; i += lanes_used) {
-      double p[kVec], q[kVec];
-      load_part(part + (int64_t)(first + i) * C + c, p);
-      load_part(part + (total + first + i) * C + c, q);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        d0[k] += p[k];
-        d1[k] += q[k];
-      }
-    }
-  }
-  add_lanes(lanes, d0, d1, t, y, tx, lanes_used);
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The block's sums of each channel vector over its ty row lanes (tx a power
@@ -259,17 +218,21 @@ __device__ __forceinline__ void add_rows(float* w, float s0[kVec],
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-bn_stats_one_pass(const Args a) {
+bn_stats_cluster(const Args a) {
   constexpr int U = rows_in_flight<T>();
-  __shared__ double lanes[2 * kVec * kThreads];
+  // the first block's: every block's strip sums, [block][Σx, Σx²][column]
+  __shared__ __align__(16) float strips[kCluster * 2 * kGroupWidth];
+  // add_rows' warps' sums; then the first block's column sums, to fold
+  __shared__ __align__(16) float warps[2 * (kThreads / 32) * kVec * 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // this block has started (waited for below)
   const int t = threadIdx.x;
-  const int tx = a.tx, ty = a.ty, C = a.channels, R = a.row_blocks;
+  const int tx = a.tx, ty = a.ty, C = a.channels;
   const int x = t % tx, y = t / tx;
   const int v = blockIdx.x * a.vecs + x;
   const bool active = x < a.vecs && v < C / kVec;
   const int c = v * kVec;
-  const int by = blockIdx.y;
-  const int64_t r0 = (int64_t)by * a.rows_per_block;
+  const int64_t r0 = (int64_t)blockIdx.y * a.rows_per_block;
   const int64_t r1 =
       r0 + a.rows_per_block < a.rows ? r0 + a.rows_per_block : a.rows;
 
@@ -299,42 +262,37 @@ bn_stats_one_pass(const Args a) {
     }
   }
 
-  // the strip's partials
-  add_rows(reinterpret_cast<float*>(lanes), s0, s1, t, tx);
-  if (y == 0 && active) {
-    float* p0 = a.partial + (int64_t)by * C + c;
-    float* p1 = a.partial + ((int64_t)R + by) * C + c;
-    *reinterpret_cast<float4*>(p0) = make_float4(s0[0], s0[1], s0[2], s0[3]);
-    *reinterpret_cast<float4*>(p0 + 4) = make_float4(s0[4], s0[5], s0[6], s0[7]);
-    *reinterpret_cast<float4*>(p1) = make_float4(s1[0], s1[1], s1[2], s1[3]);
-    *reinterpret_cast<float4*>(p1 + 4) = make_float4(s1[4], s1[5], s1[6], s1[7]);
+  // the strip's sums (row lane 0 holds them), stored into the first
+  // block's shared memory once every block of the cluster has started
+  add_rows(warps, s0, s1, t, tx);
+  const int blocks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster_wait();
+  if (y == 0) {
+    float4* dst = reinterpret_cast<float4*>(
+        cluster.map_shared_rank(strips, 0) + rank * 2 * kGroupWidth +
+        x * kVec);
+    dst[0] = make_float4(s0[0], s0[1], s0[2], s0[3]);
+    dst[1] = make_float4(s0[4], s0[5], s0[6], s0[7]);
+    dst[kGroupWidth / 4] = make_float4(s1[0], s1[1], s1[2], s1[3]);
+    dst[kGroupWidth / 4 + 1] = make_float4(s1[4], s1[5], s1[6], s1[7]);
   }
+  cluster_arrive();
+  // no block reads the others' shared memory: they may leave
+  if (rank != 0) return;
+  cluster_wait();
 
-  // the chunk's last block adds the chunk's strips
-  int* cnt = a.counters + blockIdx.x * kGroupCounters;
-  const int chunk = by / kChunk, first = chunk * kChunk;
-  const int count = R - first < kChunk ? R - first : kChunk;
-  const int n_chunks = (R + kChunk - 1) / kChunk;
-  if (!rhss::last_ticket(cnt + 1 + chunk, count)) return;
-  double d0[kVec], d1[kVec];
-  combine(a.partial, R, first, count, C, c, active, t, y, tx, ty, lanes, d0,
-          d1);
-
-  // with more than one chunk, the group's last chunk adds the chunks' sums
-  if (n_chunks > 1) {
-    if (y == 0 && active) {
-      double* q0 = a.chunks + (int64_t)chunk * C + c;
-      double* q1 = a.chunks + ((int64_t)n_chunks + chunk) * C + c;
-#pragma unroll
-      for (int k = 0; k < kVec; k += 2) {
-        *reinterpret_cast<double2*>(q0 + k) = make_double2(d0[k], d0[k + 1]);
-        *reinterpret_cast<double2*>(q1 + k) = make_double2(d1[k], d1[k + 1]);
-      }
+  // the first block adds its blocks' strips in double, block 0 first
+  const int col0 = blockIdx.x * a.vecs * kVec;  // the group's first column
+  const int width = min(a.vecs * kVec, C - col0);  // and its columns
+  double d0 = 0.0, d1 = 0.0;
+  if (t < width) {
+    for (int k = 0; k < blocks; ++k) {
+      d0 += strips[k * 2 * kGroupWidth + t];
+      d1 += strips[k * 2 * kGroupWidth + kGroupWidth + t];
     }
-    if (!rhss::last_ticket(cnt, n_chunks)) return;
-    combine(a.chunks, n_chunks, 0, n_chunks, C, c, active, t, y, tx, ty,
-            lanes, d0, d1);
   }
+
   // channel ch's sums: the double sums, or mean and var
   const auto finish = [&](int ch, double sx, double sq) {
     if (a.sums != nullptr) {
@@ -348,48 +306,131 @@ bn_stats_one_pass(const Args a) {
     a.mean[ch] = (float)m;
     a.var[ch] = (float)(var > 0.0 ? var : 0.0);
   };
-  if (a.c == C) {  // the view is the tensor
-    if (y == 0 && active) {
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) finish(c + k, d0[k], d1[k]);
-      // n once: by the last block of column group 0
-      if (a.sums != nullptr && blockIdx.x == 0 && t == 0)
-        a.sums[2 * C] = (double)a.n;
+  // the image rows after the view's last whole row, one by one
+  const T* tail = static_cast<const T*>(a.x) + a.rows * C;
+  const auto add_tail = [&](int ch, double& sx, double& sq) {
+    for (int r = 0; r < a.tail_rows; ++r) {
+      const float f = rhss::to_float(tail[(int64_t)r * a.c + ch]);
+      sx += f;
+      sq += __fmul_rn(f, f);
     }
+  };
+  const bool fold = a.c != C;
+
+  if (a.clusters == 1 && (!fold || gridDim.x == 1)) {  // one level
+    if (!fold) {
+      if (t < width) finish(col0 + t, d0, d1);
+    } else {  // one column group: fold the columns in shared memory
+      double* folded = reinterpret_cast<double*>(warps);
+      if (t < width) {
+        folded[t] = d0;
+        folded[kGroupWidth + t] = d1;
+      }
+      __syncthreads();
+      for (int ch = t; ch < a.c; ch += kThreads) {
+        double sx = 0.0, sq = 0.0;
+        for (int j = ch; j < C; j += a.c) {
+          sx += folded[j];
+          sq += folded[kGroupWidth + j];
+        }
+        add_tail(ch, sx, sq);
+        finish(ch, sx, sq);
+      }
+    }
+    if (a.sums != nullptr && blockIdx.x == 0 && t == 0)
+      a.sums[2 * a.c] = (double)a.n;
     return;
   }
 
-  // a view wider than C: the last column group to finish folds every
-  // channel's columns and adds the tail's rows
-  if (y == 0 && active) {
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      a.cols[c + k] = d0[k];
-      a.cols[C + c + k] = d1[k];
+  // two levels: the cluster's sums to the workspace, then a ticket (per
+  // column group, or for the whole call where it folds); the block that
+  // draws the last adds every cluster's sums of each column, cluster 0
+  // first
+  const int64_t cl = blockIdx.y / blocks;
+  if (t < width) {
+    a.ws[cl * C + col0 + t] = d0;
+    a.ws[((int64_t)a.clusters + cl) * C + col0 + t] = d1;
+  }
+  int* cnt = fold ? a.counters + rhss::kFoldCounter
+                  : a.counters + blockIdx.x * kGroupCounters;
+  if (!rhss::last_ticket(cnt, fold ? (int)gridDim.x * a.clusters
+                                   : a.clusters))
+    return;
+  const int j0 = fold ? 0 : col0;
+  const int j1 = fold ? C : col0 + width;
+  for (int j = j0 + t; j < j1; j += kThreads) {
+    double e0 = 0.0, e1 = 0.0;
+#pragma unroll 8
+    for (int i = 0; i < a.clusters; ++i) {
+      e0 += __ldcg(a.ws + (int64_t)i * C + j);
+      e1 += __ldcg(a.ws + ((int64_t)a.clusters + i) * C + j);
+    }
+    if (fold) {
+      a.cols[j] = e0;
+      a.cols[C + j] = e1;
+    } else {
+      finish(j, e0, e1);
     }
   }
-  if (!rhss::last_ticket(a.counters + rhss::kFoldCounter, gridDim.x)) return;
-  const T* tail = static_cast<const T*>(a.x) + a.rows * C;
-  for (int ch = t; ch < a.c; ch += kThreads) {
-    double sx, sq;
-    rhss::fold_columns(a.cols, C, a.c, ch, sx, sq);
-    for (int r = 0; r < a.tail_rows; ++r) {
-      const float v = rhss::to_float(tail[(int64_t)r * a.c + ch]);
-      sx += v;
-      sq += __fmul_rn(v, v);
+  if (fold) {  // every channel's columns, written above by this block
+    __syncthreads();
+    for (int ch = t; ch < a.c; ch += kThreads) {
+      double sx, sq;
+      rhss::fold_columns(a.cols, C, a.c, ch, sx, sq);
+      add_tail(ch, sx, sq);
+      finish(ch, sx, sq);
     }
-    finish(ch, sx, sq);
   }
-  if (a.sums != nullptr && t == 0) a.sums[2 * a.c] = (double)a.n;
+  if (a.sums != nullptr && (fold || blockIdx.x == 0) && t == 0)
+    a.sums[2 * a.c] = (double)a.n;
+}
+
+// How many clusters of kCluster blocks the card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once per device.
+template <typename T>
+int active_clusters(int* out) {
+  static rhss::DeviceOnce once;
+  static int active[rhss::DeviceOnce::kMaxDevices];
+  int sms = 0;
+  const int set = once.get(&sms, [] {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = (unsigned)kCluster;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, kCluster);
+    cfg.blockDim = dim3(kThreads);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    void (*fn)(Args) = bn_stats_cluster<T>;
+    err = cudaOccupancyMaxActiveClusters(&active[dev], fn, &cfg);
+    if (err != cudaSuccess) return err;
+    return active[dev] > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+  });
+  if (set != 0) return set;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  *out = active[dev];
+  return 0;
 }
 
 struct Geometry : rhss::Geometry {
   int vecs;
+  int cluster;   // blocks a cluster
+  int clusters;  // clusters a column group
 };
 
-// A function of (rows, channels, dtype, SM count): strips of one round per
-// thread, at most one wave and at most kTargetBlocks blocks.
-Geometry geometry(int64_t rows, int channels, int in_flight, int sms) {
+// A function of (rows, channels, dtype, the clusters the card holds at
+// once): one cluster a column group of at most kCluster strips while each
+// thread takes at most kSingleRounds rounds; else strips of about one round
+// in clusters of kCluster blocks, as many as the card holds at once over the
+// column groups, at most kMaxClusters a group and at least one.
+Geometry geometry(int64_t rows, int channels, int in_flight, int active) {
   Geometry g;
   const int c_vec = channels / kVec;
   g.col_blocks = (c_vec + 31) / 32;
@@ -398,43 +439,92 @@ Geometry geometry(int64_t rows, int channels, int in_flight, int sms) {
   while (g.tx < g.vecs) g.tx *= 2;
   g.ty = kThreads / g.tx;
   const int64_t round = (int64_t)g.ty * in_flight;
-  int64_t strips = (rows + round - 1) / round;
-  int64_t wave = (int64_t)sms * kBlocksPerSm;
-  if (wave > rhss::kTargetBlocks) wave = rhss::kTargetBlocks;
-  wave /= g.col_blocks;
-  if (wave < 1) wave = 1;
-  if (strips > wave) strips = wave;
-  rhss::split_rows(g, rows, (int)(strips * g.col_blocks));
+  const int64_t need = (rows + round - 1) / round;  // strips of one round
+  if (need <= (int64_t)kCluster * kSingleRounds) {
+    rhss::split_rows(g, rows,
+                     (int)(need < kCluster ? need : kCluster) * g.col_blocks);
+    g.cluster = 1;  // a power of 2: the strips past the rows add zeros
+    while (g.cluster < g.row_blocks) g.cluster *= 2;
+    g.row_blocks = g.cluster;
+    g.clusters = 1;
+    return g;
+  }
+  g.cluster = kCluster;
+  int64_t most = active / g.col_blocks;  // clusters a group, all resident
+  if (most > kMaxClusters) most = kMaxClusters;
+  if (most < 1) most = 1;  // more column groups than the card holds
+  int64_t want = (need + g.cluster - 1) / g.cluster;
+  if (want > most) want = most;
+  rhss::split_rows(g, rows, (int)(want * g.cluster * g.col_blocks));
+  g.clusters = (g.row_blocks + g.cluster - 1) / g.cluster;
+  g.row_blocks = g.clusters * g.cluster;
   return g;
+}
+
+// The launch's geometry for (rows, channels) of dtype T, and the clusters
+// the card holds at once.
+template <typename T>
+int plan_geometry(int64_t rows, int channels, int* active, Geometry* g,
+                  int64_t* view_rows) {
+  const int set = active_clusters<T>(active);
+  if (set != 0) return set;
+  // the view: rows of width = lcm(channels, 8) columns, per image rows each
+  const int width = rhss::view_width(channels);
+  const int per = width / channels;
+  *view_rows = rows / per;
+  *g = geometry(*view_rows > 0 ? *view_rows : 1, width, rows_in_flight<T>(),
+                *active);
+  if (g->col_blocks > kMaxGroups || g->clusters > kMaxClusters)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 template <typename T>
 int launch(const void* x, int64_t rows, int channels, float* ws,
            int* counters, float* mean, float* var, double* sums,
            cudaStream_t s) {
-  static rhss::DeviceOnce once;
-  int sms = 0;
-  const int set = once.get(&sms, [] { return cudaSuccess; });
-  if (set != 0) return set;
-  // the view: rows of width = lcm(channels, 8) columns, per image rows each
+  int active = 0;
+  Geometry g;
+  int64_t view_rows = 0;
+  const int bad = plan_geometry<T>(rows, channels, &active, &g, &view_rows);
+  if (bad) return bad;
   const int width = rhss::view_width(channels);
-  const int per = width / channels;
-  const int64_t view_rows = rows / per;
-  const Geometry g = geometry(view_rows > 0 ? view_rows : 1, width,
-                              rows_in_flight<T>(), sms);
-  if (g.col_blocks > kMaxGroups || g.row_blocks > rhss::kTargetBlocks)
-    return (int)cudaErrorInvalidValue;
-  // the chunks' sums follow the strips' partials in the workspace, then the
-  // view's column sums
-  double* chunks = reinterpret_cast<double*>(
-      ws + 2 * (int64_t)rhss::kTargetBlocks * width);
-  double* cols = chunks + 2 * (int64_t)kMaxChunks * width;
-  const Args args{x,    ws,         chunks, cols,  counters, mean,
-                  var,  sums,       view_rows, rows, g.rows_per_block,
-                  width, channels,  (int)(rows - view_rows * per),
-                  g.tx, g.ty, g.row_blocks, g.vecs};
-  bn_stats_one_pass<T>
-      <<<dim3(g.col_blocks, g.row_blocks), kThreads, 0, s>>>(args);
+  // the clusters' sums, then the view's column sums
+  double* clusters = reinterpret_cast<double*>(ws);
+  double* cols = clusters + 2 * (int64_t)kMaxClusters * width;
+  const Args args{x,
+                  clusters,
+                  cols,
+                  counters,
+                  mean,
+                  var,
+                  sums,
+                  view_rows,
+                  rows,
+                  g.rows_per_block,
+                  width,
+                  channels,
+                  (int)(rows - view_rows * (width / channels)),
+                  g.tx,
+                  g.ty,
+                  g.vecs,
+                  g.clusters};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)g.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.col_blocks, g.row_blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, bn_stats_cluster<T>, args);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left pending
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -457,10 +547,10 @@ int dispatch(int dtype, A... args) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x: rows * channels elements, 16-byte
-// aligned; workspace: (2 * 528 + 4 * 33 + 4) * L floats, L = lcm(channels, 8)
-// (bn_reduce.cuh's kTargetBlocks strips of f32 partials, then kMaxChunks
-// chunks of f64 sums, then the view's f64 column sums); counters: 64 * 34 + 1
-// ints, 0 (and left at 0); mean, var: channels floats. L <= 16384.
+// aligned; workspace: (4 * 64 + 4) * L floats, L = lcm(channels, 8)
+// (kMaxClusters clusters' f64 sums, then the view's f64 column sums);
+// counters: 64 * 34 + 1 ints, 0 (and left at 0); mean, var: channels
+// floats. L <= 16384.
 extern "C" int rhss_bn_stats(const void* x, int64_t rows, int channels,
                              int dtype, void* workspace, void* counters,
                              void* mean, void* var, void* stream) {
@@ -483,4 +573,32 @@ extern "C" int rhss_bn_stats_sums(const void* x, int64_t rows, int channels,
                   static_cast<int*>(counters), static_cast<float*>(nullptr),
                   static_cast<float*>(nullptr), static_cast<double*>(sums),
                   reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The launch both entries would make for (rows, channels, dtype) on the
+// current device, launching nothing: out[0..8] = column groups, strips a
+// group, blocks a cluster, clusters a group, rows a strip, tx, ty, levels
+// (1: the cluster writes the statistics; 2: a ticket picks the block that
+// adds the clusters), then how many clusters of kCluster blocks the card
+// holds at once.
+extern "C" int rhss_bn_stats_geometry(int64_t rows, int channels, int dtype,
+                                      int64_t* out) {
+  const int bad = check(rows, channels, dtype);
+  if (bad) return bad;
+  int active = 0;
+  Geometry g;
+  int64_t view_rows = 0;
+  const int err =
+      dtype == 1 ? plan_geometry<__nv_bfloat16>(rows, channels, &active, &g,
+                                                &view_rows)
+                 : plan_geometry<float>(rows, channels, &active, &g,
+                                        &view_rows);
+  if (err) return err;
+  const int width = rhss::view_width(channels);
+  const bool one = g.clusters == 1 && (width == channels || g.col_blocks == 1);
+  const int64_t v[8] = {g.col_blocks, g.row_blocks, g.cluster, g.clusters,
+                        g.rows_per_block, g.tx, g.ty, one ? 1 : 2};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  out[8] = active;
+  return 0;
 }

@@ -26,12 +26,15 @@ kernel 2's train entry); both count kernel launches and nothing else.
 ``GRAD_COPIES`` counts backward launches whose incoming gradient had to be
 copied into the contiguous ``(rows, C)`` layout first.
 
-The statistics kernel is one launch per call: its blocks' partial sums are
-added by the blocks that draw the last ticket from integer counters (one
-per chunk of 16 strips, one per column group); so are those of the BN
-backward's reduce entry (one per chain of strips, one per column group).
-Those counters must be 0 before every launch, and every launch leaves them
-at 0 again. They live in one int32 buffer per device, made with
+The statistics kernel is one launch per call of thread block clusters:
+each cluster adds its blocks' strips through distributed shared memory,
+and where a call takes more than one cluster a column group, the block
+that draws the last ticket from an integer counter (one per column group,
+or one for the call where it folds a view wider than C) adds the
+clusters' sums; the BN backward's reduce entry adds its blocks' partial
+sums through such tickets (one per chain of strips, one per column
+group). Those counters must be 0 before every launch, and every launch
+leaves them at 0 again. They live in one int32 buffer per device, made with
 ``torch.zeros`` at the first call on that device (which must not be inside
 CUDA graph capture) and never freed: one slot of ``_COUNTERS_PER_STREAM``
 counters per stream, which the two kernels' launches on that stream take
@@ -115,7 +118,7 @@ import torch.distributed as dist
 
 __all__ = ["fused_scale_bias_act", "bn_stats", "bn_act_backward",
            "bn_act_forward", "FusedBNAct", "fused_bn_act", "batch_norm_act",
-           "bn_stats_sums",
+           "bn_stats_sums", "stats_geometry",
            "stats_from_sums", "bn_backward_reduce", "bn_backward_dx",
            "SyncFusedBNAct", "sync_batch_norm_act", "ACTS", "TRAIN_ACTS",
            "LAUNCHES", "TRAIN_LAUNCHES", "GRAD_COPIES"]
@@ -165,6 +168,7 @@ _SIGNATURES = {
     ("bn_backward", "rhss_bn_backward"):
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ("bn_stats", "rhss_bn_stats_sums"): [_P, _I64, _I, _I, _P, _P, _P, _P],
+    ("bn_stats", "rhss_bn_stats_geometry"): [_I64, _I, _I, _P],
     ("bn_backward", "rhss_bn_backward_reduce"):
         [_P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     ("bn_backward", "rhss_bn_backward_dx"):
@@ -352,16 +356,20 @@ def _workspace(x: torch.Tensor, c: int) -> torch.Tensor:
 # the ticket counters of the statistics kernel (csrc/bn_stats.cu) and the BN
 # backward's reduce entry (csrc/bn_backward.cu): for each of at most
 # kMaxGroups = 64 column groups of 32 channel vectors (so L <= 8 * 32 * 64),
-# one for the group and one per chunk of 16 strips (at most 33); the reduce
-# entry 17 per column group (its chains' tree, one per chain of strips), the
-# first 64 * 17; then the one both draw from to fold a view wider than C
-# (kFoldCounter in csrc/bn_reduce.cuh). A launch leaves them at 0, so the
-# two kernels share a stream's slot. Slots: the streams of one device that
-# may call them (torch's stream pools hold 32 per priority, plus the
-# default stream and the graph capture stream)
+# _GROUP_COUNTERS = 34 (the statistics kernel draws from the first, where a
+# call takes more than one cluster a group; the reduce entry from the first
+# 17: its chains' tree and one per chain of strips); then kFoldCounter
+# (csrc/bn_reduce.cuh), the one both draw from where they fold a view wider
+# than C. A launch leaves them at 0, so the two kernels share a stream's
+# slot. Slots: the streams of one device that may call them (torch's stream
+# pools hold 32 per priority, plus the default stream and the graph capture
+# stream)
 _STATS_GROUPS = 64
-_STATS_CHUNKS = -(-_MAX_STRIPS // 16)
-_COUNTERS_PER_STREAM = _STATS_GROUPS * (1 + _STATS_CHUNKS) + 1
+_GROUP_COUNTERS = 1 + -(-_MAX_STRIPS // 16)
+_COUNTERS_PER_STREAM = _STATS_GROUPS * _GROUP_COUNTERS + 1
+# the most clusters of the statistics kernel a column group (kMaxClusters in
+# csrc/bn_stats.cu): the workspace's rows of their f64 sums
+_STATS_CLUSTERS = 64
 _COUNTER_SLOTS = 256
 _COUNTERS = {}  # device index -> int32 (_COUNTER_SLOTS, _COUNTERS_PER_STREAM)
 _SLOTS = {}  # (device index, stream handle) -> slot
@@ -395,11 +403,11 @@ def _counters(x: torch.Tensor, stream: int) -> torch.Tensor:
 
 
 def _stats_workspace(x: torch.Tensor, c: int) -> torch.Tensor:
-    """The column reduction's workspace, then two f64 sums per column of
-    the view and chunk of 16 strips (the statistics kernel's second level),
+    """The statistics kernel's workspace (f32 words): two f64 sums per
+    column of the view and cluster of a column group (its second level),
     then two per column (the sums it folds where L > C)."""
     width = _view_width(c)
-    return torch.empty((2 * _MAX_STRIPS + 4 * _STATS_CHUNKS + 4) * width,
+    return torch.empty((4 * _STATS_CLUSTERS + 4) * width,
                        dtype=torch.float32, device=x.device)
 
 
@@ -423,6 +431,27 @@ def _launch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
           out[0].data_ptr(), out[1].data_ptr(), stream)
     TRAIN_LAUNCHES["bn_stats"] += 1
     return out[0], out[1]
+
+
+# rhss_bn_stats_geometry's numbers (csrc/bn_stats.cu)
+_GEOMETRY_KEYS = ("column_groups", "strips", "cluster", "clusters",
+                  "rows_per_strip", "tx", "ty", "levels", "card_clusters")
+
+
+def stats_geometry(x: torch.Tensor) -> dict:
+    """The launch kernel 1 (either entry) makes for ``x`` on its card,
+    launching nothing: column groups, strips a group, blocks a cluster,
+    clusters a group, rows a strip, the block's lanes (tx, ty), levels (1:
+    the cluster writes the statistics; 2: the clusters' sums go through the
+    workspace and a ticket), and how many clusters of 8 blocks the card
+    holds at once."""
+    if x.device.type != "cuda":
+        raise ValueError("stats_geometry describes a launch on a card")
+    c = _check_rows_c(x, "bn_stats")
+    out = (ctypes.c_int64 * len(_GEOMETRY_KEYS))()
+    _call(x, "bn_stats geometry", _fn("bn_stats", "rhss_bn_stats_geometry"),
+          x.numel() // c, c, _DTYPES[x.dtype], ctypes.addressof(out))
+    return dict(zip(_GEOMETRY_KEYS, out))
 
 
 def bn_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

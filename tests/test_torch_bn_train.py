@@ -11,7 +11,11 @@ Pallas kernel pads to its row tile with zeros); outputs and gradients 1e-5
 of the tensor's largest value in f32, one bf16 ulp in bf16; running
 statistics 1e-6 relative + 1e-7.
 """
+import ctypes
 import importlib
+import math
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -260,6 +264,50 @@ def test_bn_backward_is_one_counted_entry(act):
     assert none is None and dx.shape == x.shape
     assert torch.equal(dg, dg2) and torch.equal(db, db2)
 
+
+
+_CSRC = pathlib.Path(tfba.__file__).resolve().parents[1] / "csrc"
+
+
+def _constant(source: str, name: str) -> int:
+    """``constexpr int <name> = <int>;`` of a CUDA source of the port."""
+    text = (_CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert len(found) == 1, (source, name, found)
+    return int(found[0])
+
+
+def test_stats_layout_follows_the_cuda_sources():
+    """The statistics wrappers size the workspace and the per-stream ticket
+    counters the CUDA sources index: ``_STATS_CLUSTERS``, ``_MAX_STRIPS``,
+    ``_STATS_GROUPS`` are the sources' ``kMaxClusters``, ``kTargetBlocks``,
+    ``kMaxGroups``; a stream's slot ends with ``kFoldCounter``; the
+    workspace holds ``(4 * kMaxClusters + 4) * lcm(C, 8)`` floats (two f64
+    sums a cluster and column, then two a column), as the C entries' note
+    says; the geometry query returns 8 numbers and the clusters of
+    ``kCluster`` = 8 blocks the card holds at once."""
+    clusters = _constant("bn_stats.cu", "kMaxClusters")
+    strips = _constant("bn_reduce.cuh", "kTargetBlocks")
+    groups = _constant("bn_reduce.cuh", "kMaxGroups")
+    assert (tfba._STATS_CLUSTERS, tfba._MAX_STRIPS, tfba._STATS_GROUPS) == \
+        (clusters, strips, groups)
+    fold = re.findall(r"constexpr int kFoldCounter = (.+);",
+                      (_CSRC / "bn_reduce.cuh").read_text())
+    assert fold == ["kMaxGroups * (1 + (kTargetBlocks + 15) / 16)"]
+    assert tfba._COUNTERS_PER_STREAM == groups * (1 + (strips + 15) // 16) + 1
+    assert tfba._GROUP_COUNTERS == 1 + (strips + 15) // 16
+    note = (_CSRC / "bn_stats.cu").read_text()
+    assert f"workspace: (4 * {clusters} + 4) * L floats" in note
+    for c in (8, 18, 48, 270, 720):
+        ws = tfba._stats_workspace(torch.empty(0), c)
+        assert ws.dtype == torch.float32
+        assert ws.numel() == (4 * clusters + 4) * (c * 8 // math.gcd(c, 8))
+    assert _constant("bn_stats.cu", "kCluster") == 8
+    assert len(tfba._GEOMETRY_KEYS) == 9
+    assert tfba._SIGNATURES[("bn_stats", "rhss_bn_stats_geometry")] == [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    with pytest.raises(ValueError, match="on a card"):
+        tfba.stats_geometry(torch.ones(4, 8))
 
 
 @pytest.mark.parametrize("act", ["relu", "none"])

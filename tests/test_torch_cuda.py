@@ -133,6 +133,18 @@ BACKWARD_SHAPES = TRAIN_SHAPES + [(16, 155, 155, 48), (2, 155, 155, 720),
 STATS_SHAPES = TRAIN_SHAPES + [(16, 352, 352, 64), (2, 155, 155, 720),
                                (200003, 8), (4099, 8), (97343, 96), (5, 48),
                                (1, 720), (16, 20, 20, 48)]
+# the cluster geometry's edges (csrc/bn_stats.cu) at C = 48 (32 row lanes:
+# a round is 256 rows of bf16, 128 of f32): one strip of one round; one
+# cluster of 8 strips at 4 rounds a thread (4096 rows of f32, 8192 of
+# bf16, the most one cluster takes); one row more (the clusters' sums go
+# through the workspace and a ticket); the most strips a group (the W48
+# stem); a view wider than C with a tail in one column group over many
+# clusters (W18's 18 channels at batch 16), over 5 column groups (its
+# 270-channel head) and over the most (lcm(2047, 8) = 16376 columns, 64
+# groups, 2 view rows and a tail); the widest view at C % 8 == 0
+STATS_EDGE_SHAPES = [(256, 48), (4096, 48), (4097, 48), (8192, 48),
+                     (8193, 48), (16, 310, 310, 64), (16, 155, 155, 18),
+                     (1, 155, 155, 270), (17, 2047), (3, 16384)]
 
 
 def _stats_ok(got, want):
@@ -164,7 +176,8 @@ def _counters_zero(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", STATS_SHAPES)
+@pytest.mark.parametrize("shape", STATS_SHAPES + STATS_EDGE_SHAPES[:5]
+                         + STATS_EDGE_SHAPES[6:])
 def test_bn_stats_kernel_equals_plain(cuda, shape, dtype):
     x = _train_inputs(shape, dtype, cuda)[0]
     before = fba.TRAIN_LAUNCHES["bn_stats"]
@@ -177,24 +190,82 @@ def test_bn_stats_kernel_equals_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 155, 155, 48), (2, 155, 155, 720),
-                                   (16, 352, 352, 64), (1001, 48)])
+                                   (16, 352, 352, 64), (1001, 48),
+                                   (8193, 48), (1, 155, 155, 270),
+                                   (17, 2047)])
 def test_bn_stats_kernel_is_deterministic(cuda, shape, dtype):
     """The combine adds in a fixed order whichever block does it, and
-    there are no float atomics: two calls give the same bits."""
+    there are no float atomics: two calls give the same bits, of either
+    entry."""
     x = _train_inputs(shape, dtype, cuda, seed=5)[0]
     first = fba.bn_stats(x)
     second = fba.bn_stats(x)
+    sums = [fba.bn_stats_sums(x) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    assert torch.equal(sums[0], sums[1])
+
+
+# (shape, dtype, levels, blocks a cluster where the call is one cluster a
+# column group): csrc/bn_stats.cu's geometry at its edges
+GEOMETRY_EDGES = [((1, 48), torch.bfloat16, 1, 1),
+                  ((256, 48), torch.bfloat16, 1, 1),
+                  ((257, 48), torch.bfloat16, 1, 2),
+                  ((2048, 48), torch.bfloat16, 1, 8),
+                  ((4096, 48), torch.float32, 1, 8),
+                  ((4097, 48), torch.float32, 2, None),
+                  ((8192, 48), torch.bfloat16, 1, 8),
+                  ((8193, 48), torch.bfloat16, 2, None),
+                  ((16, 10, 20, 48), torch.bfloat16, 1, 8),
+                  ((16, 10, 20, 384), torch.bfloat16, 2, None),
+                  ((16, 310, 310, 64), torch.bfloat16, 2, None),
+                  ((3, 18), torch.float32, 1, 1),
+                  ((16, 155, 155, 18), torch.bfloat16, 2, None),
+                  ((1, 155, 155, 270), torch.bfloat16, 2, None),
+                  ((17, 2047), torch.float32, 2, None),
+                  ((3, 16384), torch.float32, 1, 1)]
+
+
+@pytest.mark.parametrize("shape,dtype,levels,cluster", GEOMETRY_EDGES)
+def test_bn_stats_geometry_at_its_edges(cuda, shape, dtype, levels,
+                                        cluster):
+    """The launch both entries make: one cluster a column group (of as
+    many strips as the call has rounds, up to 8, a power of 2) while each
+    thread takes at most 4 rounds, else strips of about a round in
+    clusters of 8 blocks, as many as the card holds at once over the
+    column groups (at most 64 a group); two levels also where a view wider
+    than C spans several column groups."""
+    x = _train_inputs(shape, dtype, cuda)[0]
+    g = fba.stats_geometry(x)
+    assert g["levels"] == levels, g
+    assert g["strips"] == g["cluster"] * g["clusters"], g
+    assert g["cluster"] in (1, 2, 4, 8), g
+    assert g["card_clusters"] >= 1, g  # the portable size fits
+    if cluster is not None:
+        assert g["cluster"] == cluster and g["clusters"] == 1, g
+    else:
+        assert 1 <= g["clusters"] <= min(
+            64, max(1, g["card_clusters"] // g["column_groups"])), g
+        if g["clusters"] > 1:  # else a fold over several column groups
+            assert g["cluster"] == 8, g
+        if g["column_groups"] == 1:
+            assert g["clusters"] > 1, g
+    _stats_ok(fba.bn_stats(x), fba._bn_stats_ref(x))
+    _counters_zero(cuda)
 
 
 def test_bn_stats_kernel_in_a_cuda_graph(cuda):
-    """Three calls captured in a CUDA graph and replayed twice give the
-    eager calls' bits: every launch leaves its counters at 0."""
+    """Calls of both entries captured in a CUDA graph and replayed twice
+    give the eager calls' bits: every launch leaves its counters at 0 (one
+    cluster a group, clusters through a ticket, a fold over one and over
+    five column groups)."""
     xs = [_train_inputs(shape, torch.bfloat16, cuda, seed=i)[0] for i, shape
-          in enumerate([(16, 78, 78, 48), (2, 155, 155, 720), (1001, 48)])]
+          in enumerate([(16, 78, 78, 48), (2, 155, 155, 720), (1001, 48),
+                        (16, 10, 20, 384), (16, 155, 155, 18),
+                        (1, 155, 155, 270)])]
     eager = [fba.bn_stats(x) for x in xs]
+    eager_sums = [fba.bn_stats_sums(x) for x in xs]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -203,31 +274,38 @@ def test_bn_stats_kernel_in_a_cuda_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = [fba.bn_stats(x) for x in xs]
+        captured_sums = [fba.bn_stats_sums(x) for x in xs]
     for _ in range(2):
-        for (m, v) in captured:
+        for (m, v), s in zip(captured, captured_sums):
             m.zero_()
             v.zero_()
+            s.zero_()
         graph.replay()
         torch.cuda.synchronize()
         for (m, v), (em, ev) in zip(captured, eager):
             assert torch.equal(m, em) and torch.equal(v, ev)
+        for s, es in zip(captured_sums, eager_sums):
+            assert torch.equal(s, es)
     _counters_zero(cuda)
 
 
 def test_bn_stats_kernel_on_two_streams(cuda):
-    """Calls on two streams at once, from two threads, take separate
-    counters and each gives the eager bits."""
+    """Calls of both entries on two streams at once, from two threads,
+    take separate counters and each gives the eager bits."""
     xs = [_train_inputs((16, 155, 155, 64), torch.bfloat16, cuda, seed=i)[0]
           for i in range(2)]
     eager = [fba.bn_stats(x) for x in xs]
+    eager_sums = [fba.bn_stats_sums(x) for x in xs]
     streams = [torch.cuda.Stream() for _ in xs]
     got = [[], []]
+    got_sums = [[], []]
     torch.cuda.synchronize()
 
     def calls(i):
         with torch.cuda.stream(streams[i]):
             for _ in range(8):
                 got[i].append(fba.bn_stats(xs[i]))
+                got_sums[i].append(fba.bn_stats_sums(xs[i]))
 
     threads = [threading.Thread(target=calls, args=(i,)) for i in range(2)]
     for t in threads:
@@ -240,8 +318,37 @@ def test_bn_stats_kernel_on_two_streams(cuda):
         assert len(outs) == 8
         for m, v in outs:
             assert torch.equal(m, em) and torch.equal(v, ev)
+    for outs, es in zip(got_sums, eager_sums):
+        assert len(outs) == 8 and all(torch.equal(s, es) for s in outs)
     slots = {fba._SLOTS[(cuda.index or 0, st.cuda_stream)] for st in streams}
     assert len(slots) == 2
+    _counters_zero(cuda)
+
+
+@pytest.mark.parametrize("entry", ["bn_stats", "bn_stats_sums"])
+def test_refused_stats_launch_raises(cuda, monkeypatch, entry):
+    """A launch the card refuses (here its C entry returns a CUDA error,
+    as cudaLaunchKernelEx does for a cluster the card cannot place) raises
+    with the error and counts no launch: nothing falls back to the plain
+    version or another launch."""
+    x = _train_inputs((1001, 48), torch.bfloat16, cuda)[0]
+    key = ("bn_stats", "rhss_" + entry)
+    fba._fn(*key)
+    calls = []
+
+    def refused(*args):
+        calls.append(args)
+        return 912
+
+    monkeypatch.setitem(fba._FNS, key, refused)
+    plain = fba._bn_stats_ref if entry == "bn_stats" else \
+        fba._bn_stats_sums_ref
+    monkeypatch.setattr(fba, plain.__name__, lambda *a: pytest.fail(
+        "a refused launch ran the plain version"))
+    before = dict(fba.TRAIN_LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 912"):
+        getattr(fba, entry)(x)
+    assert len(calls) == 1 and fba.TRAIN_LAUNCHES == before
     _counters_zero(cuda)
 
 
@@ -312,7 +419,7 @@ SPLIT_SHAPES = [(16, 352, 352, 64), (16, 155, 155, 48), (2, 155, 155, 720),
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("shape", SPLIT_SHAPES + STATS_EDGE_SHAPES)
 def test_split_stats_equal_the_fused_kernel(cuda, shape, dtype):
     _split_stats_ok(cuda, shape, dtype)
 
@@ -383,7 +490,11 @@ BAND_SHAPES = [((16, 10, 20, 48), torch.bfloat16),
                ((16, 10, 20, 384), torch.bfloat16),
                ((16, 78, 155, 720), torch.bfloat16),
                ((16, 176, 352, 64), torch.float32),
-               ((16, 11, 22, 512), torch.float32)]
+               ((16, 11, 22, 512), torch.float32),
+               # W18's (18 channels: a fold over many clusters; its head's
+               # 270 over five column groups)
+               ((16, 78, 155, 18), torch.bfloat16),
+               ((16, 77, 155, 270), torch.bfloat16)]
 
 
 @pytest.mark.parametrize("shape,dtype", BAND_SHAPES)
@@ -407,7 +518,8 @@ def test_kernels_at_band_shapes(cuda, shape, dtype):
 # columns at every C here; fewer rows than one row of the view (3 of 18: 4
 # to a view's row; 2 of 270); a tail of 3 rows (7 of 6); a W18 band
 ODD_C_SHAPES = ([(1, 155, 155, c) for c in (4, 6, 12, 18, 36, 270)]
-                + [(3, 18), (2, 270), (7, 6), (16, 19, 39, 36)])
+                + [(3, 18), (2, 270), (7, 6), (16, 19, 39, 36),
+                   (16, 155, 155, 18)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -531,12 +643,15 @@ def test_bn_backward_kernel_is_deterministic(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 10, 20, 384), (16, 78, 155, 48),
-                                   (77, 720), (61, 8)])
+                                   (77, 720), (61, 8), (8193, 48),
+                                   (16, 78, 155, 18)])
 def test_split_entries_are_deterministic(cuda, shape, dtype):
     """Two launches of each split entry on the same inputs give the same
     bits: no float atomics, the strips added in a fixed order whichever
     block draws the last ticket, and the ticket counters back at 0."""
     x, grad, *vecs = _train_inputs(shape, dtype, cuda, seed=12)
+    sums = [fba.bn_stats_sums(x) for _ in range(2)]
+    assert torch.equal(sums[0], sums[1])
     first = fba.bn_backward_reduce(x, grad, *vecs, "relu")
     second = fba.bn_backward_reduce(x, grad, *vecs, "relu")
     dx1 = fba.bn_backward_dx(x, grad, *vecs, first[2], "relu")

@@ -100,6 +100,7 @@ from torch_dist_common import (
     free_port,
     lr_divergence_job,
     model_job,
+    rank_threads,
     run_ranks,
     step_job,
     train_job,
@@ -359,7 +360,8 @@ def test_model_forward_backward_over_two_ranks(donor, tmp_path):
     equal one process's."""
     sd_path, x, cot = _model_case(donor, tmp_path)
     ranks = run_ranks(model_job, 2, tmp_path, donor, sd_path, x, cot)
-    one = model_job(0, 1, donor, sd_path, x, cot)
+    with rank_threads():
+        one = model_job(0, 1, donor, sd_path, x, cot)
     for L, want in enumerate(one["logits"]):
         got = torch.cat([r["logits"][L] for r in ranks])
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
@@ -398,7 +400,8 @@ def test_train_step_over_two_ranks_equals_one_process(grad_accum, tmp_path):
     sd_path, x, y = _step_setup(tmp_path)
     args = (sd_path, x, y, 1, grad_accum, LR, LEVEL_WEIGHTS)
     ranks = run_ranks(step_job, 2, tmp_path, *args)
-    one = step_job(0, 1, *args)
+    with rank_threads():
+        one = step_job(0, 1, *args)
     init = torch.load(sd_path)
     (loss, per_level, cms), = one["aux"]
     for r in ranks:
@@ -433,7 +436,8 @@ def test_dice_count_is_the_groups(tmp_path):
     y[2:, ..., lvl1] = -1
     args = (sd_path, x, y, 1, 1, LR, LEVEL_WEIGHTS, True)
     ranks = run_ranks(step_job, 2, tmp_path, *args)
-    one = step_job(0, 1, *args)
+    with rank_threads():
+        one = step_job(0, 1, *args)
     want = one["aux"][0][0]
     assert one["local_loss"][0] == pytest.approx(want, rel=1e-6)
     for r in ranks:
@@ -482,7 +486,8 @@ def test_trainer_epoch_over_two_ranks_equals_one_process(tmp_path, data,
                                                          monkeypatch):
     small_model(monkeypatch)
     one = tmp_path / "one"
-    ploop.train(RunConfig(**_cfg_kw(data, one)), device="cpu")
+    with rank_threads():
+        ploop.train(RunConfig(**_cfg_kw(data, one)), device="cpu")
     two = tmp_path / "two"
     res = run_ranks(train_job, 2, tmp_path, _cfg_kw(data, two))
     assert res[0] == res[1]  # every rank gets the writer's best metric
@@ -503,7 +508,8 @@ def test_cli_dist_coordinator_trains_on_two_ranks(tmp_path, data,
              "--model-type", "1", "--img-size", "32", "--batch-size", "2",
              "--learning-rate", "[1e-3]", "--num-workers", "2",
              "--folds", "1", "--epochs", "1", "--device", "cpu"]
-    pcli.main(["--save-path", str(tmp_path / "one")] + flags)
+    with rank_threads():
+        pcli.main(["--save-path", str(tmp_path / "one")] + flags)
     run_ranks(cli_job, 2, tmp_path,
               ["--save-path", str(tmp_path / "two"), *flags,
                "--dist-coordinator", f"127.0.0.1:{free_port()}"],

@@ -16,7 +16,7 @@ synthetic images, as JAX ``tests/test_fold_parallel.py`` cuts it).
   computation; only the order of the folds' steps differs). So do its
   compositions with ``grad_accum`` and ``device_data``; two ranks each
   training one fold (``(fold=2, data=1)`` mesh) agree with one process
-  within rtol 1e-4 (their processes run two threads each).
+  within rtol 1e-4 (one process at the ranks' two threads each).
 * Lockstep ``auto_resume`` (all or nothing), ``best_save="end"`` through
   the checkpoint manager's defer hooks, the refusal of a ``.ckpt``
   ``model_weights``, the surplus batches of a longer fold dropped and
@@ -64,7 +64,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.fold_parallel import (
     FoldParallelTrainer,
 )
-from torch_dist_common import run_ranks, train_job
+from torch_dist_common import rank_threads, run_ranks, train_job
 from torch_port_common import trees
 from torch_trainer_common import JAX_PKG, jax_small_model, numbers, small_model
 
@@ -74,8 +74,9 @@ RESUME_RTOL = 1e-4  # tests/test_torch_trainer.py
 # largest value (tests/torch_train_common.py:STATS_RTOL["default"]; its
 # batch variance cancels in f32)
 STATS_RTOL = 1e-4
-# one process against ranks of their own (two threads each, so oneDNN adds
-# in another order): the resume tolerance
+# one process against ranks of their own (both at the ranks' two threads,
+# rank_threads; the folds' batches still differ in order of adds): the
+# resume tolerance
 PROCESS_RTOL = 1e-4
 
 
@@ -299,8 +300,9 @@ def test_two_ranks_train_a_fold_each(data, tmp_path, monkeypatch):
     trains fold r + 1 alone and writes its files; the runs equal one
     process's, and every rank returns both folds' best metrics."""
     small_model(monkeypatch)
-    one = ploop.train(_cfg(data, tmp_path / "one", fold_parallel=True),
-                      device="cpu")
+    with rank_threads():
+        one = ploop.train(_cfg(data, tmp_path / "one", fold_parallel=True),
+                          device="cpu")
     two = run_ranks(train_job, 2, tmp_path,
                     _kw(data, tmp_path / "two", fold_parallel=True))
     assert two[0] == two[1]

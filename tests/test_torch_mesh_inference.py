@@ -59,6 +59,7 @@ from torch_dist_common import (
     ASSETS_MAP,
     ASSETS_TREE,
     mesh_inference_job,
+    rank_threads,
     run_ranks,
 )
 from torch_eval_common import (
@@ -113,8 +114,9 @@ def setup(tmp_path_factory):
 def test_fold_mesh_matches_the_single_process_ensemble(setup, tta,
                                                        monkeypatch):
     _, make = models("unet")
-    one = port_predictor(monkeypatch, make, setup["folds"], tta=tta)(
-        setup["x"])
+    with rank_threads():
+        one = port_predictor(monkeypatch, make, setup["folds"], tta=tta)(
+            setup["x"])
     got = [r[f"tta={tta}"] for r in setup["ranks"]]
     assert [g["local_folds"] for g in got] == [N_FOLDS // 2] * 2
     for L in range(2):
@@ -212,8 +214,9 @@ def test_evaluator_on_two_ranks_writes_what_one_process_writes(
         setup, tmp_path, monkeypatch):
     small_models(monkeypatch, jax_side=False)
     cfg = RunConfig(tree_root=ASSETS_TREE, class_map=ASSETS_MAP, **EVAL_KW)
-    one = pev.predict_eval(cfg, [setup["pw"]], [setup["data_root"]],
-                           str(tmp_path / "one"), device="cpu")
+    with rank_threads():
+        one = pev.predict_eval(cfg, [setup["pw"]], [setup["data_root"]],
+                               str(tmp_path / "one"), device="cpu")
     rank0 = os.path.join(setup["save"], "rank0", "fold_1")
     assert not os.path.exists(os.path.join(setup["save"], "rank1"))
     files = _files(rank0)

@@ -49,7 +49,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.state import
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.train.steps import (
     make_train_step,
 )
-from torch_dist_common import build_small, run_ranks, step_job
+from torch_dist_common import build_small, rank_threads, run_ranks, step_job
 from torch_port_common import trees
 from torch_train_common import LEVEL_WEIGHTS, LR, Pair, batch
 
@@ -266,7 +266,8 @@ def test_remat_over_two_ranks_equals_one_process(tmp_path):
     x, y = batch(ptree, seed=0, n=4, size=32)
     args = (sd_path, x, y, 1, 1, LR, LEVEL_WEIGHTS)
     ranks = run_ranks(step_job, 2, tmp_path, *args, False, "conv")
-    one = step_job(0, 1, *args, False, "conv")
+    with rank_threads():
+        one = step_job(0, 1, *args, False, "conv")
     (loss, per_level, cms), = one["aux"]
     for r in ranks:
         (rl, rpl, rcm), = r["aux"]

@@ -49,7 +49,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.parallel.mesh impo
     make_fold_mesh,
     make_mesh,
 )
-from torch_dist_common import build_small, run_ranks
+from torch_dist_common import build_small, rank_threads, run_ranks
 from torch_space_common import forward_job, ops_job
 
 REL = 1e-5
@@ -269,7 +269,7 @@ def test_donor_forward_on_bands_equals_one_process(donor, size, n,
         model = build_small(donor)
         model.load_state_dict(sd, strict=True)
         model = model.to(memory_format=torch.channels_last).train(train)
-        with torch.no_grad():
+        with torch.no_grad(), rank_threads():
             want = model(torch.from_numpy(x))
         for L, (z, p) in enumerate(zip(want.logits_per_level,
                                        want.probs_per_level)):

@@ -65,7 +65,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
     state as pstate,
 )
 from test_torch_quantize import AGREE, PROB_MAX
-from torch_dist_common import build_small, run_ranks
+from torch_dist_common import build_small, rank_threads, run_ranks
 from torch_port_common import jax_variables
 from torch_serving_common import models
 from torch_space_common import (
@@ -120,10 +120,11 @@ def runs(tmp_path_factory):
     one = {}
     try:
         mp.setattr(pev, "build_model", pev.build_model)
-        for donor, tta in CASES:
-            one[(donor, tta)] = _evaluate(
-                RunConfig(**_cfg_kw(donor, tta)), donor, roots[donor],
-                weights[donor][1], str(tmp / "one" / f"{donor}_{tta}"))
+        with rank_threads():
+            for donor, tta in CASES:
+                one[(donor, tta)] = _evaluate(
+                    RunConfig(**_cfg_kw(donor, tta)), donor, roots[donor],
+                    weights[donor][1], str(tmp / "one" / f"{donor}_{tta}"))
     finally:
         mp.undo()
     ranks = {}

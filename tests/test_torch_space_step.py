@@ -44,7 +44,7 @@ from restrictive_hierarchical_semantic_segmentation_tpu.train.steps import (
 from restrictive_hierarchical_semantic_segmentation_tpu_torch.bridge import (
     state_dict_from_flax,
 )
-from torch_dist_common import build_small, run_ranks
+from torch_dist_common import build_small, rank_threads, run_ranks
 from torch_port_common import jax_variables, trees
 from torch_space_common import step_job, steps_job
 from torch_train_common import (
@@ -158,7 +158,8 @@ def band_steps(tmp_path_factory):
         sd = copy.deepcopy(build_small(donor).state_dict())
         x, y = batch(ptree, seed=3, n=4, size=size)
         run = (donor, sd, x, y, nd, ns, LR, LEVEL_WEIGHTS, kw, remat)
-        out[i] = {"one": step_job(0, 1, *run[:4], 1, 1, *run[6:9])}
+        with rank_threads():
+            out[i] = {"one": step_job(0, 1, *run[:4], 1, 1, *run[6:9])}
         by_world.setdefault(nd * ns, []).append((i, run))
     for world, runs in by_world.items():
         res = run_ranks(steps_job, world,

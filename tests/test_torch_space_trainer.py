@@ -45,7 +45,13 @@ from restrictive_hierarchical_semantic_segmentation_tpu_torch.train import (
     evaluate,
     loop,
 )
-from torch_dist_common import ASSETS_MAP, ASSETS_TREE, build_small, run_ranks
+from torch_dist_common import (
+    ASSETS_MAP,
+    ASSETS_TREE,
+    build_small,
+    rank_threads,
+    run_ranks,
+)
 from torch_space_common import space_runs_job
 from torch_trainer_common import numbers, small_model
 
@@ -106,14 +112,17 @@ def runs(tmp_path_factory):
         tmp = tmp_path_factory.mktemp("space_runs")
         data = str(tmp / "data")
         write_synth_dataset(data, 8, size=96, seed=5, folds=2)
-        pcli.main(_cli_argv(tmp / "one_cli", data))
-        loop.train(RunConfig(**_fold_kw(tmp / "one_fp", data)), device="cpu")
         weights = str(tmp / "one_cli" / "fold_1" / "best.ckpt")
         eval_root = os.path.join(data, "fold_1", "val")
         cfg = RunConfig(tree_root=ASSETS_TREE, class_map=ASSETS_MAP,
                         **EVAL_KW)
-        one_eval = evaluate.predict_eval(cfg, [weights], [eval_root],
-                                         str(tmp / "one_eval"), device="cpu")
+        with rank_threads():
+            pcli.main(_cli_argv(tmp / "one_cli", data))
+            loop.train(RunConfig(**_fold_kw(tmp / "one_fp", data)),
+                       device="cpu")
+            one_eval = evaluate.predict_eval(cfg, [weights], [eval_root],
+                                             str(tmp / "one_eval"),
+                                             device="cpu")
     finally:
         mp.undo()
     ranks = run_ranks(space_runs_job, 2, tmp,

@@ -8,8 +8,12 @@ ranks run.
 test's ``tmp_path`` (no port, so concurrent test workers never collide),
 joins the ranks with a time limit, kills what is left, and returns what
 each rank's job returned (through ``torch.save`` files, no queue). The
-jobs import torch and the port only: never jax.
+jobs import torch and the port only: never jax. Every rank runs
+``RANK_THREADS`` intra-op threads; a one-process reference held against
+ranks runs under :func:`rank_threads`, so oneDNN and MKL split its sums
+as the ranks' do.
 """
+import contextlib
 import os
 import time
 
@@ -21,12 +25,25 @@ _ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "assets")
 ASSETS_TREE = os.path.join(_ASSETS, "class_tree_tl.json")
 ASSETS_MAP = os.path.join(_ASSETS, "class_map.csv")
+RANK_THREADS = 2  # intra-op threads of every spawned rank
+
+
+@contextlib.contextmanager
+def rank_threads():
+    """The body at the ranks' intra-op thread count, the caller's count
+    restored after (also a decorator)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(RANK_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
 
 
 def _entry(job, rank, world, init, out_dir, args):
     import torch.distributed as dist
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(RANK_THREADS)
     if init is not None:
         dist.init_process_group("gloo", init_method=init, world_size=world,
                                 rank=rank)
